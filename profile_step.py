@@ -1,0 +1,161 @@
+"""Profile the bench attention step of the PyTorch + CUDA port on one
+NVIDIA GPU: where the device time of the forward, and of one forward +
+backward, goes.
+
+Run from the repository root: python3 profile_step.py
+
+Slice config (B=1, T=5, F=16, HD=2, 128^2, ws=5, wt=2, ps=3, K=10,
+stride1=0.5), inputs from numpy seed 0, as chip_smoke.py's main path.
+Prints the card's name and power limit, then:
+  - forward: host ms a step under torch.profiler over 5 steps, device ms
+    a step (the sum of the device self times), the device's idle share,
+    the number of device launches a step, and the top device ops;
+  - forward + backward: median ms of 5 (CUDA events), peak memory, and
+    the top device ops of one traced step.
+The last line is one JSON object of these numbers. Exits non-zero
+without a CUDA device. Imports nothing of JAX.
+"""
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+STEPS = 5
+TOP = 8
+
+
+def device_us(evt):
+    """Self device time of a profiler row, in microseconds."""
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return getattr(evt, name)
+    return 0.
+
+
+def trace(torch, fn, steps, dev):
+    """Run fn `steps` times under torch.profiler. Returns (host ms a step,
+    rows sorted by self device time)."""
+    from torch.profiler import profile, ProfilerActivity
+    fn()                                             # warm-up outside
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize(dev)
+        host_ms = (time.perf_counter() - t0) * 1e3 / steps
+    rows = sorted(prof.key_averages(), key=device_us, reverse=True)
+    return host_ms, [r for r in rows if device_us(r) > 0]
+
+
+def summarise(rows, steps, label):
+    """Device ms and launches a step, from the device rows (kernels,
+    memcpy, memset); the top device rows and the top host ops by the
+    device time of the kernels they launched. The port's own kernels are
+    launched through ctypes, under no host op: they show among the
+    device rows only."""
+    from torch.autograd import DeviceType
+    dev_rows = [r for r in rows if r.device_type == DeviceType.CUDA]
+    op_rows = [r for r in rows if r.device_type == DeviceType.CPU]
+    total_ms = sum(device_us(r) for r in dev_rows) / 1e3 / steps
+    launches = sum(r.count for r in dev_rows) / steps
+    print(f"[{label}] device {total_ms:.3f} ms a step, {launches:.0f} "
+          "device launches a step", flush=True)
+    top = {}
+    for kind, sel in (("device", dev_rows), ("host op", op_rows)):
+        print(f"[{label}] top {kind} rows by self device time:", flush=True)
+        top[kind] = []
+        for r in sel[:TOP]:
+            ms = device_us(r) / 1e3 / steps
+            share = ms / total_ms if total_ms else 0.
+            print(f"  {ms:9.3f} ms  {share:6.1%}  x{r.count / steps:6.0f}  "
+                  f"{r.key[:100]}", flush=True)
+            top[kind].append({"name": r.key, "ms": ms, "share": share})
+    return total_ms, launches, top
+
+
+def profile(torch, dev, H=128):
+    from stnls_tpu_torch.attn_step import AttnStep, smooth_flows
+    B, T, F, K = 1, 5, 16, 10
+    rng = np.random.default_rng(0)
+
+    def t(x):
+        return torch.from_numpy(x.astype(np.float32)).to(dev)
+
+    vid = t(rng.standard_normal((B, T, F, H, H)))
+    proj_w = t(rng.standard_normal((F, F)) / 4.)
+    stack_w = t(rng.standard_normal((K, F, F)) / 8.)
+    fflow = t(smooth_flows(rng, (B, T, 2, H, H)))
+    bflow = t(smooth_flows(rng, (B, T, 2, H, H)))
+    step = AttnStep()
+
+    def fwd():
+        with torch.no_grad():
+            step(vid, fflow, bflow, proj_w, stack_w)
+
+    def fwd_bwd():
+        v = vid.clone().requires_grad_()
+        f = fflow.clone().requires_grad_()
+        out = step(v, f, bflow, proj_w, stack_w)
+        torch.autograd.grad(out.pow(2).mean(), (v, f))
+
+    host_ms, rows = trace(torch, fwd, STEPS, dev)
+    dev_ms, launches, top = summarise(rows, STEPS, "forward")
+    idle = 1. - dev_ms / host_ms
+    print(f"[forward] host {host_ms:.3f} ms a step under the profiler; "
+          f"device idle share {idle}", flush=True)
+
+    times = []
+    fwd_bwd()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for _ in range(STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fwd_bwd()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    fb_ms = float(np.median(times))
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"[fwd+bwd] median {fb_ms:.3f} ms of {STEPS} = "
+          f"{T / (fb_ms / 1e3):.2f} frames/s; peak memory {peak / 1e9:.3f} "
+          "GB", flush=True)
+    _, rows_fb = trace(torch, fwd_bwd, 1, dev)
+    fb_dev_ms, fb_launches, fb_top = summarise(rows_fb, 1, "fwd+bwd")
+    return {"forward": {"host_ms": host_ms, "device_ms": dev_ms,
+                        "idle_share": idle, "launches": launches,
+                        "top": top},
+            "fwd_bwd": {"ms": fb_ms, "frames_per_s": T / (fb_ms / 1e3),
+                        "peak_bytes": peak, "device_ms": fb_dev_ms,
+                        "launches": fb_launches, "top": fb_top}}
+
+
+def main():
+    here = Path(__file__).resolve().parent
+    if not (here / "stnls_tpu_torch" / "csrc").is_dir():
+        sys.exit("profile_step: stnls_tpu_torch/ not found beside this "
+                 "script")
+    sys.path.insert(0, str(here))
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("profile_step: no CUDA device; it profiles a GPU only")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    smi_line = smi.stdout.strip().splitlines()[0] if smi.stdout else ""
+    print(smi_line, flush=True)
+    res = profile(torch, torch.device("cuda", 0))
+    print(json.dumps(dict(res, card=smi_line)))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,352 @@
+// B1: fused non-local search forward with in-kernel top-K, for Hopper.
+//
+// Replaces the Pallas TPU kernel stnls_tpu/ops/nls_pallas.py:
+// _make_fwd_kernel with emit="topk" (entry nls_pallas_topk). Plain version:
+// stnls_tpu_torch/ops/nls_cuda.py::nls_topk_plain (exhaustive volume, then
+// the _pallas_topk_aux selection rule).
+//
+// What it computes, per query (b, hd, t, qh, qw): l2 or prod distances
+// between the ps x ps x F query patch of vid0 and the ws x ws key patches
+// of vid1 on a stride1 lattice around the flow-shifted, reflected centre
+// (shifted back inside the frame when full_ws), in each of the W_t frames
+// of the boundary-shifted time window. Key reads are bilinear for float
+// and integer for int. A sorted K-list is kept across all W_t*ws*ws cells,
+// ranked by value, ties by lower position id; with `anchor` the self cell
+// (lexicographically first argmin of |dt|+|dh|+|dw|) takes slot 0 and
+// cell 0 competes under the self cell's position id, exactly as
+// _pallas_topk_aux ranks them.
+//
+// What bounds it on the H100: L1/L2 gather loads. At the slice config
+// (F=8 a head, ps=3, ws=5, W_t=5) one query reads 125 cells x 9 taps x 8
+// channels x 4 bilinear corners, about 36k floats, against ~72k flops:
+// the kernel is load-issue bound, not flop bound; the video (2.6 MB a
+// head at 128^2, T=5) stays resident in the 50 MB L2.
+//
+// What the design does about it: one thread per query with neighbouring
+// threads on neighbouring qw, so a warp's corner reads of one tap fall on
+// neighbouring addresses of the same rows (coalesced, L1-resident across
+// the 125 cells); the query patch lives in registers (PS and F are
+// template parameters, built for the pairs listed at the dispatch below); the running K-list lives in thread-local memory
+// (L1). No shared memory, no atomics, no allocation; deterministic.
+// Shared-memory query tiles and TMA staging of key rows are later work.
+
+#include <cuda_runtime.h>
+#include <math_constants.h>
+#include <limits.h>
+
+namespace {
+
+constexpr int KMAX = 64;   // bound on the ranked slots (k, or k-1 anchored)
+
+struct NlsArgs {
+  const float* vid0;   // [B,HD,T,F,H,W]
+  const float* vid1;   // [B,HD,T,F,H,W]
+  const float* flows;  // [B,HDf,T,St,2,nH,nW], channel 0 = w, 1 = h
+  float* dists;        // [B,HD,T,nH,nW,K]
+  int* cells;          // [B,HD,T,nH,nW,K]
+  int B, HD, T, F, H, W;
+  int HDf, St, nH, nW;
+  int ws, wt, ps, stride0, dilation;
+  float stride1;       // float path; the int path passes max(1, int(stride1))
+  float s1_half;       // stride1 * ((ws-1)/2), rounded once on the host
+  int K, anchor, l2, full_ws, use_adj, is_int;
+};
+
+__device__ __forceinline__ int reflect_i(int v, int lim) {
+  int out = v < 0 ? -v : v;
+  return v > lim - 1 ? 2 * (lim - 1) - v : out;
+}
+
+__device__ __forceinline__ float reflect_f(float v, int lim) {
+  float out = v < 0.f ? -v : v;
+  return v > (float)(lim - 1) ? __fsub_rn((float)(2 * (lim - 1)), v) : out;
+}
+
+__device__ __forceinline__ bool inb_f(float v, int lim) {
+  return v >= 0.f && v <= (float)(lim - 1);
+}
+
+// Window offset of one axis (geometry.search_offsets), float path. The
+// _rn intrinsics keep nvcc from contracting into FMAs, so the lattice is
+// bitwise the reference's.
+__device__ float ws_offset_f(float xi, const NlsArgs& a, int L) {
+  float off = (float)((a.ws - 1) / 2);
+  if (!a.full_ws) return off;
+  const float s1 = a.stride1;
+  float off_min = floorf(__fdiv_rn(xi, s1));
+  if (__fsub_rn(xi, a.s1_half) < 0.f) off = off_min;
+  float x_max = __fadd_rn(xi, __fmul_rn(s1, __fsub_rn((float)(a.ws - 1), off)));
+  float off_max = ceilf(__fadd_rn(__fdiv_rn(__fsub_rn(xi, (float)(L - 1)), s1),
+                                  (float)(a.ws - 1)));
+  if (x_max > (float)(L - 1)) off = off_max;
+  return rintf(off);
+}
+
+// Int path: integer centre, integer stride.
+__device__ int ws_offset_i(int xi, const NlsArgs& a, int L) {
+  const int wsHalf = (a.ws - 1) / 2;
+  int off = wsHalf;
+  if (!a.full_ws) return off;
+  const int s1 = (int)a.stride1;
+  int off_min = (int)floorf(__fdiv_rn((float)xi, (float)s1));
+  if (xi - s1 * wsHalf < 0) off = off_min;
+  int x_max = xi + s1 * ((a.ws - 1) - off);
+  int off_max = (int)ceilf(__fadd_rn(__fdiv_rn((float)(xi - (L - 1)), (float)s1),
+                                     (float)(a.ws - 1)));
+  if (x_max > L - 1) off = off_max;
+  return off;
+}
+
+// Centre and window offset of time slot st along both axes. Int-path
+// values are integers held exactly in floats.
+struct Slot {
+  float ch, cw, oh, ow;
+  int tj;
+};
+
+__device__ Slot slot_geometry(const NlsArgs& a, int b, int hd, int t, int qh,
+                              int qw, int st, int ref_h, int ref_w) {
+  const int T = a.T;
+  const int W_t = min(2 * a.wt + 1, T);
+  const int t_shift = min(0, t - a.wt) + max(0, t + a.wt - (T - 1));
+  const int t_max = min(T - 1, t + a.wt - t_shift);
+  Slot s;
+  s.tj = (t + st <= t_max) ? t + st : t_max - st;
+  const int st_off = W_t - a.St;
+  float fh = 0.f, fw = 0.f;
+  if (st >= st_off) {
+    const long long plane = (long long)a.nH * a.nW;
+    const long long base =
+        ((((long long)b * a.HDf + hd % a.HDf) * T + t) * a.St + (st - st_off)) * 2 * plane +
+        (long long)qh * a.nW + qw;
+    fw = a.flows[base];
+    fh = a.flows[base + plane];
+  }
+  if (a.is_int) {
+    const int ch = reflect_i(ref_h + (int)rintf(fh), a.H);
+    const int cw = reflect_i(ref_w + (int)rintf(fw), a.W);
+    s.ch = (float)ch;
+    s.cw = (float)cw;
+    s.oh = (float)ws_offset_i(ch, a, a.H);
+    s.ow = (float)ws_offset_i(cw, a, a.W);
+  } else {
+    s.ch = reflect_f(__fadd_rn((float)ref_h, fh), a.H);
+    s.cw = reflect_f(__fadd_rn((float)ref_w, fw), a.W);
+    s.oh = ws_offset_f(s.ch, a, a.H);
+    s.ow = ws_offset_f(s.cw, a, a.W);
+  }
+  return s;
+}
+
+__device__ __forceinline__ float lattice(float ctr, float off, float s1, int i) {
+  return __fadd_rn(ctr, __fmul_rn(s1, __fsub_rn((float)i, off)));
+}
+
+__device__ __forceinline__ bool better(bool l2, float d, int p, float d2, int p2) {
+  return l2 ? (d < d2 || (d == d2 && p < p2)) : (d > d2 || (d == d2 && p < p2));
+}
+
+template <int PS, int FC>
+__device__ __forceinline__ float patch_dist(const NlsArgs& a, const float* v1, const float* qv,
+                            const bool* qok, float ph0, float pw0) {
+  const int H = a.H, W = a.W;
+  const long long HW = (long long)H * W;
+  const int po = a.use_adj ? 0 : -(PS / 2);
+  float acc = 0.f;
+#pragma unroll
+  for (int pi = 0; pi < PS; ++pi) {
+    const float ph = reflect_f(__fadd_rn(ph0, (float)(a.dilation * (pi + po))), H);
+    const bool okh = inb_f(ph, H);
+#pragma unroll
+    for (int pj = 0; pj < PS; ++pj) {
+      const float pw = reflect_f(__fadd_rn(pw0, (float)(a.dilation * (pj + po))), W);
+      const int tap = pi * PS + pj;
+      if (!(qok[tap] && okh && inb_f(pw, W))) continue;
+      float s = 0.f;
+      if (a.is_int) {
+        const float* p = v1 + (int)ph * W + (int)pw;
+#pragma unroll
+        for (int f = 0; f < FC; ++f) {
+          const float p1 = p[f * HW];
+          const float q = qv[tap * FC + f];
+          if (a.l2) { const float df = q - p1; s += df * df; }
+          else { s += q * p1; }
+        }
+      } else {
+        const float h0 = floorf(ph), w0 = floorf(pw);
+        const float wh0 = fmaxf(0.f, 1.f - fabsf(h0 - ph));
+        const float wh1 = fmaxf(0.f, 1.f - fabsf(__fadd_rn(h0, 1.f) - ph));
+        const float ww0 = fmaxf(0.f, 1.f - fabsf(w0 - pw));
+        const float ww1 = fmaxf(0.f, 1.f - fabsf(__fadd_rn(w0, 1.f) - pw));
+        const int ih0 = (int)h0, iw0 = (int)w0;
+        const bool okh1 = ih0 + 1 <= H - 1, okw1 = iw0 + 1 <= W - 1;
+        const int ih1 = okh1 ? ih0 + 1 : ih0, iw1 = okw1 ? iw0 + 1 : iw0;
+        const float w00 = wh0 * ww0;
+        const float w01 = okw1 ? wh0 * ww1 : 0.f;
+        const float w10 = okh1 ? wh1 * ww0 : 0.f;
+        const float w11 = (okh1 && okw1) ? wh1 * ww1 : 0.f;
+        const int o00 = ih0 * W + iw0, o01 = ih0 * W + iw1;
+        const int o10 = ih1 * W + iw0, o11 = ih1 * W + iw1;
+#pragma unroll
+        for (int f = 0; f < FC; ++f) {
+          const float* p = v1 + f * HW;
+          float p1 = 0.f;
+          p1 += w00 * p[o00];
+          p1 += w01 * p[o01];
+          p1 += w10 * p[o10];
+          p1 += w11 * p[o11];
+          const float q = qv[tap * FC + f];
+          if (a.l2) { const float df = q - p1; s += df * df; }
+          else { s += q * p1; }
+        }
+      }
+      acc += s;
+    }
+  }
+  return acc;
+}
+
+template <int PS, int FC>
+__global__ void __launch_bounds__(128) nls_topk_kernel(NlsArgs a) {
+  const long long nq = (long long)a.B * a.HD * a.T * a.nH * a.nW;
+  const long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= nq) return;
+  const int qw = (int)(q % a.nW);
+  long long r = q / a.nW;
+  const int qh = (int)(r % a.nH);
+  r /= a.nH;
+  const int t = (int)(r % a.T);
+  r /= a.T;
+  const int hd = (int)(r % a.HD);
+  const int b = (int)(r / a.HD);
+
+  const int H = a.H, W = a.W, T = a.T, ws = a.ws;
+  const long long HW = (long long)H * W;
+  const int ref_h = (qh * a.stride0) % H;
+  const int ref_w = (qw * a.stride0) % W;
+  const int po = a.use_adj ? 0 : -(PS / 2);
+  const float s1 = a.stride1;
+  const int W_t = min(2 * a.wt + 1, T);
+
+  // query patch, in registers
+  float qv[PS * PS * FC];
+  bool qok[PS * PS];
+  const float* v0 = a.vid0 + (((long long)b * a.HD + hd) * T + t) * FC * HW;
+#pragma unroll
+  for (int pi = 0; pi < PS; ++pi) {
+#pragma unroll
+    for (int pj = 0; pj < PS; ++pj) {
+      const int rh = reflect_i(ref_h + a.dilation * (pi + po), H);
+      const int rw = reflect_i(ref_w + a.dilation * (pj + po), W);
+      qok[pi * PS + pj] = rh >= 0 && rh < H && rw >= 0 && rw < W;
+      const int o = min(max(rh, 0), H - 1) * W + min(max(rw, 0), W - 1);
+#pragma unroll
+      for (int f = 0; f < FC; ++f) qv[(pi * PS + pj) * FC + f] = v0[f * HW + o];
+    }
+  }
+
+  // anchor: lexicographically first argmin of |dt| + |dh| + |dw|
+  int self_idx = -1;
+  if (a.anchor) {
+    float best = CUDART_INF_F;
+    for (int st = 0; st < W_t; ++st) {
+      const Slot s = slot_geometry(a, b, hd, t, qh, qw, st, ref_h, ref_w);
+      float mh = CUDART_INF_F, mw = CUDART_INF_F;
+      int ah = 0, aw = 0;
+      for (int i = 0; i < ws; ++i) {
+        const float dh = fabsf(__fsub_rn(lattice(s.ch, s.oh, s1, i), (float)ref_h));
+        if (dh < mh) { mh = dh; ah = i; }
+        const float dw = fabsf(__fsub_rn(lattice(s.cw, s.ow, s1, i), (float)ref_w));
+        if (dw < mw) { mw = dw; aw = i; }
+      }
+      const float tot = __fadd_rn(__fadd_rn(fabsf((float)(s.tj - t)), mh), mw);
+      if (tot < best) { best = tot; self_idx = (st * ws + ah) * ws + aw; }
+    }
+  }
+
+  const int nslots = a.anchor ? a.K - 1 : a.K;
+  const float init = a.l2 ? CUDART_INF_F : -CUDART_INF_F;
+  float ld[KMAX];
+  int lp[KMAX];
+  for (int i = 0; i < nslots; ++i) { ld[i] = init; lp[i] = INT_MAX; }
+  float self_d = init;
+
+  for (int st = 0; st < W_t; ++st) {
+    const Slot s = slot_geometry(a, b, hd, t, qh, qw, st, ref_h, ref_w);
+    const float* v1 = a.vid1 + (((long long)b * a.HD + hd) * T + s.tj) * FC * HW;
+    for (int wi = 0; wi < ws; ++wi) {
+      const float ph0 = lattice(s.ch, s.oh, s1, wi);
+      const bool vh = inb_f(ph0, H);
+      for (int wj = 0; wj < ws; ++wj) {
+        const float pw0 = lattice(s.cw, s.ow, s1, wj);
+        const int c = (st * ws + wi) * ws + wj;
+        float d = init;
+        if (vh && inb_f(pw0, W)) d = patch_dist<PS, FC>(a, v1, qv, qok, ph0, pw0);
+        if (c == self_idx) { self_d = d; continue; }
+        const int pos = (self_idx >= 0 && c == 0) ? self_idx : c;
+        if (nslots > 0 && better(a.l2, d, pos, ld[nslots - 1], lp[nslots - 1])) {
+          int i = nslots - 1;
+          while (i > 0 && better(a.l2, d, pos, ld[i - 1], lp[i - 1])) {
+            ld[i] = ld[i - 1];
+            lp[i] = lp[i - 1];
+            --i;
+          }
+          ld[i] = d;
+          lp[i] = pos;
+        }
+      }
+    }
+  }
+
+  float* od = a.dists + q * a.K;
+  int* oc = a.cells + q * a.K;
+  int o = 0;
+  if (a.anchor) {
+    od[0] = self_d;
+    oc[0] = self_idx;
+    o = 1;
+  }
+  for (int i = 0; i < nslots; ++i) {
+    od[o + i] = ld[i];
+    oc[o + i] = (lp[i] == self_idx) ? 0 : lp[i];
+  }
+}
+
+template <int PS, int FC>
+cudaError_t launch(const NlsArgs& a, cudaStream_t stream) {
+  const long long nq = (long long)a.B * a.HD * a.T * a.nH * a.nW;
+  if (nq == 0) return cudaSuccess;
+  const int threads = 128;
+  const unsigned blocks = (unsigned)((nq + threads - 1) / threads);
+  nls_topk_kernel<PS, FC><<<blocks, threads, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// The (ps, F a head) pairs the kernel is built for, as
+// ops/nls_cuda.KERNEL_CONFIGS lists them: ps=3 with 8 channels a head is
+// what bench.py, __graft_entry__ and examples/attn_example.py run; 16 is
+// NonLocalAttention's default one-head width. Each pair is one more
+// instantiation in the build.
+#define STNLS_NLS_CASE(P, FC) \
+  if (a.ps == P && a.F == FC) return (int)launch<P, FC>(a, stream);
+
+// Returns cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue for a configuration the kernel was not built for.
+extern "C" int stnls_nls_topk_fwd(
+    const float* vid0, const float* vid1, const float* flows, float* dists,
+    int* cells, int B, int HD, int T, int F, int H, int W, int HDf, int St,
+    int nH, int nW, int ws, int wt, int ps, int stride0, int dilation,
+    float stride1, float s1_half, int K, int anchor, int l2, int full_ws,
+    int use_adj, int is_int, void* stream_ptr) {
+  NlsArgs a{vid0, vid1, flows, dists, cells, B, HD, T, F, H, W, HDf, St, nH, nW,
+            ws, wt, ps, stride0, dilation, stride1, s1_half, K, anchor, l2,
+            full_ws, use_adj, is_int};
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const int nslots = anchor ? K - 1 : K;
+  if (nslots < 0 || nslots > KMAX) return (int)cudaErrorInvalidValue;
+  STNLS_NLS_CASE(3, 8)
+  STNLS_NLS_CASE(3, 16)
+  return (int)cudaErrorInvalidValue;
+}

@@ -1,0 +1,214 @@
+"""Sparse top-K re-evaluation of search distances (PyTorch port of
+stnls_tpu/ops/nls_k.py).
+
+Given the selected window cells (integer ids chosen under no_grad by the
+search kernel or its plain version), `nls_dists_at_cells` recomputes ONLY
+those K distances with plain differentiable torch: one patch_gather for
+the key patches plus static strided slices for the query patches.
+Autograd through it gives the K-sparse backward of the search: grads to
+vid0, vid1 and, in the float path, to the flows (bilinear-weight chain
+rule with reflection sign flips).
+
+Selection-vs-value contract: the selecting engine only picks cells; the
+values, and every gradient, come from this exact recompute.
+"""
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F_
+
+from stnls_tpu_torch.ops.geometry import (
+    reflect_bounds, in_bounds, num_queries, time_window_frames,
+    search_offsets,
+)
+from stnls_tpu_torch.ops.nls import dist_type_select, _expand_flow_heads
+from stnls_tpu_torch.ops.pgather import patch_gather, pad_frames_cf
+
+
+def _slot_flows(flows, W_t):
+    """flows [B,HD,T,W_t(-1),2,nH,nW] -> (fH, fW) [B,HD,T,W_t,nH,nW] float,
+    with the reference frame's zero slot prepended when missing."""
+    st_offset = W_t - flows.shape[3]
+    if st_offset not in (0, 1):
+        raise ValueError("flows must cover W_t or W_t-1 slots")
+    fH = flows[:, :, :, :, 1].float()
+    fW = flows[:, :, :, :, 0].float()
+    if st_offset == 1:
+        zero = fH.new_zeros(fH.shape[:3] + (1,) + fH.shape[4:])
+        fH = torch.cat([zero, fH], dim=3)
+        fW = torch.cat([zero, fW], dim=3)
+    return fH, fW
+
+
+def search_aux(vid_shape, flows, *, ws, wt, stride0, stride1, itype="float",
+               full_ws=True):
+    """Separable offset factors of the search volume (geometry only, no
+    video reads): dict(dt_tab [T,W_t], dh [B,HD,T,W_t,ws,nH,nW], dw
+    likewise). Feeds the anchor of the top-K selection rule
+    (search.non_local_search._pallas_topk_aux)."""
+    B, HD, T, F, H, W = vid_shape
+    dev = flows.device
+    is_int = (itype == "int")
+    if is_int:
+        stride1 = float(max(1, int(stride1)))
+        flows = torch.round(flows)
+    else:
+        stride1 = float(stride1)
+    W_t = min(2 * wt + 1, T)
+    flows = _expand_flow_heads(flows, HD)
+    nH, nW = flows.shape[-2], flows.shape[-1]
+    fH, fW = _slot_flows(flows, W_t)
+    base_h = (torch.arange(nH, device=dev) * stride0) % H
+    base_w = (torch.arange(nW, device=dev) * stride0) % W
+    bh = base_h[None, None, None, None, :, None].float()
+    bw = base_w[None, None, None, None, None, :].float()
+    ctr_h = reflect_bounds(bh + fH, H)
+    ctr_w = reflect_bounds(bw + fW, W)
+    off_h, off_w = search_offsets(ctr_h, ctr_w, stride1, ws, H, W,
+                                  full_ws, False)
+    cells_w = torch.arange(ws, device=dev, dtype=torch.float32)
+    prop_h = ctr_h[:, :, :, :, None] + stride1 * (
+        cells_w[:, None, None] - off_h[:, :, :, :, None])
+    prop_w = ctr_w[:, :, :, :, None] + stride1 * (
+        cells_w[:, None, None] - off_w[:, :, :, :, None])
+    tj_tab = time_window_frames(T, wt)
+    cdtype = torch.int32 if is_int else torch.float32
+    dt = torch.as_tensor(tj_tab - np.arange(T)[:, None],
+                         device=dev).to(cdtype)
+    dh = prop_h - bh[:, :, :, :, None]        # [B,HD,T,W_t,ws,nH,nW]
+    dw = prop_w - bw[:, :, :, :, None]
+    if is_int:
+        dh = dh.to(cdtype)
+        dw = dw.to(cdtype)
+    return dict(dt_tab=dt, dh=dh, dw=dw)
+
+
+def nls_dists_at_cells(vid0, vid1, flows, cells, *, ws, wt, ps, stride0,
+                       stride1, dist_type="l2", dilation=1, full_ws=True,
+                       use_adj=False, itype="float"):
+    """Differentiably recompute search distances at selected window cells.
+
+    vid0/vid1 [B,HD,T,F,H,W]; flows [B,HD,T,W_t(-1),2,nH,nW]; cells int
+    [B,HD,T,nH,nW,K] holding flat ids (st*ws + wi)*ws + wj (no grad).
+
+    Returns (dists [B,HD,T,nH,nW,K], (dt, dh, dw) offsets each
+    [B,HD,T,nH,nW,K]), differentiable in vid0, vid1 and (float path)
+    flows. Invalid cells (window positions outside the frame) carry
+    init_val and zero gradients.
+    """
+    B, HD, T, F, H, W = vid0.shape
+    dev = vid0.device
+    is_int = (itype == "int")
+    if is_int:
+        stride1 = float(max(1, int(stride1)))
+        flows = torch.round(flows)
+    else:
+        stride1 = float(stride1)
+    dtype = vid0.dtype
+    W_t = min(2 * wt + 1, T)
+    nH, nW = num_queries(H, W, stride0)
+    if cells.shape[-3:-1] != (nH, nW):
+        raise ValueError("cells must cover the full query grid")
+    flows = _expand_flow_heads(flows, HD)
+    patch_offset = 0 if use_adj else -(ps // 2)
+
+    cells = cells.detach().long()
+    st = cells // (ws * ws)
+    wi = (cells % (ws * ws)) // ws
+    wj = cells % ws
+
+    # per-(q,k) flow at the selected temporal slot
+    fH, fW = _slot_flows(flows, W_t)               # [B,HD,T,W_t,nH,nW]
+    fH_k = torch.gather(fH.movedim(3, -1), -1, st)  # [B,HD,T,nH,nW,K]
+    fW_k = torch.gather(fW.movedim(3, -1), -1, st)
+
+    base_h = (torch.arange(nH, device=dev) * stride0) % H
+    base_w = (torch.arange(nW, device=dev) * stride0) % W
+    bh = base_h[None, None, None, :, None, None].float()
+    bw = base_w[None, None, None, None, :, None].float()
+
+    ctr_h = reflect_bounds(bh + fH_k, H)
+    ctr_w = reflect_bounds(bw + fW_k, W)
+    off_h, off_w = search_offsets(ctr_h.detach(), ctr_w.detach(), stride1,
+                                  ws, H, W, full_ws, False)
+    prop_h = ctr_h + stride1 * (wi.float() - off_h)
+    prop_w = ctr_w + stride1 * (wj.float() - off_w)
+    valid = in_bounds(prop_h, H) & in_bounds(prop_w, W)
+    if is_int:
+        prop_h = torch.round(prop_h)
+        prop_w = torch.round(prop_w)
+
+    # temporal target frame per (q, k)
+    tj_tab = torch.as_tensor(time_window_frames(T, wt), device=dev)
+    tj_k = tj_tab[torch.arange(T, device=dev)[None, None, :, None, None,
+                                              None], st]
+
+    # key patch support gather (the reflect pad covers window + taps)
+    wspan = stride1 * (ws - 1)
+    Eh = dilation * (ps - 1)
+    pad = int(math.ceil(wspan)) + Eh + 2
+    if pad > min(H, W) - 1:
+        raise ValueError("frame too small for single-fold pad")
+    v1p, (Tp, Hp, Wp) = pad_frames_cf(vid1, pad)
+
+    o_h = prop_h + dilation * patch_offset
+    o_w = prop_w + dilation * patch_offset
+    if is_int:
+        S = Eh + 1
+        oi = o_h.long() + pad
+        oj = o_w.long() + pad
+    else:
+        S = Eh + 2
+        fi = torch.floor(o_h)
+        fj = torch.floor(o_w)
+        fh = o_h - fi                    # carries the flow gradient
+        fw = o_w - fj
+        oi = fi.long() + pad
+        oj = fj.long() + pad
+    P = patch_gather(v1p, (tj_k, oi, oj), (S, Tp, Hp, Wp))
+    # P [B,HD,F,S,S,T,nH,nW,K]
+
+    # query patches: static strided slices of the reflect-padded queries
+    pad0 = Eh + 1
+    v0p = F_.pad(vid0.float().reshape(B * HD * T, F, H, W),
+                 (pad0, pad0, pad0, pad0), mode="reflect")
+    v0p = v0p.reshape(B, HD, T, F, H + 2 * pad0, W + 2 * pad0) \
+        .transpose(2, 3)                              # [B,HD,F,T,Hp0,Wp0]
+    if not is_int:
+        whc = (1. - fh, fh)
+        wvc = (1. - fw, fw)
+    acc = 0.
+    for pi in range(ps):
+        a = dilation * pi
+        rh = pad0 + dilation * (pi + patch_offset)
+        for pj in range(ps):
+            b = dilation * pj
+            rw = pad0 + dilation * (pj + patch_offset)
+            p0 = v0p[..., rh:rh + (nH - 1) * stride0 + 1:stride0,
+                     rw:rw + (nW - 1) * stride0 + 1:stride0][..., None]
+            if is_int:
+                pv = P[:, :, :, a, b]
+            else:
+                pv = 0.
+                for u in (0, 1):
+                    for v in (0, 1):
+                        wgt = (whc[u] * wvc[v])[:, :, None]
+                        pv = pv + wgt * P[:, :, :, a + u, b + v]
+            # pv [B,HD,F,T,nH,nW,K]
+            if dist_type == "l2":
+                dfd = p0 - pv
+                acc = acc + torch.sum(dfd * dfd, dim=2)
+            else:
+                acc = acc + torch.sum(p0 * pv, dim=2)
+
+    _, _, init_val = dist_type_select(dist_type)
+    dists = torch.where(valid, acc, torch.full_like(acc, init_val))
+
+    t_ids = torch.arange(T, device=dev).reshape(1, 1, T, 1, 1, 1)
+    dt = tj_k - t_ids
+    dh = prop_h - bh
+    dw = prop_w - bw
+    odt = torch.int32 if is_int else dtype
+    return dists.to(dtype), (dt.to(odt), dh.to(odt), dw.to(odt))

@@ -1,0 +1,303 @@
+"""NonLocalSearch: the centrepiece search op (PyTorch port of
+stnls_tpu/search/non_local_search.py, the select-then-recompute route).
+
+The search selects the K winning window cells with the fused top-K
+kernel (ops/nls_cuda.nls_topk, B1) under no_grad, then recomputes only
+those K distances differentiably (ops/nls_k.nls_dists_at_cells). That is
+the JAX package's own GPU/CPU route (`_select_cells` + `_sparse_assemble`);
+on CPU tensors the selection runs the kernel's plain version.
+
+Ported: self_action in {None, "anchor", "anchor_self"}, topk_mode="all",
+k > 0, pt=1, reflect_bounds=True, no query offsets, no ws_interior, and
+the k_agg/normalize_bwd gradient policy. Other configurations raise
+NotImplementedError. The TPU-only knobs (impl, flow_budget,
+spread_budget, cv_tile, qchunk, band_dtype, mx_precision) are accepted
+and do nothing: the kernel is exact for any flow.
+"""
+
+import math
+
+import numpy as np
+import torch
+
+from stnls_tpu_torch.utils.config import extract_pairs
+from stnls_tpu_torch.ops.nls import dist_type_select
+from stnls_tpu_torch.ops.nls_cuda import nls_topk
+from stnls_tpu_torch.ops.nls_k import nls_dists_at_cells
+from stnls_tpu_torch.search.utils import shape_vids, shape_flows, empty_flows
+
+
+def _pallas_topk_aux(dists, aux, *, self_action, k, dist_type):
+    """self_action + top-K selection over the search volume: the rule the
+    search kernel reproduces. The anchor takes the lexicographically first
+    argmin of |dt|+|dh|+|dw| from the separable offsets in `aux`
+    (dt_tab[t,wt], dh[..,wt,wi,y,x], dw[..,wt,wj,y,x]); per-axis first
+    argmins compose to the flat one. Cell 0 and the self cell swap places
+    before ranking, and ties break by lower position, as in `lax.top_k`
+    (a stable sort here: torch.topk is not stable).
+
+    dists [B,HD,T,W_t,ws,ws,nH,nW] -> (dists [B,HD,T,nH,nW,K],
+    cells [B,HD,T,nH,nW,K] flat ids (st*ws + wi)*ws + wj)."""
+    B, HD, T, W_t, ws, _, nH, nW = dists.shape
+    S = W_t * ws * ws
+    d = dists.permute(0, 1, 2, 6, 7, 3, 4, 5).reshape(B, HD, T, nH, nW, S)
+    _, descending, _ = dist_type_select(dist_type)
+    kk = min(k, S)
+
+    def ranked(key, n):
+        return torch.sort(key, dim=-1, descending=descending,
+                          stable=True)[1][..., :n]
+
+    if self_action not in ("anchor", "anchor_self"):
+        cells = ranked(d, kk)
+        return torch.gather(d, -1, cells), cells
+    # [B,HD,T,W_t,ws,nH,nW] -> [B,HD,T,nH,nW,W_t,ws]
+    mh, ah = torch.min(aux["dh"].permute(0, 1, 2, 5, 6, 3, 4).float().abs(),
+                       -1)                            # first argmins
+    mw, aw = torch.min(aux["dw"].permute(0, 1, 2, 5, 6, 3, 4).float().abs(),
+                       -1)
+    tot = aux["dt_tab"].float().abs().reshape(1, 1, T, 1, 1, W_t) + mh + mw
+    wts = torch.argmin(tot, -1, keepdim=True)         # [B,HD,T,nH,nW,1]
+    self_idx = (wts * ws + torch.gather(ah, -1, wts)) * ws \
+        + torch.gather(aw, -1, wts)
+    s_ids = torch.arange(S, device=d.device)
+    dself = torch.gather(d, -1, self_idx)
+    d_anch = torch.where(s_ids == 0, dself,
+                         torch.where(s_ids == self_idx, d[..., :1], d))
+    pos = ranked(d_anch[..., 1:], kk - 1) + 1         # anchored slots
+    # the anchored slot self_idx holds the ORIGINAL slot-0 entry
+    s_sel = torch.where(pos == self_idx, 0, pos)
+    return (torch.cat([dself, torch.gather(d_anch, -1, pos)], -1),
+            torch.cat([self_idx, s_sel], -1))
+
+
+def patch_fold_counts(H, W, ps, stride):
+    """Pixel coverage counts of a ps x ps / stride patch fold (zero padding,
+    centre-cropped): the normalize_bwd divisor."""
+    nH = (H - 1) // stride + 1
+    nW = (W - 1) // stride + 1
+    pad = (ps - 1) // 2
+    Hp, Wp = H + 2 * pad, W + 2 * pad
+    counts = np.zeros((Hp, Wp), np.float32)
+    for ih in range(nH):
+        for iw in range(nW):
+            counts[ih * stride:ih * stride + ps,
+                   iw * stride:iw * stride + ps] += 1.
+    sH, sW = (Hp - H + 1) // 2, (Wp - W + 1) // 2
+    return counts[sH:sH + H, sW:sW + W]
+
+
+def _not_ported(cfg):
+    """Why the port cannot run `cfg` yet, or None."""
+    if cfg["self_action"] not in (None, "anchor", "anchor_self"):
+        return f"self_action={cfg['self_action']!r}"
+    if cfg["topk_mode"] != "all" or cfg["k"] <= 0:
+        return f"topk_mode={cfg['topk_mode']!r} with k={cfg['k']}"
+    if cfg.get("grad", "auto") not in ("auto", "sparse_k"):
+        return f"grad={cfg['grad']!r}"
+    if cfg["pt"] != 1 or not cfg["reflect_bounds"]:
+        return "pt != 1 or reflect_bounds=False"
+    if cfg["strideQ"] not in (None, cfg["stride0"]):
+        return "strideQ != stride0"
+    if cfg["off_Hq"] != 0 or cfg["off_Wq"] != 0 or cfg["ws_interior"] > 0:
+        return "off_Hq/off_Wq/ws_interior"
+    if not float(cfg["dilation"]).is_integer():
+        return "fractional dilation"
+    return None
+
+
+def _sparse_k_pad_ok(cfg, vid_shape):
+    """The recompute's single-fold reflect pads must fit the frame."""
+    H, W = vid_shape[-2:]
+    Eh = int(cfg["dilation"]) * (cfg["ps"] - 1)
+    pad = int(math.ceil(float(cfg["stride1"]) * (cfg["ws"] - 1))) + Eh + 2
+    return max(pad, Eh + 1) <= min(H, W) - 1
+
+
+def _select_cells(vid0, vid1, flows, cfg):
+    """Selected flat window-cell ids [B,HD,T,nH,nW,K] (int32), from the
+    search kernel. Callers pass detached inputs under no_grad: selection
+    is not differentiable."""
+    _, cells = nls_topk(
+        vid0.contiguous(), vid1.contiguous(), flows.contiguous(),
+        ws=cfg["ws"], wt=cfg["wt"], ps=cfg["ps"], stride0=cfg["stride0"],
+        stride1=cfg["stride1"], k=cfg["k"],
+        anchor=cfg["self_action"] is not None, dist_type=cfg["dist_type"],
+        dilation=int(cfg["dilation"]), full_ws=cfg["full_ws"],
+        use_adj=cfg["use_adj"], itype=cfg["itype"])
+    return cells
+
+
+def _sparse_assemble(vid0, vid1, flows, cells, cfg):
+    """Differentiable re-evaluation of the selected cells: exact dists and
+    offsets via ops.nls_k (K-sized work)."""
+    d, (dt, dh, dw) = nls_dists_at_cells(
+        vid0, vid1, flows, cells, ws=cfg["ws"], wt=cfg["wt"], ps=cfg["ps"],
+        stride0=cfg["stride0"], stride1=cfg["stride1"],
+        dist_type=cfg["dist_type"], dilation=int(cfg["dilation"]),
+        full_ws=cfg["full_ws"], use_adj=cfg["use_adj"], itype=cfg["itype"])
+    inds = torch.stack([dt, dh, dw], dim=-1)
+    if cfg["self_action"] in ("anchor", "anchor_self"):
+        # anchored slot-0 offsets are exact zeros; its dist is the true
+        # self-cell distance, recomputed above
+        inds = torch.cat([torch.zeros_like(inds[..., :1, :]),
+                          inds[..., 1:, :]], dim=-2)
+    return d, inds
+
+
+def nls_pipeline(vid0, vid1, flows, cfg):
+    """Forward: select the K cells, then recompute them differentiably.
+    vid0/vid1 [B,HD,T,F,H,W]; flows [B,HDf,T,W_t(-1),2,nH,nW] ->
+    (dists [B,HD,T,nH,nW,K], inds [B,HD,T,nH,nW,K,3])."""
+    why = _not_ported(cfg)
+    if why is None and not _sparse_k_pad_ok(cfg, vid0.shape):
+        why = "frames smaller than the recompute's reflect pad"
+    if why is not None:
+        raise NotImplementedError(
+            f"NonLocalSearch with {why} is not yet ported, see ROADMAP")
+    with torch.no_grad():
+        cells = _select_cells(vid0.detach(), vid1.detach(), flows.detach(),
+                              cfg)
+    return _sparse_assemble(vid0, vid1, flows, cells, cfg)
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """Identity forward; divides the incoming gradient by `counts`."""
+
+    @staticmethod
+    def forward(ctx, x, counts):
+        ctx.save_for_backward(counts)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        counts, = ctx.saved_tensors
+        return g / counts, None
+
+
+class _KeepGrad(torch.autograd.Function):
+    """Identity forward; zeroes the gradient of neighbours k >= k_agg."""
+
+    @staticmethod
+    def forward(ctx, x, k_agg, k_axis):
+        ctx.k_agg, ctx.k_axis = k_agg, k_axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        keep = torch.arange(g.shape[ctx.k_axis], device=g.device) < ctx.k_agg
+        shape = [1] * g.ndim
+        shape[ctx.k_axis] = -1
+        return g * keep.reshape(shape).to(g.dtype), None, None
+
+
+def _make_grad_policy_fn(cfg):
+    """nls_pipeline with k_agg truncation / normalize_bwd when asked: the
+    cotangents of neighbours past k_agg are dropped, and the video
+    gradients are divided by the patch fold counts."""
+    k_agg = cfg["k_agg"]
+    normalize_bwd = cfg["normalize_bwd"]
+
+    def fn(vid0, vid1, flows):
+        if normalize_bwd:
+            H, W = vid0.shape[-2:]
+            c0 = torch.as_tensor(patch_fold_counts(H, W, cfg["ps"],
+                                                   cfg["stride0"]),
+                                 device=vid0.device)
+            c1 = torch.as_tensor(patch_fold_counts(H, W, cfg["ps"],
+                                                   int(cfg["stride1"])),
+                                 device=vid1.device)
+            vid0 = _ScaleGrad.apply(vid0, c0)
+            vid1 = _ScaleGrad.apply(vid1, c1)
+        dists, inds = nls_pipeline(vid0, vid1, flows, cfg)
+        if k_agg is not None and k_agg > 0:
+            dists = _KeepGrad.apply(dists, k_agg, -1)
+            inds = _KeepGrad.apply(inds, k_agg, -2)
+        return dists, inds
+
+    return fn
+
+
+class NonLocalSearch(torch.nn.Module):
+    """Space-time non-local search module.
+
+    Call patterns:
+      search(vid0, vid1)                  -> zero flows
+      search(vid0, vid1, flows)           -> precomputed [B,(HD),T,W_t(-1),2,nH,nW]
+      search(vid0, vid1, fflow, bflow)    -> flows from nn.search_flow
+    """
+
+    def __init__(self, ws, wt, ps=1, k=-1, nheads=1, stride0=1, stride1=1,
+                 dist_type="l2", dilation=1, pt=1, self_action=None,
+                 topk_mode="all", ws_interior=0, reflect_bounds=True,
+                 full_ws=True, use_adj=False, normalize_bwd=False, k_agg=-1,
+                 off_Hq=0, off_Wq=0, strideQ=None, itype="float",
+                 impl="auto", flow_budget="auto", cv_tile=None,
+                 spread_budget="auto", qchunk=None, band_dtype=None,
+                 grad="auto", channel_chunk=4, mx_precision="high"):
+        super().__init__()
+        self.cfg = dict(
+            ws=ws, wt=wt, ps=ps, k=k, nheads=nheads, stride0=stride0,
+            stride1=stride1, dist_type=dist_type, dilation=dilation, pt=pt,
+            self_action=self_action, topk_mode=topk_mode,
+            ws_interior=ws_interior, reflect_bounds=reflect_bounds,
+            full_ws=full_ws, use_adj=use_adj, normalize_bwd=normalize_bwd,
+            k_agg=k_agg, off_Hq=off_Hq, off_Wq=off_Wq, strideQ=strideQ,
+            itype=itype, impl=impl, flow_budget=flow_budget,
+            cv_tile=cv_tile, spread_budget=spread_budget, qchunk=qchunk,
+            band_dtype=band_dtype, grad=grad, channel_chunk=channel_chunk,
+            mx_precision=mx_precision)
+        for key, val in self.cfg.items():
+            setattr(self, key, val)
+        why = _not_ported(self.cfg)
+        if why is not None:
+            raise NotImplementedError(
+                f"NonLocalSearch with {why} is not yet ported, see ROADMAP")
+        self._fn = _make_grad_policy_fn(self.cfg)
+
+    def forward(self, *args):
+        if self.ws <= 0 or self.wt < 0:
+            raise ValueError("need ws > 0 and wt >= 0")
+        vid0, vid1 = args[:2]
+        if len(args) == 4:
+            from stnls_tpu_torch.nn.flow import search_flow
+            flows = search_flow(args[2], args[3], self.wt, self.stride0)
+        elif len(args) == 3:
+            flows = args[2]
+        else:
+            vid0s = shape_vids(self.nheads, [vid0])[0]
+            flows = empty_flows(vid0s, self.wt, self.stride0)
+        vid0, vid1 = shape_vids(self.nheads, [vid0, vid1])
+        flows = shape_flows(self.nheads, flows)
+        return self._fn(vid0, vid1, flows)
+
+
+def extract_config(cfg, restrict=True):
+    pairs = {"ws": -1, "wt": -1, "ps": 1, "k": -1,
+             "nheads": 1, "dist_type": "l2",
+             "stride0": 1, "stride1": 1, "dilation": 1, "pt": 1,
+             "ws_interior": 0, "reflect_bounds": True, "full_ws": True,
+             "self_action": None, "use_adj": False,
+             "normalize_bwd": False, "k_agg": -1, "topk_mode": "all",
+             "off_Hq": 0, "off_Wq": 0, "strideQ": None, "itype": "float",
+             "impl": "auto", "flow_budget": "auto", "spread_budget": "auto",
+             "cv_tile": None, "qchunk": None, "band_dtype": None,
+             "grad": "auto", "channel_chunk": 4, "mx_precision": "high"}
+    return extract_pairs(cfg, pairs, restrict=restrict)
+
+
+def init(cfg):
+    cfg = extract_config(cfg, False)
+    return NonLocalSearch(
+        cfg.ws, cfg.wt, cfg.ps, cfg.k, nheads=cfg.nheads,
+        stride0=cfg.stride0, stride1=cfg.stride1, dist_type=cfg.dist_type,
+        dilation=cfg.dilation, pt=cfg.pt, self_action=cfg.self_action,
+        topk_mode=cfg.topk_mode, ws_interior=cfg.ws_interior,
+        reflect_bounds=cfg.reflect_bounds, full_ws=cfg.full_ws,
+        use_adj=cfg.use_adj, normalize_bwd=cfg.normalize_bwd,
+        k_agg=cfg.k_agg, off_Hq=cfg.off_Hq, off_Wq=cfg.off_Wq,
+        strideQ=cfg.strideQ, itype=cfg.itype,
+        impl=cfg.impl, flow_budget=cfg.flow_budget, cv_tile=cfg.cv_tile,
+        spread_budget=cfg.spread_budget, qchunk=cfg.qchunk,
+        band_dtype=cfg.band_dtype, grad=cfg.grad,
+        channel_chunk=cfg.channel_chunk, mx_precision=cfg.mx_precision)

@@ -1,0 +1,110 @@
+"""The hand-written CUDA kernels against their plain versions, on the
+card. Marked `cuda`: they skip where there is no NVIDIA GPU. This file
+imports no JAX, so it runs on a machine without it:
+
+    python -m pytest --noconftest -m cuda tests/torch_port/test_torch_cuda_kernels.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from stnls_tpu_torch.ops import agg_cuda, nls_cuda
+from stnls_tpu_torch.ops.nls_k import nls_dists_at_cells
+
+from torch_port_helpers import assert_close, assert_grad_close, \
+    assert_cells_match
+
+pytestmark = pytest.mark.cuda
+B, HD, T, F, H, W = 1, 2, 3, 8, 32, 32
+KW = dict(ws=5, wt=1, ps=3, stride0=1, stride1=0.5, k=6, anchor=True)
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _inputs(dev, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def t(x):
+        return torch.from_numpy(x.astype(np.float32)).to(dev)
+
+    v0 = t(rng.standard_normal((B, HD, T, F, H, W)))
+    v1 = t(rng.standard_normal((B, HD, T, F, H, W)))
+    flows = t(1.5 * rng.standard_normal((B, 1, T, 2, 2, H, W)))
+    return v0, v1, flows
+
+
+@pytest.mark.parametrize("anchor,itype", [(True, "float"), (False, "float"),
+                                          (True, "int")])
+def test_search_kernel_matches_plain(dev, anchor, itype):
+    v0, v1, flows = _inputs(dev)
+    kw = dict(KW, anchor=anchor, itype=itype,
+              stride1=0.5 if itype == "float" else 1)
+    n0 = nls_cuda.nls_topk.launches
+    d, cells = nls_cuda.nls_topk(v0, v1, flows, **kw)
+    assert nls_cuda.nls_topk.launches == n0 + 1
+    d_p, cells_p = nls_cuda.nls_topk_plain(v0, v1, flows, **kw)
+    assert_cells_match(cells, cells_p, d_p)
+    assert_close(d, d_p, "dists")
+
+
+def test_gather_kernel_forward_and_backward(dev):
+    v0, v1, flows = _inputs(dev, 1)
+    d, cells = nls_cuda.nls_topk(v0, v1, flows, **KW)
+    d, (dt, dh, dw) = nls_dists_at_cells(v0, v1, flows, cells,
+                                         **{k: KW[k] for k in
+                                            ("ws", "wt", "ps", "stride0",
+                                             "stride1")})
+    weights = torch.softmax(-d, -1).contiguous()
+    inds = torch.stack([dt, dh, dw], -1).contiguous()
+    outs, grads = [], []
+    for fn in (agg_cuda.nl_gather_stack, agg_cuda.nl_gather_stack_plain):
+        args = [x.clone().requires_grad_() for x in (v1, weights, inds)]
+        out = fn(*args, ps=3, stride0=1)
+        g = torch.autograd.grad(out.pow(2).sum(), args)
+        outs.append(out)
+        grads.append(g)
+    assert_close(outs[0], outs[1], "stack")
+    for a, b in zip(*grads):
+        assert_grad_close(a, b)
+
+
+@pytest.mark.parametrize("search_impl,agg_impl", [("auto", "auto"),
+                                                   ("lattice", "jnp")])
+def test_impl_knob_keeps_the_modules_on_the_kernels(dev, search_impl,
+                                                    agg_impl):
+    from stnls_tpu_torch.agg import NonLocalGather
+    from stnls_tpu_torch.search import NonLocalSearch
+    v0, v1, flows = _inputs(dev)
+    search = NonLocalSearch(5, 1, 3, 6, nheads=HD, stride1=0.5,
+                            self_action="anchor", impl=search_impl)
+    gather = NonLocalGather(ps=3, stride0=1, impl=agg_impl)
+    n_s, n_g = nls_cuda.nls_topk.launches, agg_cuda.nl_gather_stack.launches
+    d, inds = search(v0, v1, flows)
+    gather(v1, torch.softmax(-d, -1), inds)
+    assert nls_cuda.nls_topk.launches == n_s + 1
+    assert agg_cuda.nl_gather_stack.launches == n_g + 1
+
+
+def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    v0, v1, flows = _inputs(dev)
+    with pytest.raises(NotImplementedError):
+        nls_cuda.nls_topk(v0, v1, flows, **dict(KW, ps=2))
+    with pytest.raises(TypeError):
+        nls_cuda.nls_topk(v0.double(), v1, flows, **KW)
+    with pytest.raises(ValueError):
+        nls_cuda.nls_topk(v0.transpose(-1, -2), v1, flows, **KW)
+    w = torch.ones((B, HD, T, H, W, 2), device=dev)
+    f = torch.zeros((B, HD, T, H, W, 2, 3), device=dev)
+    with pytest.raises(NotImplementedError):
+        agg_cuda.nl_gather_stack(v1, w, f, ps=3, stride0=1,
+                                 reflect_bounds=False)
+    with pytest.raises(ValueError):
+        agg_cuda.nl_gather_stack(v1, w[..., :1], f, ps=3, stride0=1)

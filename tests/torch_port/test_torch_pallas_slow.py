@@ -1,0 +1,54 @@
+"""Slow tier: the port's plain versions against the TPU Pallas kernels
+themselves, run in interpret mode with explicit budgets that leave no
+out-of-budget entry (outliers == 0 is asserted, so the Pallas outputs are
+exact). The Pallas kernels sum their taps in their own tile order, so
+values agree to 3e-4 (the JAX package's own Pallas-vs-lattice tolerance)."""
+
+import numpy as np
+import pytest
+import jax.numpy as jnp
+
+from stnls_tpu.ops.nls_pallas import nls_pallas_topk
+from stnls_tpu.ops.agg_pallas import nl_gather_stack_pallas
+from stnls_tpu_torch.ops.nls_cuda import nls_topk_plain
+from stnls_tpu_torch.ops.agg_cuda import nl_gather_stack_plain
+
+from torch_port_helpers import to_torch, assert_close, assert_cells_match
+
+B, HD, T, F, H, W = 1, 1, 3, 4, 32, 32
+WS, WT, PS, K = 3, 1, 3, 4
+PALLAS_TOL = 3e-4
+
+
+@pytest.mark.slow
+def test_topk_plain_matches_pallas_topk(rng):
+    v0 = rng.standard_normal((B, HD, T, F, H, W)).astype(np.float32)
+    v1 = rng.standard_normal((B, HD, T, F, H, W)).astype(np.float32)
+    flows = np.clip(1.5 * rng.standard_normal((B, HD, T, 2 * WT, 2, H, W)),
+                    -1.5, 1.5).astype(np.float32)
+    kw = dict(ws=WS, wt=WT, ps=PS, stride0=1, stride1=1, k=K, anchor=True,
+              itype="float")
+    d_p, _, c_p, outl = nls_pallas_topk(
+        jnp.asarray(v0), jnp.asarray(v1), jnp.asarray(flows), flow_budget=4,
+        spread_budget=8, interpret=True, **kw)
+    assert int(jnp.sum(outl)) == 0
+    d, cells = nls_topk_plain(to_torch(v0), to_torch(v1), to_torch(flows),
+                              **kw)
+    assert_cells_match(cells, c_p, d_p)
+    assert_close(d, d_p, "dists", atol=PALLAS_TOL, rtol=PALLAS_TOL)
+
+
+@pytest.mark.slow
+def test_gather_plain_matches_pallas_gather(rng):
+    vid = rng.standard_normal((B, HD, T, F, H, W)).astype(np.float32)
+    weights = rng.random((B, HD, T, H, W, K)).astype(np.float32)
+    dt = rng.integers(-1, 2, (B, HD, T, H, W, K))
+    dhw = np.clip(1.5 * rng.standard_normal((2, B, HD, T, H, W, K)), -2, 2)
+    flows = np.stack([dt, dhw[0], dhw[1]], -1).astype(np.float32)
+    ref, outl = nl_gather_stack_pallas(
+        jnp.asarray(vid), jnp.asarray(weights), jnp.asarray(flows), ps=PS,
+        stride0=1, budget=4, spread=8, interpret=True)
+    assert int(jnp.sum(outl)) == 0
+    out = nl_gather_stack_plain(to_torch(vid), to_torch(weights),
+                                to_torch(flows), ps=PS, stride0=1)
+    assert_close(out, ref, "stack", atol=PALLAS_TOL, rtol=PALLAS_TOL)
