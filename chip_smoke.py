@@ -1,4 +1,4 @@
-"""Drive the PyTorch + CUDA port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch + CUDA port's main paths once on one NVIDIA GPU.
 
 Run from the repository root: python3 chip_smoke.py
 
@@ -7,18 +7,26 @@ Phases, in order; any failure raises and exits non-zero:
   2. the build of the hand-written CUDA kernels (stnls_tpu_torch/csrc);
   3. each kernel against its plain PyTorch version on the card, at the
      slice config (128^2, wt=2, K=10, stride1=0.5) and the
-     __graft_entry__ config (64^2, wt=1, K=8, stride1=1);
-  4. the main path at full width (B=1, T=5, F=16, 128^2):
+     __graft_entry__ config (64^2, wt=1, K=8, stride1=1): B1 search
+     top-K, B2 search backward, B3 gather, B4 gather backward;
+  4. the forward path at full width (B=1, T=5, F=16, 128^2):
      NonLocalAttention and the bench attention step, through the kernels
      and through the plain versions (`plain_route`), with launch counts;
-  5. one backward of the bench step and of NonLocalAttention, against
-     the plain route;
-  6. times with CUDA events (median of 10 after a warm-up).
+  5. the training path at full width: forward and backward of the bench
+     step and of NonLocalAttention into the video, the flows and the
+     parameters, then 3 SGD steps of NonLocalAttention towards a fixed
+     target, through the kernels (launch counts of B1-B4, no plain
+     backward called), through the plain backwards on the kernels'
+     forward and through the plain route; gradients and each parameter's
+     SGD update compared at 1e-4 * max|ref|, or at 1e-3 where the failing
+     element's own queries show a softmax near-tie (near_tie);
+  6. times with CUDA events (median after warm-ups).
 The line before the last is a JSON object of the kernels; the last line
 is {"ok": true, "device": {...}}. The script imports nothing of JAX.
 """
 
 import contextlib
+import copy
 import json
 import re
 import subprocess
@@ -28,8 +36,33 @@ from pathlib import Path
 
 import numpy as np
 
-TOL = 1e-4          # atol = rtol for forward outputs and dists (float32)
+TOL = 1e-4          # atol = rtol for forward outputs and dists (float32);
+                    # gradients and SGD updates: 1e-4 * max|ref|
+# A gradient element of the kernel route that misses TOL against a route
+# with another forward (or other parameters) is held to NEAR_TIE_TOL only
+# where its own queries show the cause, a near-tie of the search: the two
+# routes' dists there agree to TOL (float rounding, summation order), and
+# a query's softmax(-10 d) weights moved by more than TOL, or its cells
+# differ, at those equal dists (near_tie). Elsewhere TOL holds.
+NEAR_TIE_TOL = 1e-3
+NORMZ_SCALE = 10.
 SEED = 0
+LR, SGD_STEPS = 0.5, 3
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 (non-tensor)
+# flop/s, for the bound of each kernel
+HBM_BYTES_S, F32_FLOP_S = 3.35e12, 67e12
+# The float arithmetic each function needs per (query, slot, patch tap,
+# channel), not the kernels' own instruction mix. B1: bilinear read (4 mul
+# + 3 add) + l2 (sub, mul, add). B2: bilinear read (7) + the cotangent
+# 2g (p0 - pv) (sub, mul; 2g once per pair, its negation folded into the
+# corner weights) + 1 add into g_vid0 + 4 corner products and 4 adds into
+# g_vid1 + 4 multiply-adds of the corner sums S_c = sum gpv * c, from
+# which both position gradients follow once per pair. B3: bilinear read
+# (7) + weight and sum (2). B4: one multiply-add per corner sum (8; the
+# weight and offset gradients follow from the four sums once per pair)
+# + g * w (1) + 4 corner products and 4 adds into g_vid; the division by
+# the overlap count is counted once per cotangent element (bounds below).
+FLOPS_PER_TAP = {"B1": 10, "B2": 26, "B3": 9, "B4": 17}
 
 
 def log(*args):
@@ -48,6 +81,23 @@ def close(a, b, what, atol=TOL, rtol=TOL):
     ok = bool((diff <= atol + rtol * b.abs()).all())
     require(ok, f"{what}: max |err| {err:.3e} exceeds atol=rtol={TOL}")
     return err
+
+
+def grad_close(g, ref, what):
+    """|g - ref| <= 1e-4 * max|ref|: atomics sum in another order."""
+    require(bool(g.isfinite().all()), f"{what}: non-finite")
+    scale = float(ref.abs().max())
+    err = float((g - ref).abs().max()) if g.numel() else 0.
+    require(err <= TOL * scale, f"{what}: max|err| {err:.3e} > 1e-4 * "
+            f"max|g| = {TOL * scale:.3e}")
+    return err, scale
+
+
+def off_integer(x, eps=1e-3):
+    """Coordinates away from the bilinear kinks at integers, where the
+    position derivatives jump."""
+    frac = x - x.floor()
+    return (frac > eps) & (frac < 1 - eps)
 
 
 def card_phase(torch):
@@ -71,37 +121,76 @@ def build_phase(cuda_lib):
     secs = time.perf_counter() - t0
     log(f"[build] {'built' if lib.built else 'loaded'} {lib.path.name} "
         f"in {secs:.1f} s")
-    # registers and spills of the instantiations the main path launches
+    # registers and spills of the kernels the main paths launch
     func = None
     for line in lib.log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             func = m.group(1)
-        elif func and ("ILi3ELi8E" in func or "agg_gather" in func) and \
+        elif func and ("ILi3ELi8E" in func or "agg_gather" in func
+                       or "nls_topk_bwd" in func) and \
                 ("registers" in line or "spill" in line):
             log(f"[build] {func[:48]}: {line.strip()}")
     return secs
 
 
+def counters():
+    """The launch counts of the four kernels and the call counts of the
+    plain backwards, by name."""
+    from stnls_tpu_torch.ops import nls_cuda, agg_cuda
+    return {"nls_topk_fwd": nls_cuda.nls_topk,
+            "nls_topk_bwd": nls_cuda.nls_topk_bwd,
+            "agg_gather_fwd": agg_cuda.nl_gather_stack,
+            "agg_gather_bwd": agg_cuda.nl_gather_stack_bwd}, \
+        {"nls_topk_bwd_plain": nls_cuda.nls_topk_bwd_plain,
+         "_gather_bwd_plain": agg_cuda._gather_bwd_plain}
+
+
+def reset_counts():
+    kernels, plains = counters()
+    for fn in kernels.values():
+        fn.launches = 0
+    for fn in plains.values():
+        fn.calls = 0
+
+
+def read_counts():
+    kernels, plains = counters()
+    return ({k: fn.launches for k, fn in kernels.items()},
+            {k: fn.calls for k, fn in plains.items()})
+
+
 @contextlib.contextmanager
-def plain_route():
+def plain_route(forward=True):
     """The reference route on the card: the search and the gather call
     their kernels' plain versions instead of the kernels while inside.
-    Swaps the names the main path calls (non_local_search.nls_topk,
-    gather.nl_gather_stack) and checks that no kernel launched."""
+    Swaps the names the main path calls (the backwards
+    nls_cuda.nls_topk_bwd and agg_cuda.nl_gather_stack_bwd and, with
+    `forward`, non_local_search.nls_topk and gather.nl_gather_stack) and
+    checks that none of the swapped kernels launched."""
     from stnls_tpu_torch.search import non_local_search
     from stnls_tpu_torch.agg import gather
     from stnls_tpu_torch.ops import nls_cuda, agg_cuda
-    saved = non_local_search.nls_topk, gather.nl_gather_stack
-    before = nls_cuda.nls_topk.launches, agg_cuda.nl_gather_stack.launches
-    non_local_search.nls_topk = nls_cuda.nls_topk_plain
-    gather.nl_gather_stack = agg_cuda.nl_gather_stack_plain
+    names = [(nls_cuda, "nls_topk_bwd", nls_cuda.nls_topk_bwd_plain),
+             (agg_cuda, "nl_gather_stack_bwd", agg_cuda._gather_bwd_plain)]
+    if forward:
+        names += [(non_local_search, "nls_topk", nls_cuda.nls_topk_plain),
+                  (gather, "nl_gather_stack",
+                   agg_cuda.nl_gather_stack_plain)]
+    saved = [getattr(mod, name) for mod, name, _ in names]
+    before = read_counts()[0]
+    for mod, name, plain in names:
+        setattr(mod, name, plain)
     try:
         yield
     finally:
-        non_local_search.nls_topk, gather.nl_gather_stack = saved
-    after = nls_cuda.nls_topk.launches, agg_cuda.nl_gather_stack.launches
-    require(after == before, "a kernel launched on the plain route")
+        for (mod, name, _), fn in zip(names, saved):
+            setattr(mod, name, fn)
+    after = read_counts()[0]
+    swapped = after if forward else {k: after[k] for k in ("nls_topk_bwd",
+                                                           "agg_gather_bwd")}
+    require(all(after[k] == before[k] for k in swapped),
+            "a swapped kernel launched on the plain route")
 
 
 def make_inputs(torch, rng, dev, *, B, HD, T, F, H, W, wt):
@@ -117,12 +206,28 @@ def make_inputs(torch, rng, dev, *, B, HD, T, F, H, W, wt):
     return vid0, vid1, flows
 
 
+def taps_in_frame(n, L, ps, stride0=1):
+    """(query, tap) pairs along one axis whose reference pixel lies in
+    the frame: the taps the gather and its backward compute."""
+    pos = np.arange(n)[:, None] * stride0 + np.arange(ps)[None] - ps // 2
+    return int(((pos >= 0) & (pos < L)).sum())
+
+
+def bound_ms(nbytes, flops):
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over the float32 peak."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / F32_FLOP_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops \
+        else "operations"
+
+
 def kernel_phase(torch, dev, name, cfg):
-    """B1 and B3 against their plain versions at one config."""
+    """B1-B4 against their plain versions at one config."""
     from stnls_tpu_torch.ops import nls_cuda, agg_cuda
-    from stnls_tpu_torch.ops.nls_k import nls_dists_at_cells
+    from stnls_tpu_torch.ops.nls_k import nls_dists_at_cells, cells_geometry
     rng = np.random.default_rng(SEED)
-    shape = dict(B=1, HD=2, T=5, F=8, H=cfg["H"], W=cfg["H"], wt=cfg["wt"])
+    B, HD, T, F, H = 1, 2, 5, 8, cfg["H"]
+    shape = dict(B=B, HD=HD, T=T, F=F, H=H, W=H, wt=cfg["wt"])
     vid0, vid1, flows = make_inputs(torch, rng, dev, **shape)
     kw = dict(ws=5, wt=cfg["wt"], ps=3, stride0=1, stride1=cfg["stride1"],
               k=cfg["k"], anchor=True, dist_type="l2", itype="float")
@@ -156,12 +261,37 @@ def kernel_phase(torch, dev, name, cfg):
         f"max|dists-recompute| {err_rc:.3e}, queries whose cell set "
         f"differs {share:.4%} (whose order differs {share_order:.4%})")
 
-    # B3 on the search's own weights and offsets
-    search_cfg = dict(ws=5, wt=cfg["wt"], ps=3, stride0=1,
-                      stride1=cfg["stride1"], dist_type="l2")
+    # B2 at the kernel's cells, on a seeded cotangent
+    geo = cells_geometry(flows, c_k, H=H, W=H, ws=5, wt=cfg["wt"], stride0=1,
+                         stride1=cfg["stride1"])
+    g_d = torch.from_numpy(rng.standard_normal(tuple(c_k.shape))
+                           .astype(np.float32)).to(dev)
+    bwd_cfg = dict(ps=3, stride0=1, dist_type="l2", dilation=1,
+                   use_adj=False, itype="float")
+    b2_args = (vid0, vid1, geo["prop_h"], geo["prop_w"], geo["tj_k"],
+               geo["valid"], g_d, bwd_cfg)
+    g_k = nls_cuda.nls_topk_bwd(*b2_args)
+    torch.cuda.synchronize()
+    g_p = nls_cuda.nls_topk_bwd_plain(*b2_args)
+    off = off_integer(geo["prop_h"]) & off_integer(geo["prop_w"])
+    errs_b2 = []
+    for gk, gp, what, mask in zip(g_k, g_p, ("g_vid0", "g_vid1", "g_prop_h",
+                                             "g_prop_w"),
+                                  (None, None, off, off)):
+        if mask is not None:
+            gk, gp = gk[mask], gp[mask]
+        err, scale = grad_close(gk, gp, f"B2 {name} {what}")
+        errs_b2.append(err)
+        log(f"[kernels] B2 {name} {what}: max|g| {scale:.3e}, "
+            f"max|kernel-plain| {err:.3e}")
+    log(f"[kernels] B2 {name}: position gradients compared at "
+        f"{int(off.sum())} of {off.numel()} (q, k) off integer coordinates")
+
+    # B3 and B4 on the search's own weights and offsets
     with torch.no_grad():
-        d, (dt, dh, dw) = nls_dists_at_cells(vid0, vid1, flows, c_p,
-                                             **search_cfg)
+        d, (dt, dh, dw) = nls_dists_at_cells(
+            vid0, vid1, flows, c_p, ws=5, wt=cfg["wt"], ps=3, stride0=1,
+            stride1=cfg["stride1"], dist_type="l2")
         inds = torch.stack([dt, dh, dw], -1)
         inds[..., 0, :] = 0
         weights = torch.softmax(-10. * d, -1).contiguous()
@@ -172,49 +302,189 @@ def kernel_phase(torch, dev, name, cfg):
                                              stride0=1)
     err_b3 = close(s_k, s_p, f"B3 {name} stack vs plain")
     log(f"[kernels] B3 {name}: max|stack-plain| {err_b3:.3e}")
-    return dict(b1=err_b1, b3=err_b3, share=share,
-                inputs=(vid0, vid1, flows, weights, inds), kw=kw)
 
-
-def attn_module(torch, dev):
-    """NonLocalAttention with numpy-seeded weights."""
-    from stnls_tpu_torch.nn import NonLocalAttention
-    attn_cfg = {"nheads": 2, "embed_dim": 8, "use_attn_projection": True,
-                "use_attn_flow": True}
-    search_cfg = {"search_name": "nls", "ws": 5, "wt": 2, "ps": 3, "k": 10,
-                  "nheads": 2, "stride0": 1, "stride1": 0.5,
-                  "self_action": "anchor", "itype": "float",
-                  "dist_type": "l2"}
-    normz_cfg = {"normz_name": "softmax", "normz_scale": 10,
-                 "dist_type": "l2"}
-    agg_cfg = {"agg_name": "gather", "ps": 3, "stride0": 1,
-               "itype": "float"}
-    attn = NonLocalAttention(attn_cfg, search_cfg, normz_cfg, agg_cfg)
-    rng = np.random.default_rng(SEED + 1)
-    state = {}
-    for key, val in attn.state_dict().items():
-        fan_in = max(1, int(np.prod(val.shape[1:])))
-        state[key] = torch.from_numpy(
-            (rng.standard_normal(tuple(val.shape)) / np.sqrt(fan_in))
-            .astype(np.float32))
-    attn.load_state_dict(state)
-    return attn.to(dev)
-
-
-def cuda_ms(torch, fn, n=10, warm=2):
-    for _ in range(warm):
-        fn()
+    g_stack = torch.from_numpy(rng.standard_normal(tuple(s_k.shape))
+                               .astype(np.float32)).to(dev)
+    agg_cfg = dict(ps=3, stride0=1, pt=1, dilation=1, reflect_bounds=True,
+                   use_adj=False, itype="float")
+    b4_args = (vid1, weights, inds, g_stack, agg_cfg, (True, True, True))
+    g_k = agg_cuda.nl_gather_stack_bwd(*b4_args)
     torch.cuda.synchronize()
-    times = []
-    for _ in range(n):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    g_p = agg_cuda._gather_bwd_plain(*b4_args)
+    off = off_integer(inds[..., 1]) & off_integer(inds[..., 2])
+    require(not bool(g_k[2][..., 0].any()), f"B4 {name}: dt gradient")
+    errs_b4 = []
+    for gk, gp, what in zip(g_k, g_p, ("g_vid", "g_weights", "g_flows")):
+        if what == "g_flows":
+            gk, gp = gk[..., 1:][off], gp[..., 1:][off]
+        err, scale = grad_close(gk, gp, f"B4 {name} {what}")
+        errs_b4.append(err)
+        log(f"[kernels] B4 {name} {what}: max|g| {scale:.3e}, "
+            f"max|kernel-plain| {err:.3e}")
+    log(f"[kernels] B4 {name}: offset gradients compared at "
+        f"{int(off.sum())} of {off.numel()} (q, k) off integer coordinates")
+
+    # bounds at this config, from these inputs
+    def nb(*xs):
+        return sum(x.numel() * x.element_size() for x in xs)
+
+    nq = B * HD * T * H * H
+    K = c_k.shape[-1]
+    cells_all = (min(2 * cfg["wt"] + 1, T)) * 25      # full_ws: all valid
+    taps = taps_in_frame(H, H, 3) ** 2 * B * HD * T * K   # (q, k, tap)
+    active = int((geo["valid"] & (g_d != 0)).sum())
+    bounds = {
+        "B1": bound_ms(nb(vid0, vid1, flows, d_k, c_k),
+                       nq * cells_all * 9 * F * FLOPS_PER_TAP["B1"]),
+        "B2": bound_ms(nb(vid0, vid1, geo["prop_h"], geo["prop_w"],
+                          geo["tj_k"].int(), g_d)
+                       + nb(vid0, vid1, geo["prop_h"], geo["prop_w"]),
+                       active * 9 * F * FLOPS_PER_TAP["B2"]),
+        "B3": bound_ms(nb(vid1, weights, inds, s_k),
+                       taps * F * FLOPS_PER_TAP["B3"] + s_k.numel()),
+        "B4": bound_ms(nb(vid1, weights, inds, g_stack) + nb(vid1, weights,
+                                                             inds),
+                       taps * F * FLOPS_PER_TAP["B4"] + g_stack.numel()),
+    }
+    return dict(err={"B1": err_b1, "B2": max(errs_b2), "B3": err_b3,
+                     "B4": max(errs_b4)}, share=share, bounds=bounds,
+                inputs=(vid0, vid1, flows, weights, inds), kw=kw,
+                b2_args=b2_args, b4_args=b4_args)
+
+
+def train_path(torch, attn, step, data):
+    """The training path: forward and backward of the bench step and of
+    NonLocalAttention into the video, the flows and the parameters, then
+    SGD_STEPS steps of plain SGD of a copy of NonLocalAttention towards
+    the fixed target. Returns the gradients, the SGD updates (each
+    parameter's sum over the steps of LR * grad: its change, without the
+    rounding of p - LR * grad at |p|), the trained copy and the losses."""
+    from stnls_tpu_torch.utils.config import ConfigDict
+    vid, fflow, bflow, proj_w, stack_w, target = data
+    grads = {}
+    leaves = [x.clone().requires_grad_() for x in (vid, fflow, proj_w,
+                                                   stack_w)]
+    loss = step(leaves[0], leaves[1], bflow, leaves[2], leaves[3]) \
+        .pow(2).mean()
+    grads["bench step"] = dict(zip(("vid", "fflow", "proj_w", "stack_w"),
+                                   torch.autograd.grad(loss, leaves)))
+    model = copy.deepcopy(attn)
+    names, params = zip(*model.named_parameters())
+    v, f = vid.clone().requires_grad_(), fflow.clone().requires_grad_()
+    loss = model(v, ConfigDict(fflow=f, bflow=bflow))[0].pow(2).mean()
+    grads["NonLocalAttention"] = dict(zip(
+        ("vid", "fflow") + names,
+        torch.autograd.grad(loss, (v, f) + params)))
+    flows = ConfigDict(fflow=fflow, bflow=bflow)
+    losses = []
+    updates = {n: torch.zeros_like(p) for n, p in zip(names, params)}
+    for _ in range(SGD_STEPS):
+        model.zero_grad()
+        loss = (model(vid, flows)[0] - target).pow(2).mean()
+        loss.backward()
+        losses.append(float(loss.detach()))
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                u = LR * p.grad
+                p -= u
+                updates[n] += u
+    return grads, updates, model, losses
+
+
+def route_search(torch, what, model, step, data):
+    """The (dists, offsets) of the search of path `what` (the bench step,
+    or NonLocalAttention `model`) on the route in force."""
+    from stnls_tpu_torch.nn.flow import search_flow
+    from stnls_tpu_torch.nn.utils import rescale_flows
+    from stnls_tpu_torch.utils.config import ConfigDict
+    vid, fflow, bflow, proj_w = data[:4]
+    with torch.no_grad():
+        if what == "bench step":
+            q = torch.einsum("btchw,cd->btdhw", vid, proj_w)
+            return step.search(q, q, search_flow(fflow, bflow, step.wt,
+                                                 step.stride0))
+        fl = rescale_flows(ConfigDict(fflow=fflow, bflow=bflow),
+                           *vid.shape[-2:])
+        q, k, _ = model.get_qkv(vid)
+        return model.search(q, k, fl.fflow, fl.bflow)
+
+
+def near_tie(torch, idx, shape, ours, ref, *, wt, ps):
+    """Whether the element `idx` of a gradient of `shape` lies in reach
+    of a softmax near-tie of the search, and the evidence. ours, ref: the
+    two routes' (dists [B,HD,T,nH,nW,K], offsets [..,K,3]).
+
+    A pixel of a video or flow gradient [B,T,C,H,W] is reached by the
+    queries of frames t-wt..t+wt within ps//2 + 1 + max|offset| pixels
+    (its query patch, or its key patch at an offset, bilinear); an element
+    of a parameter by every query. In reach, the routes' sorted dists must
+    agree to TOL (float rounding; sorted, so that cells swapped at a tie
+    compare), and one query must show the tie: either its softmax(-10 d)
+    weights (of the sorted dists) moved by more than TOL, which rounding
+    far below TOL can do only where its best weights are of one size, or
+    its cells differ between the routes at equal dists (a ranking tie).
+    The ranking tie alone (best dists within TOL * (1 + |d|)) is too
+    narrow: the softmax is steep wherever its two best dists lie within
+    about 1 / NORMZ_SCALE."""
+    (d_o, i_o), (d_r, i_r) = ours, ref
+    B, HD, T, nH, nW, K = d_r.shape
+    reach = torch.ones((B, HD, T, nH, nW), dtype=torch.bool,
+                       device=d_r.device)
+    if len(shape) == 5 and shape[1] == T and tuple(shape[-2:]) == (nH, nW):
+        b, t, _, h, w = idx
+        off = max(float(i[..., 1:].abs().max()) for i in (i_o, i_r))
+        R = ps // 2 + 1 + int(np.ceil(off))
+        reach = torch.zeros_like(reach)
+        reach[b, :, max(0, t - wt):t + wt + 1, max(0, h - R):h + R + 1,
+              max(0, w - R):w + R + 1] = True
+    s_o, s_r = d_o.sort(-1).values, d_r.sort(-1).values
+    agree = ((s_o == s_r) | ((s_o - s_r).abs() <= TOL * (1 + s_r.abs()))) \
+        .all(-1)
+    w_gap = (torch.softmax(-NORMZ_SCALE * s_o, -1)
+             - torch.softmax(-NORMZ_SCALE * s_r, -1)).abs().amax(-1)
+    swap = (i_o != i_r).any(-1).any(-1)
+    cand = reach & ((w_gap > TOL) | swap)
+    where = f"{int(reach.sum())} queries in reach"
+    if not bool(agree[reach].all()):
+        return False, f"{where}: the routes' dists differ by more than TOL"
+    if not bool(cand.any()):
+        return False, (f"{where}: no weight moved by more than TOL and no "
+                       "cell differs")
+    j = np.unravel_index(int(torch.where(cand, w_gap, -1.).argmax()),
+                         tuple(cand.shape))
+    return True, (
+        f"{where}, their dists agree to TOL; at query (b, head, t, h, w) "
+        f"{tuple(int(x) for x in j)} softmax(-10 d) moved by "
+        f"{float(w_gap[j]):.3e}{', its cells differ' if swap[j] else ''}, "
+        f"its best dists {s_o[j][:3].tolist()} (this route) and "
+        f"{s_r[j][:3].tolist()} (reference)")
+
+
+def compare(torch, g, ref, what, searches, *, wt, ps):
+    """g against ref within TOL * max|ref|; where it misses, within
+    NEAR_TIE_TOL * max|ref| if its largest error lies at a near-tie of the
+    search (near_tie). `searches()` returns the two routes' (dists,
+    offsets). Returns (max|g - ref|, max|ref|)."""
+    require(bool(g.isfinite().all()), f"{what}: non-finite")
+    scale = float(ref.abs().max())
+    diff = (g - ref).abs()
+    err = float(diff.max()) if g.numel() else 0.
+    if err <= TOL * scale:
+        return err, scale
+    idx = tuple(int(x) for x in np.unravel_index(int(diff.argmax()),
+                                                 tuple(diff.shape)))
+    ok, cause = near_tie(torch, idx, tuple(g.shape), *searches(), wt=wt,
+                         ps=ps)
+    log(f"[train] {what}: max|err| {err:.3e} = {err / scale:.3e} * max|ref| "
+        f"> {TOL} * max|ref| at element {idx} ({float(g[idx]):.6e} against "
+        f"{float(ref[idx]):.6e}); {cause}")
+    require(ok, f"{what}: max|err| {err:.3e} > {TOL} * max|ref| = "
+            f"{TOL * scale:.3e}, not at a near-tie")
+    require(err <= NEAR_TIE_TOL * scale, f"{what}: max|err| {err:.3e} > "
+            f"{NEAR_TIE_TOL} * max|ref| at a near-tie")
+    log(f"[train] {what}: held to {NEAR_TIE_TOL} * max|ref| at that "
+        "near-tie")
+    return err, scale
 
 
 def main():
@@ -232,7 +502,8 @@ def main():
     dev = torch.device("cuda", 0)
 
     from stnls_tpu_torch.ops import cuda_lib, nls_cuda, agg_cuda
-    from stnls_tpu_torch.attn_step import AttnStep, smooth_flows
+    from stnls_tpu_torch.attn_step import AttnStep, attention_module, \
+        cuda_ms, smooth_flows
     from stnls_tpu_torch.utils.config import ConfigDict
 
     # 2. the build
@@ -241,9 +512,10 @@ def main():
     # 3. each kernel against its plain version
     res = kernel_phase(torch, dev, "slice 128^2", dict(H=128, wt=2, k=10,
                                                        stride1=0.5))
-    kernel_phase(torch, dev, "graft 64^2", dict(H=64, wt=1, k=8, stride1=1))
+    graft = kernel_phase(torch, dev, "graft 64^2", dict(H=64, wt=1, k=8,
+                                                        stride1=1))
 
-    # 4. the main path at full width
+    # 4. the forward path at full width
     B, T, F, H, W, K = 1, 5, 16, 128, 128, 10
     rng = np.random.default_rng(SEED + 2)
     vid = torch.from_numpy(rng.standard_normal((B, T, F, H, W))
@@ -254,21 +526,22 @@ def main():
                                .astype(np.float32)).to(dev)
     fflow = torch.from_numpy(smooth_flows(rng, (B, T, 2, H, W))).to(dev)
     bflow = torch.from_numpy(smooth_flows(rng, (B, T, 2, H, W))).to(dev)
+    target = torch.from_numpy(rng.standard_normal((B, T, F, H, W))
+                              .astype(np.float32)).to(dev)
     flows = ConfigDict(fflow=fflow, bflow=bflow)
-    attn = attn_module(torch, dev)
+    attn = attention_module(SEED + 1, dev)
     step = AttnStep()
 
-    nls_cuda.nls_topk.launches = 0
-    agg_cuda.nl_gather_stack.launches = 0
+    reset_counts()
     with torch.no_grad():
         out_attn, _ = attn(vid, flows)
         out_step = step(vid, fflow, bflow, proj_w, stack_w)
     torch.cuda.synchronize()
-    launches = {"nls_topk": nls_cuda.nls_topk.launches,
-                "nl_gather_stack": agg_cuda.nl_gather_stack.launches}
-    log(f"[main] launches on the main path: {launches}")
-    require(all(n > 0 for n in launches.values()),
-            "a kernel of the main path was never launched")
+    fwd_launches = read_counts()[0]
+    log(f"[forward] launches on the forward path: {fwd_launches}")
+    require(fwd_launches["nls_topk_fwd"] > 0 and
+            fwd_launches["agg_gather_fwd"] > 0,
+            "a kernel of the forward path was never launched")
     with torch.no_grad(), plain_route():
         ref_attn, _ = attn(vid, flows)
         ref_step = step(vid, fflow, bflow, proj_w, stack_w)
@@ -278,81 +551,141 @@ def main():
                 f"{what}: shape {tuple(out.shape)}")
         require(bool(torch.isfinite(out).all()), f"{what}: non-finite")
         err = close(out, ref, f"{what} kernels vs plain")
-        log(f"[main] {what}: out {tuple(out.shape)}, max|kernels-plain| "
+        log(f"[forward] {what}: out {tuple(out.shape)}, max|kernels-plain| "
             f"{err:.3e}")
 
-    # 5. one backward: the bench step (q = k there, so softmax(-10 d) puts
-    # all weight on the zero-distance self slot and the flow gradient
-    # vanishes) and NonLocalAttention (distinct q/k projections, non-zero
-    # flow gradient)
-    def step_loss(v, f):
-        return step(v, f, bflow, proj_w, stack_w).pow(2).mean()
+    # 5. the training path: through the kernels, then the plain route.
+    # The bench step's flow gradient is 0 on both routes: q = k there, so
+    # softmax(-10 d) puts all weight on the zero-distance self slot.
+    data = (vid, fflow, bflow, proj_w, stack_w, target)
+    reset_counts()
+    grads, updates, model, losses = train_path(torch, attn, step, data)
+    torch.cuda.synchronize()
+    train_launches, plain_calls = read_counts()
+    log(f"[train] launches on the training path: {train_launches}; plain "
+        f"backward calls: {plain_calls}")
+    require(all(n > 0 for n in train_launches.values()),
+            "a kernel of the training path was never launched")
+    require(not any(plain_calls.values()),
+            "a plain backward ran on the kernel route")
+    # the same forward (B1, B3) with the plain backwards: B2 and B4 in situ
+    with plain_route(forward=False):
+        bwd_grads, bwd_updates, bwd_model, _ = train_path(torch, attn, step,
+                                                          data)
+    with plain_route():
+        ref_grads, ref_updates, ref_model, ref_losses = train_path(
+            torch, attn, step, data)
 
-    def attn_loss(v, f):
-        return attn(v, ConfigDict(fflow=f, bflow=bflow))[0].pow(2).mean()
+    def searches(what, mine, theirs, plain):
+        """The search of `what` with this route's model `mine` and with
+        the reference's `theirs` on its route, computed once if asked."""
+        memo = []
 
-    for what, loss_fn in (("bench step", step_loss),
-                          ("NonLocalAttention", attn_loss)):
-        grads = {}
-        for route, ctx in (("kernels", contextlib.nullcontext),
-                           ("plain", plain_route)):
-            v = vid.clone().requires_grad_()
-            f = fflow.clone().requires_grad_()
-            with ctx():
-                grads[route] = torch.autograd.grad(loss_fn(v, f), (v, f))
-        for name, gk, gp in zip(("vid", "fflow"), grads["kernels"],
-                                grads["plain"]):
-            require(bool(torch.isfinite(gk).all()),
-                    f"{what} grad {name}: non-finite")
-            scale = float(gp.abs().max())
-            err = float((gk - gp).abs().max())
-            require(err <= TOL * scale, f"{what} grad {name}: max|err| "
-                    f"{err:.3e} > 1e-4 * max|g| = {TOL * scale:.3e}")
-            log(f"[backward] {what} grad {name}: max|g| {scale:.3e}, "
-                f"max|kernels-plain| {err:.3e}")
-        if what == "NonLocalAttention":
-            require(float(grads["kernels"][1].abs().max()) > 0,
-                    "NonLocalAttention flow gradient vanished")
-    log(f"[backward] _gather_bwd_plain calls: "
-        f"{agg_cuda._gather_bwd_plain.calls}")
+        def run():
+            if not memo:
+                memo.append(route_search(torch, what, mine, step, data))
+                with plain_route() if plain else contextlib.nullcontext():
+                    memo.append(route_search(torch, what, theirs, step,
+                                             data))
+            return memo
+        return run
+
+    geo = dict(wt=step.search.wt, ps=step.search.ps)
+    for what, gs in grads.items():
+        plain_search = searches(what, attn, attn, True)
+        for name, g in gs.items():
+            # same forward: no near-tie can arise, TOL holds
+            err_b, _ = grad_close(g, bwd_grads[what][name],
+                                  f"{what} grad {name} vs the plain "
+                                  "backwards on B1's forward")
+            err, scale = compare(torch, g, ref_grads[what][name],
+                                 f"{what} grad {name} vs the plain route",
+                                 plain_search, **geo)
+            log(f"[train] {what} grad {name}: max|g| {scale:.3e}, "
+                f"max|kernels-plain| {err:.3e}, max|kernels-plain "
+                f"backwards| {err_b:.3e}")
+    require(float(grads["NonLocalAttention"]["fflow"].abs().max()) > 0,
+            "NonLocalAttention flow gradient vanished")
+    log(f"[train] SGD losses, kernels {losses}, plain {ref_losses}")
+    require(losses[-1] < losses[0], "SGD did not lower the loss")
+    # each parameter's change over the steps, against its change on the
+    # other routes: the tolerance scales with the change itself
+    for name, u in updates.items():
+        err, scale = compare(
+            torch, u, ref_updates[name], f"SGD update of {name} vs the "
+            "plain route", searches("NonLocalAttention", model, ref_model,
+                                    True), **geo)
+        err_b, _ = compare(
+            torch, u, bwd_updates[name], f"SGD update of {name} vs the "
+            "plain backwards", searches("NonLocalAttention", model,
+                                        bwd_model, False), **geo)
+        require(scale > 0, f"SGD left {name} unchanged")
+        log(f"[train] {SGD_STEPS} SGD steps, update of {name}: max|update| "
+            f"{scale:.3e}, max|kernels-plain| {err:.3e}, max|kernels-plain "
+            f"backwards| {err_b:.3e}")
 
     # 6. times at the slice config
     vid0, vid1, sflows, weights, inds = res["inputs"]
     kw = res["kw"]
+
+    def fwd_bwd():
+        v, f = vid.clone().requires_grad_(), fflow.clone().requires_grad_()
+        out = step(v, f, bflow, proj_w, stack_w)
+        torch.autograd.grad(out.pow(2).mean(), (v, f))
+
     with torch.no_grad():
-        t_b1 = cuda_ms(torch, lambda: nls_cuda.nls_topk(vid0, vid1, sflows,
+        t_b1 = cuda_ms(lambda: nls_cuda.nls_topk(vid0, vid1, sflows,
                                                         **kw))
-        t_b1p = cuda_ms(torch, lambda: nls_cuda.nls_topk_plain(
+        t_b1p = cuda_ms(lambda: nls_cuda.nls_topk_plain(
             vid0, vid1, sflows, **kw))
-        t_b3 = cuda_ms(torch, lambda: agg_cuda.nl_gather_stack(
+        t_b3 = cuda_ms(lambda: agg_cuda.nl_gather_stack(
             vid1, weights, inds, ps=3, stride0=1))
-        t_b3p = cuda_ms(torch, lambda: agg_cuda.nl_gather_stack_plain(
+        t_b3p = cuda_ms(lambda: agg_cuda.nl_gather_stack_plain(
             vid1, weights, inds, ps=3, stride0=1))
-        t_step = cuda_ms(torch, lambda: step(vid, fflow, bflow, proj_w,
+        t_b2 = cuda_ms(lambda: nls_cuda.nls_topk_bwd(*res["b2_args"]))
+        t_b4 = cuda_ms(lambda: agg_cuda.nl_gather_stack_bwd(
+            *res["b4_args"]))
+        t_step = cuda_ms(lambda: step(vid, fflow, bflow, proj_w,
                                              stack_w))
         with plain_route():
-            t_stepp = cuda_ms(torch, lambda: step(vid, fflow, bflow, proj_w,
+            t_stepp = cuda_ms(lambda: step(vid, fflow, bflow, proj_w,
                                                   stack_w))
+    t_b2p = cuda_ms(lambda: nls_cuda.nls_topk_bwd_plain(
+        *res["b2_args"]))
+    t_b4p = cuda_ms(lambda: agg_cuda._gather_bwd_plain(
+        *res["b4_args"]))
+    t_train = cuda_ms(fwd_bwd)
+    with plain_route():
+        t_trainp = cuda_ms(fwd_bwd, n=5)
     log(f"[times] {smi_line}: B1 {t_b1:.3f} ms (plain {t_b1p:.3f}); "
-        f"B3 {t_b3:.3f} ms (plain {t_b3p:.3f}); forward step {t_step:.3f} ms"
-        f" = {T / (t_step / 1e3):.1f} frames/s (plain {t_stepp:.3f} ms)")
+        f"B2 {t_b2:.3f} ms (plain {t_b2p:.3f}); B3 {t_b3:.3f} ms (plain "
+        f"{t_b3p:.3f}); B4 {t_b4:.3f} ms (plain {t_b4p:.3f})")
+    log(f"[times] {smi_line}: forward step {t_step:.3f} ms = "
+        f"{T / (t_step / 1e3):.1f} frames/s (plain {t_stepp:.3f} ms); "
+        f"fwd+bwd step {t_train:.3f} ms = {T / (t_train / 1e3):.2f} "
+        f"frames/s (plain {t_trainp:.3f} ms)")
 
     require("jax" not in sys.modules, "JAX was imported")
-    kernels = [
-        {"name": "nls_topk_fwd", "route": "cuda",
-         "source": "stnls_tpu_torch/csrc/nls_topk_fwd.cu",
-         "replaces": "stnls_tpu/ops/nls_pallas.py:761",
-         "launches": launches["nls_topk"], "max_abs_err": res["b1"],
-         "ms": t_b1, "plain_ms": t_b1p},
-        {"name": "agg_gather_fwd", "route": "cuda",
-         "source": "stnls_tpu_torch/csrc/agg_gather_fwd.cu",
-         "replaces": "stnls_tpu/ops/agg_pallas.py:408",
-         "launches": launches["nl_gather_stack"], "max_abs_err": res["b3"],
-         "ms": t_b3, "plain_ms": t_b3p},
-    ]
-    print(json.dumps({"forward_step": {
-        "ms": t_step, "plain_ms": t_stepp,
-        "frames_per_s": T / (t_step / 1e3)}}))
+    rows = (("B1", "nls_topk_fwd", "nls_pallas.py:761", t_b1, t_b1p),
+            ("B2", "nls_topk_bwd", "nls_pallas_bwd.py:675", t_b2, t_b2p),
+            ("B3", "agg_gather_fwd", "agg_pallas.py:408", t_b3, t_b3p),
+            ("B4", "agg_gather_bwd", "agg_pallas_bwd.py:244", t_b4, t_b4p))
+    kernels = []
+    for key, name, site, ms, plain_ms in rows:
+        b_ms, b_by = res["bounds"][key]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"stnls_tpu_torch/csrc/{name}.cu",
+            "replaces": f"stnls_tpu/ops/{site}",
+            "launches": train_launches[name],
+            "max_abs_err": max(res["err"][key], graft["err"][key]),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None})
+    print(json.dumps({"steps": {
+        "forward_ms": t_step, "forward_plain_ms": t_stepp,
+        "forward_frames_per_s": T / (t_step / 1e3),
+        "fwd_bwd_ms": t_train, "fwd_bwd_plain_ms": t_trainp,
+        "fwd_bwd_frames_per_s": T / (t_train / 1e3)}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,19 +1,29 @@
-"""Profile the bench attention step of the PyTorch + CUDA port on one
-NVIDIA GPU: where the device time of the forward, and of one forward +
+"""Profile the attention step of the PyTorch + CUDA port on one NVIDIA
+GPU: where the device time of the forward, and of one forward +
 backward, goes.
 
 Run from the repository root: python3 profile_step.py
 
 Slice config (B=1, T=5, F=16, HD=2, 128^2, ws=5, wt=2, ps=3, K=10,
 stride1=0.5), inputs from numpy seed 0, as chip_smoke.py's main path.
-Prints the card's name and power limit, then:
+Prints the card's name and power limit, then, before any trace, the
+median ms of 10 after 2 warm-ups (CUDA events, attn_step.cuda_ms, the
+timer of chip_smoke.py's phase 6) and the peak memory of each of: the
+bench attention step's forward, its forward + backward, and
+NonLocalAttention's forward + backward. Then:
   - forward: host ms a step under torch.profiler over 5 steps, device ms
-    a step (the sum of the device self times), the device's idle share,
-    the number of device launches a step, and the top device ops;
-  - forward + backward: median ms of 5 (CUDA events), peak memory, and
-    the top device ops of one traced step.
-The last line is one JSON object of these numbers. Exits non-zero
-without a CUDA device. Imports nothing of JAX.
+    a step (the sum of the device self times), the device's idle share
+    (against the untraced median), the number of device launches a
+    step, and the top device ops;
+  - forward + backward: the same of one traced step;
+and the same forward + backward for NonLocalAttention
+(attn_step.attention_module, seed 1, as chip_smoke.py drives it), whose
+search gets a non-zero cotangent (the bench
+step's q = k puts all of softmax(-10 d) on the zero-distance self slot,
+so its search backward has nothing to do). Each breakdown lists the
+device ms of the port's four kernels (B1-B4). The last line is one JSON
+object of these numbers. Exits non-zero without a CUDA device. Imports
+nothing of JAX.
 """
 
 import json
@@ -26,6 +36,9 @@ import numpy as np
 
 STEPS = 5
 TOP = 8
+# the port's kernels (stnls_tpu_torch/csrc), by their device names
+PORT_KERNELS = {"B1": "nls_topk_kernel", "B2": "nls_topk_bwd_kernel",
+                "B3": "agg_gather_kernel", "B4": "agg_gather_bwd_kernel"}
 
 
 def device_us(evt):
@@ -76,11 +89,47 @@ def summarise(rows, steps, label):
             print(f"  {ms:9.3f} ms  {share:6.1%}  x{r.count / steps:6.0f}  "
                   f"{r.key[:100]}", flush=True)
             top[kind].append({"name": r.key, "ms": ms, "share": share})
+    port = {}
+    for key, name in PORT_KERNELS.items():
+        hits = [r for r in dev_rows if f"{name}<" in r.key or f"{name}(" in
+                r.key]
+        port[key] = sum(device_us(r) for r in hits) / 1e3 / steps
+    print(f"[{label}] port kernels, device ms a step: {port}", flush=True)
+    top["port kernels"] = port
     return total_ms, launches, top
 
 
+def timed(torch, dev, fn, T, label):
+    """Time of fn by the step timer chip_smoke.py uses (attn_step.cuda_ms:
+    median of 10 CUDA-event runs after 2 warm-ups) and its peak memory.
+    Run before any trace: a profiler session slows later launches."""
+    from stnls_tpu_torch.attn_step import cuda_ms
+    torch.cuda.reset_peak_memory_stats(dev)
+    ms = cuda_ms(fn)
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"[{label}] median {ms:.3f} ms of 10 = "
+          f"{T / (ms / 1e3):.2f} frames/s; peak memory {peak / 1e9:.3f} GB",
+          flush=True)
+    return ms, peak
+
+
+def fwd_bwd_breakdown(torch, dev, fn, T, label, ms, peak):
+    """The device breakdown of one traced run of fn, against its untraced
+    median `ms`."""
+    _, rows = trace(torch, fn, 1, dev)
+    dev_ms, launches, top = summarise(rows, 1, label)
+    idle = 1. - dev_ms / ms
+    print(f"[{label}] device idle share {idle} (traced device ms over the "
+          "median wall ms)", flush=True)
+    return {"ms": ms, "frames_per_s": T / (ms / 1e3), "peak_bytes": peak,
+            "device_ms": dev_ms, "idle_share": idle, "launches": launches,
+            "top": top}
+
+
 def profile(torch, dev, H=128):
-    from stnls_tpu_torch.attn_step import AttnStep, smooth_flows
+    from stnls_tpu_torch.attn_step import AttnStep, attention_module, \
+        smooth_flows
+    from stnls_tpu_torch.utils.config import ConfigDict
     B, T, F, K = 1, 5, 16, 10
     rng = np.random.default_rng(0)
 
@@ -104,37 +153,34 @@ def profile(torch, dev, H=128):
         out = step(v, f, bflow, proj_w, stack_w)
         torch.autograd.grad(out.pow(2).mean(), (v, f))
 
+    attn = attention_module(1, dev)
+
+    def attn_fwd_bwd():
+        v = vid.clone().requires_grad_()
+        f = fflow.clone().requires_grad_()
+        out, _ = attn(v, ConfigDict(fflow=f, bflow=bflow))
+        params = tuple(attn.parameters())
+        torch.autograd.grad(out.pow(2).mean(), (v, f) + params)
+
+    untraced = {label: timed(torch, dev, fn, T, label) for label, fn in (
+        ("forward", fwd), ("fwd+bwd", fwd_bwd),
+        ("NonLocalAttention fwd+bwd", attn_fwd_bwd))}
+
+    fwd_ms = untraced["forward"][0]
     host_ms, rows = trace(torch, fwd, STEPS, dev)
     dev_ms, launches, top = summarise(rows, STEPS, "forward")
-    idle = 1. - dev_ms / host_ms
+    idle = 1. - dev_ms / fwd_ms
     print(f"[forward] host {host_ms:.3f} ms a step under the profiler; "
-          f"device idle share {idle}", flush=True)
-
-    times = []
-    fwd_bwd()
-    torch.cuda.synchronize(dev)
-    torch.cuda.reset_peak_memory_stats(dev)
-    for _ in range(STEPS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fwd_bwd()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    fb_ms = float(np.median(times))
-    peak = torch.cuda.max_memory_allocated(dev)
-    print(f"[fwd+bwd] median {fb_ms:.3f} ms of {STEPS} = "
-          f"{T / (fb_ms / 1e3):.2f} frames/s; peak memory {peak / 1e9:.3f} "
-          "GB", flush=True)
-    _, rows_fb = trace(torch, fwd_bwd, 1, dev)
-    fb_dev_ms, fb_launches, fb_top = summarise(rows_fb, 1, "fwd+bwd")
-    return {"forward": {"host_ms": host_ms, "device_ms": dev_ms,
-                        "idle_share": idle, "launches": launches,
-                        "top": top},
-            "fwd_bwd": {"ms": fb_ms, "frames_per_s": T / (fb_ms / 1e3),
-                        "peak_bytes": peak, "device_ms": fb_dev_ms,
-                        "launches": fb_launches, "top": fb_top}}
+          f"device idle share {idle} (traced device ms over the median "
+          "wall ms)", flush=True)
+    return {"forward": {"ms": fwd_ms, "host_ms": host_ms,
+                        "device_ms": dev_ms, "idle_share": idle,
+                        "launches": launches, "top": top},
+            "fwd_bwd": fwd_bwd_breakdown(torch, dev, fwd_bwd, T, "fwd+bwd",
+                                         *untraced["fwd+bwd"]),
+            "attn_fwd_bwd": fwd_bwd_breakdown(
+                torch, dev, attn_fwd_bwd, T, "NonLocalAttention fwd+bwd",
+                *untraced["NonLocalAttention fwd+bwd"])}
 
 
 def main():

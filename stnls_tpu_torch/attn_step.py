@@ -4,13 +4,17 @@ examples/attn_example.py run, in PyTorch.
 q, k, v = 1x1 projections (einsum with proj_w [F,F]) -> search_flow ->
 NonLocalSearch -> softmax(-10 * dists) -> NonLocalGather -> K-mixing
 projection (einsum with stack_w [K,F,F]). `smooth_flows` is bench.py's
-smooth random flow field, from a numpy Generator.
+smooth random flow field, from a numpy Generator. `attention_module` is
+NonLocalAttention at the same search config with seeded weights, and
+`cuda_ms` the one step timer; chip_smoke.py and profile_step.py drive
+both.
 """
 
 import numpy as np
 import torch
 
 from stnls_tpu_torch.nn.flow import search_flow
+from stnls_tpu_torch.nn.non_local_attn import NonLocalAttention
 from stnls_tpu_torch.search.non_local_search import NonLocalSearch
 from stnls_tpu_torch.agg.gather import NonLocalGather
 
@@ -34,6 +38,49 @@ def smooth_flows(rng, shape, amp=4.0, modes=4):
                 f *= amp / (np.abs(f).max() + 1e-8) * rng.uniform(0.5, 1.0)
                 out[b, t, c] = f
     return out
+
+
+def attention_module(seed, device="cuda"):
+    """NonLocalAttention (2 heads of 8 channels, the bench step's search:
+    ws=5, wt=2, ps=3, K=10, stride1=0.5, anchor, float) with weights drawn
+    from numpy seed `seed`, scaled by 1/sqrt(fan-in)."""
+    attn_cfg = {"nheads": 2, "embed_dim": 8, "use_attn_projection": True,
+                "use_attn_flow": True}
+    search_cfg = {"search_name": "nls", "ws": 5, "wt": 2, "ps": 3, "k": 10,
+                  "nheads": 2, "stride0": 1, "stride1": 0.5,
+                  "self_action": "anchor", "itype": "float",
+                  "dist_type": "l2"}
+    normz_cfg = {"normz_name": "softmax", "normz_scale": 10,
+                 "dist_type": "l2"}
+    agg_cfg = {"agg_name": "gather", "ps": 3, "stride0": 1,
+               "itype": "float"}
+    attn = NonLocalAttention(attn_cfg, search_cfg, normz_cfg, agg_cfg)
+    rng = np.random.default_rng(seed)
+    state = {}
+    for key, val in attn.state_dict().items():
+        fan_in = max(1, int(np.prod(val.shape[1:])))
+        state[key] = torch.from_numpy(
+            (rng.standard_normal(tuple(val.shape)) / np.sqrt(fan_in))
+            .astype(np.float32))
+    attn.load_state_dict(state)
+    return attn.to(device)
+
+
+def cuda_ms(fn, n=10, warm=2):
+    """Median of n CUDA-event times of fn() in ms, after `warm` calls."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
 
 
 class AttnStep(torch.nn.Module):

@@ -1,14 +1,16 @@
-"""B3: the NonLocalGather forward (CUDA, Hopper).
+"""B3 and B4: the NonLocalGather forward and backward (CUDA, Hopper).
 
-Mirrors stnls_tpu/ops/agg_pallas.py::nl_gather_stack_pallas.
-`nl_gather_stack` launches csrc/agg_gather_fwd.cu on CUDA tensors inside
-a torch.autograd.Function; its backward is `_gather_bwd_plain`, the VJP
-of the plain version, until the hand-written gather backward (B4) lands.
-It takes no budgets: it is exact for any offsets.
+Mirror stnls_tpu/ops/agg_pallas.py::nl_gather_stack_pallas and the
+backward of its custom_vjp `_agg_op`, agg_pallas_bwd.py::agg_bwd_pallas.
+`nl_gather_stack` launches csrc/agg_gather_fwd.cu (B3) on CUDA tensors
+inside a torch.autograd.Function whose backward, `nl_gather_stack_bwd`,
+launches csrc/agg_gather_bwd.cu (B4). They take no budgets: they are
+exact for any offsets.
 
-`nl_gather_stack_plain` is its plain PyTorch version
-(ops/agg.nl_gather_stack). The wrapper takes it only for tensors on the
-CPU; for a CUDA tensor it launches the kernel or raises.
+`nl_gather_stack_plain` (ops/agg.nl_gather_stack) and `_gather_bwd_plain`
+(its VJP) are the kernels' plain PyTorch versions. The wrappers take them
+only for tensors on the CPU; for a CUDA tensor they launch the kernel or
+raise.
 """
 
 import torch
@@ -29,16 +31,19 @@ def nl_gather_stack_plain(vid, weights, flows, *, ps, stride0, pt=1,
 
 
 def _gather_bwd_plain(vid, weights, flows, g_stack, cfg, needs):
-    """Backward of the gather kernel: the VJP of `nl_gather_stack_plain`,
-    recomputed under enable_grad. B4 pending: the hand-written gather
-    backward kernel replaces this."""
+    """Plain version of B4: the VJP of `nl_gather_stack_plain`, recomputed
+    under enable_grad. Same arguments and outputs as
+    `nl_gather_stack_bwd`."""
     _gather_bwd_plain.calls += 1
     with torch.enable_grad():
         inputs = [x.detach().requires_grad_(bool(n))
                   for x, n in zip((vid, weights, flows), needs)]
         out = nl_gather_stack_plain(*inputs, **cfg)
         wanted = [x for x in inputs if x.requires_grad]
-        grads = iter(torch.autograd.grad(out, wanted, g_stack)
+        # int offsets are rounded and cast: they get no gradient
+        grads = iter(torch.autograd.grad(out, wanted, g_stack,
+                                         allow_unused=True,
+                                         materialize_grads=True)
                      if wanted else ())
     return tuple(next(grads) if x.requires_grad else None for x in inputs)
 
@@ -104,9 +109,49 @@ class _GatherStack(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_stack):
         vid, weights, flows = ctx.saved_tensors
-        grads = _gather_bwd_plain(vid, weights, flows, g_stack, ctx.cfg,
-                                  ctx.needs_input_grad[:3])
+        grads = nl_gather_stack_bwd(vid, weights, flows, g_stack, ctx.cfg,
+                                    ctx.needs_input_grad[:3])
         return grads + (None,)
+
+
+def nl_gather_stack_bwd(vid, weights, flows, g_stack, cfg, needs):
+    """B4. The gradients of `nl_gather_stack` (cfg: its keywords) from the
+    stack cotangent g_stack [B,HD,K,T,F,H,W]: (g_vid, g_weights, g_flows),
+    each None where `needs` says so; g_flows has 0 in dt and in the int
+    path."""
+    if vid.device.type == "cpu":
+        return _gather_bwd_plain(vid, weights, flows, g_stack, cfg, needs)
+    _check(vid, weights, flows, ps=cfg["ps"], stride0=cfg["stride0"],
+           pt=cfg["pt"], reflect_bounds=cfg["reflect_bounds"],
+           dilation=cfg["dilation"], itype=cfg["itype"])
+    B, HD, T, F, H, W = vid.shape
+    nH, nW = num_queries(H, W, cfg["stride0"])
+    K = flows.shape[-2]
+    if tuple(g_stack.shape) != (B, HD, K, T, F, H, W) or \
+            g_stack.dtype != torch.float32 or g_stack.device != vid.device:
+        raise ValueError("nl_gather_stack_bwd: g_stack must be float32 "
+                         f"[B,HD,K,T,F,H,W] on vid's device, got "
+                         f"{tuple(g_stack.shape)} {g_stack.dtype}")
+    g_stack = g_stack.contiguous()
+    g_vid = torch.zeros_like(vid)
+    g_weights = torch.empty_like(weights)
+    g_flows = torch.empty_like(flows)
+    lib = cuda_lib.load()
+    with torch.cuda.device(vid.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.stnls_agg_gather_bwd(
+            vid.data_ptr(), weights.data_ptr(), flows.data_ptr(),
+            g_stack.data_ptr(), g_vid.data_ptr(), g_weights.data_ptr(),
+            g_flows.data_ptr(), B, HD, K, T, F, H, W, nH, nW, cfg["ps"],
+            cfg["stride0"], cfg["pt"], int(cfg["dilation"]),
+            int(bool(cfg["use_adj"])), int(cfg["itype"] == "int"), stream)
+    cuda_lib.check_launch(err, "nl_gather_stack_bwd")
+    nl_gather_stack_bwd.launches += 1
+    return tuple(g if n else None
+                 for g, n in zip((g_vid, g_weights, g_flows), needs))
+
+
+nl_gather_stack_bwd.launches = 0
 
 
 def nl_gather_stack(vid, weights, flows, *, ps, stride0, pt=1, dilation=1,

@@ -28,6 +28,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "stnls_nls_topk_fwd": [_P] * 5 + [_I] * 15 + [_F, _F] + [_I] * 6 + [_P],
     "stnls_agg_gather_fwd": [_P] * 4 + [_I] * 15 + [_P],
+    "stnls_nls_topk_bwd": [_P] * 10 + [_I] * 15 + [_P],
+    "stnls_agg_gather_bwd": [_P] * 7 + [_I] * 15 + [_P],
 }
 
 

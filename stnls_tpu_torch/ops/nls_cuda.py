@@ -1,18 +1,27 @@
-"""B1: the fused search forward with in-kernel top-K (CUDA, Hopper).
+"""B1 and B2: the search forward with in-kernel top-K and its K-sparse
+backward (CUDA, Hopper).
 
-Mirrors stnls_tpu/ops/nls_pallas.py::nls_pallas_topk. `nls_topk` launches
-csrc/nls_topk_fwd.cu on CUDA tensors and returns the K winning distances
-and their flat window-cell ids (st*ws + wi)*ws + wj. It is a selection
-kernel: the search calls it under no_grad, and the winners' values and
-gradients come from the plain recompute ops/nls_k.nls_dists_at_cells, so
-it needs no autograd.Function. It takes no flow or spread budgets: it is
-exact for any flow.
+B1 mirrors stnls_tpu/ops/nls_pallas.py::nls_pallas_topk. `nls_topk`
+launches csrc/nls_topk_fwd.cu on CUDA tensors and returns the K winning
+distances and their flat window-cell ids (st*ws + wi)*ws + wj. The search
+calls it under no_grad: it selects the cells and its distances are the
+search's forward values. It takes no flow or spread budgets: it is exact
+for any flow.
 
-`nls_topk_plain` is its plain PyTorch version: the exhaustive volume
-(ops/nls.nls_search_volume), its separable offsets (ops/nls_k.search_aux)
-and the selection rule of search.non_local_search._pallas_topk_aux. The
-wrapper takes it only for tensors on the CPU; for a CUDA tensor it
-launches the kernel or raises.
+B2 mirrors stnls_tpu/ops/nls_pallas_bwd.py::topk_bwd_pallas.
+`search_dists` is the torch.autograd.Function around the two, as the
+custom_vjp `_topk_op` is in the JAX package: its forward returns B1's
+distances, its inputs are the videos and the sampled key positions
+(ops/nls_k.cells_geometry, differentiable in the flows), and its backward
+is `nls_topk_bwd`, which launches csrc/nls_topk_bwd.cu and returns the
+gradients to both videos and to the positions.
+
+`nls_topk_plain` (the exhaustive volume of ops/nls.nls_search_volume, the
+separable offsets of ops/nls_k.search_aux and the selection rule of
+search.non_local_search._pallas_topk_aux) and `nls_topk_bwd_plain` (the
+VJP of ops/nls_k.dists_at_positions) are the kernels' plain PyTorch
+versions. The wrappers take them only for tensors on the CPU; for a CUDA
+tensor they launch the kernel or raise.
 """
 
 import torch
@@ -20,7 +29,7 @@ import torch
 from stnls_tpu_torch.ops import cuda_lib
 from stnls_tpu_torch.ops.geometry import num_queries
 from stnls_tpu_torch.ops.nls import nls_search_volume
-from stnls_tpu_torch.ops.nls_k import search_aux
+from stnls_tpu_torch.ops.nls_k import search_aux, dists_at_positions
 
 # (ps, F a head) pairs the kernel is instantiated for (csrc/nls_topk_fwd.cu):
 # those the repo's entry points launch
@@ -124,3 +133,112 @@ def nls_topk(vid0, vid1, flows, *, ws, wt, ps, stride0, stride1, k, anchor,
 
 
 nls_topk.launches = 0
+
+
+def nls_topk_bwd_plain(vid0, vid1, prop_h, prop_w, tj_k, valid, g_d, cfg):
+    """Plain version of B2: the VJP of ops/nls_k.dists_at_positions,
+    recomputed under enable_grad. Same arguments and outputs as
+    `nls_topk_bwd`."""
+    nls_topk_bwd_plain.calls += 1
+    is_float = cfg["itype"] != "int"
+    with torch.enable_grad():
+        inputs = [vid0.detach().requires_grad_(),
+                  vid1.detach().requires_grad_(),
+                  prop_h.detach().requires_grad_(is_float),
+                  prop_w.detach().requires_grad_(is_float)]
+        d = dists_at_positions(*inputs, tj_k, valid, **cfg)
+        wanted = [x for x in inputs if x.requires_grad]
+        grads = iter(torch.autograd.grad(d, wanted, g_d))
+    return tuple(next(grads) if x.requires_grad else torch.zeros_like(x)
+                 for x in inputs)
+
+
+nls_topk_bwd_plain.calls = 0
+
+
+def nls_topk_bwd(vid0, vid1, prop_h, prop_w, tj_k, valid, g_d, cfg):
+    """B2. vid0, vid1 [B,HD,T,F,H,W]; prop_h, prop_w, tj_k, valid and the
+    cotangent g_d [B,HD,T,nH,nW,K]; cfg holds dists_at_positions' keywords
+    (ps, stride0, dist_type, dilation, use_adj, itype). Returns (g_vid0,
+    g_vid1, g_prop_h, g_prop_w); the position gradients are 0 in the int
+    path and for invalid cells."""
+    if vid0.device.type == "cpu":
+        return nls_topk_bwd_plain(vid0, vid1, prop_h, prop_w, tj_k, valid,
+                                  g_d, cfg)
+    B, HD, T, F, H, W = vid0.shape
+    nH, nW, K = g_d.shape[-3:]
+    for name, x in (("vid0", vid0), ("vid1", vid1), ("prop_h", prop_h),
+                    ("prop_w", prop_w), ("g_d", g_d)):
+        if x.device != vid0.device or x.dtype != torch.float32:
+            raise TypeError(f"nls_topk_bwd: {name} must be float32 on "
+                            "vid0's CUDA device")
+    if vid1.shape != vid0.shape or (nH, nW) != num_queries(
+            H, W, cfg["stride0"]) or not (
+            prop_h.shape == prop_w.shape == tj_k.shape == valid.shape
+            == g_d.shape == (B, HD, T, nH, nW, K)):
+        raise ValueError("nls_topk_bwd: vid0/vid1 [B,HD,T,F,H,W] and "
+                         "positions, frames, validity and g_d "
+                         "[B,HD,T,nH,nW,K] expected")
+    if int(cfg["dilation"]) != cfg["dilation"] or cfg["dilation"] < 1:
+        raise NotImplementedError("nls_topk_bwd: integer dilation >= 1 only")
+    if cfg["dist_type"] not in ("l2", "prod") or \
+            cfg["itype"] not in ("float", "int"):
+        raise ValueError(f"nls_topk_bwd: dist_type={cfg['dist_type']!r}, "
+                         f"itype={cfg['itype']!r}")
+    vid0, vid1 = vid0.contiguous(), vid1.contiguous()
+    prop_h, prop_w = prop_h.contiguous(), prop_w.contiguous()
+    g_d = g_d.contiguous()
+    tj = torch.where(valid, tj_k, -1).to(torch.int32).contiguous()
+    g_vid0 = torch.zeros_like(vid0)
+    g_vid1 = torch.zeros_like(vid1)
+    g_prop_h = torch.empty_like(prop_h)
+    g_prop_w = torch.empty_like(prop_w)
+    lib = cuda_lib.load()
+    with torch.cuda.device(vid0.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.stnls_nls_topk_bwd(
+            vid0.data_ptr(), vid1.data_ptr(), prop_h.data_ptr(),
+            prop_w.data_ptr(), tj.data_ptr(), g_d.data_ptr(),
+            g_vid0.data_ptr(), g_vid1.data_ptr(), g_prop_h.data_ptr(),
+            g_prop_w.data_ptr(), B, HD, T, F, H, W, nH, nW, K, cfg["ps"],
+            cfg["stride0"], int(cfg["dilation"]), int(bool(cfg["use_adj"])),
+            int(cfg["dist_type"] == "l2"), int(cfg["itype"] == "int"),
+            stream)
+    cuda_lib.check_launch(err, "nls_topk_bwd")
+    nls_topk_bwd.launches += 1
+    return g_vid0, g_vid1, g_prop_h, g_prop_w
+
+
+nls_topk_bwd.launches = 0
+
+
+class _SearchDists(torch.autograd.Function):
+    """Forward: the distances the selecting kernel computed (B1, or its
+    plain version on the CPU), as they are. Backward: B2."""
+
+    @staticmethod
+    def forward(ctx, vid0, vid1, prop_h, prop_w, dists, tj_k, valid, cfg):
+        ctx.save_for_backward(vid0, vid1, prop_h, prop_w, tj_k, valid)
+        ctx.cfg = cfg
+        return dists.view_as(dists)
+
+    @staticmethod
+    def backward(ctx, g_d):
+        vid0, vid1, prop_h, prop_w, tj_k, valid = ctx.saved_tensors
+        grads = nls_topk_bwd(vid0, vid1, prop_h, prop_w, tj_k, valid, g_d,
+                             ctx.cfg)
+        return grads + (None,) * 4
+
+
+def search_dists(vid0, vid1, prop_h, prop_w, dists, tj_k, valid, *, ps,
+                 stride0=1, dist_type="l2", dilation=1, use_adj=False,
+                 itype="float"):
+    """The search's K distances with their gradient. dists
+    [B,HD,T,nH,nW,K] are the selecting kernel's values at the cells whose
+    key positions prop_h, prop_w, target frames tj_k and validity are
+    given (ops/nls_k.cells_geometry); returns them, differentiable in
+    vid0, vid1 and the positions through B2."""
+    cfg = dict(ps=ps, stride0=stride0, dist_type=dist_type,
+               dilation=dilation, use_adj=use_adj, itype=itype)
+    return _SearchDists.apply(vid0, vid1, prop_h, prop_w, dists, tj_k,
+                              valid, cfg)

@@ -2,18 +2,15 @@
 stnls_tpu/ops/nls_k.py).
 
 Given the selected window cells (integer ids chosen under no_grad by the
-search kernel or its plain version), `nls_dists_at_cells` recomputes ONLY
-those K distances with plain differentiable torch: one patch_gather for
-the key patches plus static strided slices for the query patches.
-Autograd through it gives the K-sparse backward of the search: grads to
-vid0, vid1 and, in the float path, to the flows (bilinear-weight chain
-rule with reflection sign flips).
-
-Selection-vs-value contract: the selecting engine only picks cells; the
-values, and every gradient, come from this exact recompute.
+search kernel or its plain version), `cells_geometry` turns the flows and
+cells into the sampled key positions, target frames, validity and the
+offsets the gather reads: the part of the search that stays in torch and
+carries the flow gradient (reflection sign flips, head broadcast).
+`dists_at_positions` evaluates the K patch distances at those positions
+with plain differentiable torch; its autograd is the function of the
+search backward kernel (B2, ops/nls_cuda.py), which takes its place on
+the card. `nls_dists_at_cells` is the composition of the two.
 """
-
-import math
 
 import numpy as np
 import torch
@@ -85,34 +82,32 @@ def search_aux(vid_shape, flows, *, ws, wt, stride0, stride1, itype="float",
     return dict(dt_tab=dt, dh=dh, dw=dw)
 
 
-def nls_dists_at_cells(vid0, vid1, flows, cells, *, ws, wt, ps, stride0,
-                       stride1, dist_type="l2", dilation=1, full_ws=True,
-                       use_adj=False, itype="float"):
-    """Differentiably recompute search distances at selected window cells.
+def cells_geometry(flows, cells, *, H, W, ws, wt, stride0, stride1,
+                   full_ws=True, itype="float"):
+    """Geometry of the selected window cells, with no video reads.
 
-    vid0/vid1 [B,HD,T,F,H,W]; flows [B,HD,T,W_t(-1),2,nH,nW]; cells int
-    [B,HD,T,nH,nW,K] holding flat ids (st*ws + wi)*ws + wj (no grad).
-
-    Returns (dists [B,HD,T,nH,nW,K], (dt, dh, dw) offsets each
-    [B,HD,T,nH,nW,K]), differentiable in vid0, vid1 and (float path)
-    flows. Invalid cells (window positions outside the frame) carry
-    init_val and zero gradients.
+    flows [B,HD(f),T,W_t(-1),2,nH,nW] (channel 0 = w, 1 = h); cells int
+    [B,HD,T,nH,nW,K] flat ids (st*ws + wi)*ws + wj (no grad). Returns a
+    dict of [B,HD,T,nH,nW,K] tensors: the sampled key positions prop_h,
+    prop_w (float, differentiable in the flows in the float path: the
+    reflection sign flips and the head broadcast happen here, in torch),
+    the target frame tj_k (long), the validity mask `valid` (window
+    positions inside the frame) and the offsets dt, dh, dw that the gather
+    reads (int32 in the int path).
     """
-    B, HD, T, F, H, W = vid0.shape
-    dev = vid0.device
+    HD, T = cells.shape[1], cells.shape[2]
+    dev = cells.device
     is_int = (itype == "int")
     if is_int:
         stride1 = float(max(1, int(stride1)))
         flows = torch.round(flows)
     else:
         stride1 = float(stride1)
-    dtype = vid0.dtype
     W_t = min(2 * wt + 1, T)
     nH, nW = num_queries(H, W, stride0)
     if cells.shape[-3:-1] != (nH, nW):
         raise ValueError("cells must cover the full query grid")
     flows = _expand_flow_heads(flows, HD)
-    patch_offset = 0 if use_adj else -(ps // 2)
 
     cells = cells.detach().long()
     st = cells // (ws * ws)
@@ -144,11 +139,36 @@ def nls_dists_at_cells(vid0, vid1, flows, cells, *, ws, wt, ps, stride0,
     tj_tab = torch.as_tensor(time_window_frames(T, wt), device=dev)
     tj_k = tj_tab[torch.arange(T, device=dev)[None, None, :, None, None,
                                               None], st]
+    t_ids = torch.arange(T, device=dev).reshape(1, 1, T, 1, 1, 1)
+    odt = torch.int32 if is_int else torch.float32
+    return dict(prop_h=prop_h, prop_w=prop_w, tj_k=tj_k, valid=valid,
+                dt=(tj_k - t_ids).to(odt), dh=(prop_h - bh).to(odt),
+                dw=(prop_w - bw).to(odt))
 
-    # key patch support gather (the reflect pad covers window + taps)
-    wspan = stride1 * (ws - 1)
+
+def dists_at_positions(vid0, vid1, prop_h, prop_w, tj_k, valid, *, ps,
+                       stride0=1, dist_type="l2", dilation=1, use_adj=False,
+                       itype="float"):
+    """Patch distances at given key positions: the plain version of the
+    search backward kernel (B2), whose autograd is that kernel's function.
+
+    vid0/vid1 [B,HD,T,F,H,W]; prop_h/prop_w [B,HD,T,nH,nW,K] float key
+    positions (integers in the int path); tj_k [..K] long target frames;
+    valid [..K] bool. The query patch of vid0 and the key patch of vid1
+    are read at reflected pixels (bilinear for float, at reflected
+    corners). Returns dists [B,HD,T,nH,nW,K], differentiable in vid0, vid1
+    and (float path) the positions; invalid cells carry init_val and zero
+    gradients.
+    """
+    B, HD, T, F, H, W = vid0.shape
+    nH, nW = num_queries(H, W, stride0)
+    is_int = (itype == "int")
+    patch_offset = 0 if use_adj else -(ps // 2)
+
+    # key patch support gather; valid positions lie inside the frame, so a
+    # single reflect fold of the taps' reach suffices
     Eh = dilation * (ps - 1)
-    pad = int(math.ceil(wspan)) + Eh + 2
+    pad = Eh + 2
     if pad > min(H, W) - 1:
         raise ValueError("frame too small for single-fold pad")
     v1p, (Tp, Hp, Wp) = pad_frames_cf(vid1, pad)
@@ -163,7 +183,7 @@ def nls_dists_at_cells(vid0, vid1, flows, cells, *, ws, wt, ps, stride0,
         S = Eh + 2
         fi = torch.floor(o_h)
         fj = torch.floor(o_w)
-        fh = o_h - fi                    # carries the flow gradient
+        fh = o_h - fi                    # carries the position gradient
         fw = o_w - fj
         oi = fi.long() + pad
         oj = fj.long() + pad
@@ -204,11 +224,31 @@ def nls_dists_at_cells(vid0, vid1, flows, cells, *, ws, wt, ps, stride0,
                 acc = acc + torch.sum(p0 * pv, dim=2)
 
     _, _, init_val = dist_type_select(dist_type)
-    dists = torch.where(valid, acc, torch.full_like(acc, init_val))
+    return torch.where(valid, acc, torch.full_like(acc, init_val)) \
+        .to(vid0.dtype)
 
-    t_ids = torch.arange(T, device=dev).reshape(1, 1, T, 1, 1, 1)
-    dt = tj_k - t_ids
-    dh = prop_h - bh
-    dw = prop_w - bw
-    odt = torch.int32 if is_int else dtype
-    return dists.to(dtype), (dt.to(odt), dh.to(odt), dw.to(odt))
+
+def nls_dists_at_cells(vid0, vid1, flows, cells, *, ws, wt, ps, stride0,
+                       stride1, dist_type="l2", dilation=1, full_ws=True,
+                       use_adj=False, itype="float"):
+    """Differentiably recompute search distances at selected window cells:
+    `cells_geometry` then `dists_at_positions`.
+
+    vid0/vid1 [B,HD,T,F,H,W]; flows [B,HD,T,W_t(-1),2,nH,nW]; cells int
+    [B,HD,T,nH,nW,K] holding flat ids (st*ws + wi)*ws + wj (no grad).
+
+    Returns (dists [B,HD,T,nH,nW,K], (dt, dh, dw) offsets each
+    [B,HD,T,nH,nW,K]), differentiable in vid0, vid1 and (float path)
+    flows. Invalid cells (window positions outside the frame) carry
+    init_val and zero gradients.
+    """
+    H, W = vid0.shape[-2:]
+    geo = cells_geometry(flows, cells, H=H, W=W, ws=ws, wt=wt,
+                         stride0=stride0, stride1=stride1, full_ws=full_ws,
+                         itype=itype)
+    dists = dists_at_positions(
+        vid0, vid1, geo["prop_h"], geo["prop_w"], geo["tj_k"], geo["valid"],
+        ps=ps, stride0=stride0, dist_type=dist_type, dilation=dilation,
+        use_adj=use_adj, itype=itype)
+    odt = torch.int32 if itype == "int" else vid0.dtype
+    return dists, tuple(geo[key].to(odt) for key in ("dt", "dh", "dw"))

@@ -1,11 +1,13 @@
 """NonLocalSearch: the centrepiece search op (PyTorch port of
-stnls_tpu/search/non_local_search.py, the select-then-recompute route).
+stnls_tpu/search/non_local_search.py).
 
-The search selects the K winning window cells with the fused top-K
-kernel (ops/nls_cuda.nls_topk, B1) under no_grad, then recomputes only
-those K distances differentiably (ops/nls_k.nls_dists_at_cells). That is
-the JAX package's own GPU/CPU route (`_select_cells` + `_sparse_assemble`);
-on CPU tensors the selection runs the kernel's plain version.
+The search selects the K winning window cells and their distances with
+the fused top-K kernel (ops/nls_cuda.nls_topk, B1) under no_grad, as the
+JAX package's TPU route does with `nls_pallas_topk`. The cells' key
+positions and offsets come from torch geometry (ops/nls_k.cells_geometry,
+differentiable in the flows), and ops/nls_cuda.search_dists returns B1's
+distances with the K-sparse backward kernel (B2) as their gradient. On
+CPU tensors both kernels run their plain versions.
 
 Ported: self_action in {None, "anchor", "anchor_self"}, topk_mode="all",
 k > 0, pt=1, reflect_bounds=True, no query offsets, no ws_interior, and
@@ -15,15 +17,13 @@ spread_budget, cv_tile, qchunk, band_dtype, mx_precision) are accepted
 and do nothing: the kernel is exact for any flow.
 """
 
-import math
-
 import numpy as np
 import torch
 
 from stnls_tpu_torch.utils.config import extract_pairs
 from stnls_tpu_torch.ops.nls import dist_type_select
-from stnls_tpu_torch.ops.nls_cuda import nls_topk
-from stnls_tpu_torch.ops.nls_k import nls_dists_at_cells
+from stnls_tpu_torch.ops.nls_cuda import nls_topk, search_dists
+from stnls_tpu_torch.ops.nls_k import cells_geometry
 from stnls_tpu_torch.search.utils import shape_vids, shape_flows, empty_flows
 
 
@@ -107,58 +107,61 @@ def _not_ported(cfg):
 
 
 def _sparse_k_pad_ok(cfg, vid_shape):
-    """The recompute's single-fold reflect pads must fit the frame."""
+    """The patch reads reflect once: the taps' reach plus the bilinear
+    corner (the pad of ops/nls_k.dists_at_positions) must fit the frame."""
     H, W = vid_shape[-2:]
-    Eh = int(cfg["dilation"]) * (cfg["ps"] - 1)
-    pad = int(math.ceil(float(cfg["stride1"]) * (cfg["ws"] - 1))) + Eh + 2
-    return max(pad, Eh + 1) <= min(H, W) - 1
+    return int(cfg["dilation"]) * (cfg["ps"] - 1) + 2 <= min(H, W) - 1
 
 
 def _select_cells(vid0, vid1, flows, cfg):
-    """Selected flat window-cell ids [B,HD,T,nH,nW,K] (int32), from the
-    search kernel. Callers pass detached inputs under no_grad: selection
-    is not differentiable."""
-    _, cells = nls_topk(
+    """Selected dists and flat window-cell ids [B,HD,T,nH,nW,K] (f32,
+    int32), from the search kernel. Callers pass detached inputs under
+    no_grad: selection is not differentiable."""
+    return nls_topk(
         vid0.contiguous(), vid1.contiguous(), flows.contiguous(),
         ws=cfg["ws"], wt=cfg["wt"], ps=cfg["ps"], stride0=cfg["stride0"],
         stride1=cfg["stride1"], k=cfg["k"],
         anchor=cfg["self_action"] is not None, dist_type=cfg["dist_type"],
         dilation=int(cfg["dilation"]), full_ws=cfg["full_ws"],
         use_adj=cfg["use_adj"], itype=cfg["itype"])
-    return cells
 
 
-def _sparse_assemble(vid0, vid1, flows, cells, cfg):
-    """Differentiable re-evaluation of the selected cells: exact dists and
-    offsets via ops.nls_k (K-sized work)."""
-    d, (dt, dh, dw) = nls_dists_at_cells(
-        vid0, vid1, flows, cells, ws=cfg["ws"], wt=cfg["wt"], ps=cfg["ps"],
-        stride0=cfg["stride0"], stride1=cfg["stride1"],
-        dist_type=cfg["dist_type"], dilation=int(cfg["dilation"]),
-        full_ws=cfg["full_ws"], use_adj=cfg["use_adj"], itype=cfg["itype"])
-    inds = torch.stack([dt, dh, dw], dim=-1)
+def _sparse_assemble(vid0, vid1, flows, d_sel, cells, cfg):
+    """The selected dists with their gradient (B2) and the cells'
+    offsets, both differentiable in the flows through the geometry."""
+    H, W = vid0.shape[-2:]
+    geo = cells_geometry(flows, cells, H=H, W=W, ws=cfg["ws"], wt=cfg["wt"],
+                         stride0=cfg["stride0"], stride1=cfg["stride1"],
+                         full_ws=cfg["full_ws"], itype=cfg["itype"])
+    d = search_dists(vid0, vid1, geo["prop_h"], geo["prop_w"], d_sel,
+                     geo["tj_k"], geo["valid"], ps=cfg["ps"],
+                     stride0=cfg["stride0"], dist_type=cfg["dist_type"],
+                     dilation=int(cfg["dilation"]), use_adj=cfg["use_adj"],
+                     itype=cfg["itype"])
+    inds = torch.stack([geo["dt"], geo["dh"], geo["dw"]], dim=-1)
     if cfg["self_action"] in ("anchor", "anchor_self"):
-        # anchored slot-0 offsets are exact zeros; its dist is the true
-        # self-cell distance, recomputed above
+        # anchored slot-0 offsets are exact zeros; its dist is the self
+        # cell's, with its gradient through the positions
         inds = torch.cat([torch.zeros_like(inds[..., :1, :]),
                           inds[..., 1:, :]], dim=-2)
     return d, inds
 
 
 def nls_pipeline(vid0, vid1, flows, cfg):
-    """Forward: select the K cells, then recompute them differentiably.
-    vid0/vid1 [B,HD,T,F,H,W]; flows [B,HDf,T,W_t(-1),2,nH,nW] ->
-    (dists [B,HD,T,nH,nW,K], inds [B,HD,T,nH,nW,K,3])."""
+    """Forward: select the K cells and their dists, then attach the
+    geometry and the backward. vid0/vid1 [B,HD,T,F,H,W]; flows
+    [B,HDf,T,W_t(-1),2,nH,nW] -> (dists [B,HD,T,nH,nW,K],
+    inds [B,HD,T,nH,nW,K,3])."""
     why = _not_ported(cfg)
     if why is None and not _sparse_k_pad_ok(cfg, vid0.shape):
-        why = "frames smaller than the recompute's reflect pad"
+        why = "frames smaller than the patch reads' reflect pad"
     if why is not None:
         raise NotImplementedError(
             f"NonLocalSearch with {why} is not yet ported, see ROADMAP")
     with torch.no_grad():
-        cells = _select_cells(vid0.detach(), vid1.detach(), flows.detach(),
-                              cfg)
-    return _sparse_assemble(vid0, vid1, flows, cells, cfg)
+        d_sel, cells = _select_cells(vid0.detach(), vid1.detach(),
+                                     flows.detach(), cfg)
+    return _sparse_assemble(vid0, vid1, flows, d_sel, cells, cfg)
 
 
 class _ScaleGrad(torch.autograd.Function):

@@ -121,3 +121,40 @@ def test_bench_attention_step(rng):
     assert np.abs(np.asarray(jgf)).max() > 0
     assert_grad_close(gv, jgv, "g_vid")
     assert_grad_close(gf, jgf, "g_fflow")
+
+
+def test_sgd_steps_match_flax(rng):
+    """A trainer's few steps: 3 SGD steps of NonLocalAttention towards a
+    fixed target, in both packages from the same parameters; the
+    parameters agree to 1e-4 * max|p| after every step."""
+    cfgs = _cfgs()
+    lr, steps = 0.5, 3
+    vid = rng.standard_normal((B, T, 8, H, W)).astype(np.float32)
+    target = rng.standard_normal((B, T, 8, H, W)).astype(np.float32)
+    ff = (2 * rng.standard_normal((B, T, 2, H, W))).astype(np.float32)
+    bf = (2 * rng.standard_normal((B, T, 2, H, W))).astype(np.float32)
+    jmodel = JAttention(*cfgs)
+    jflows = JConfigDict(fflow=jnp.asarray(ff), bflow=jnp.asarray(bf))
+    params = jmodel.init(jax.random.PRNGKey(1), jnp.asarray(vid), jflows)
+    tmodel = TAttention(*cfgs)
+    tmodel.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params)))
+    start = {n: p.detach().clone() for n, p in tmodel.named_parameters()}
+
+    jgrad = jax.jit(jax.grad(lambda p: jnp.mean(
+        (jmodel.apply(p, jnp.asarray(vid), jflows)[0] - target) ** 2)))
+    tflows = ConfigDict(fflow=to_torch(ff), bflow=to_torch(bf))
+    for step in range(steps):
+        params = jax.tree.map(lambda p, g: p - lr * g, params,
+                              jgrad(params))
+        tmodel.zero_grad()
+        out, _ = tmodel(to_torch(vid), tflows)
+        (out - torch.from_numpy(target)).pow(2).mean().backward()
+        with torch.no_grad():
+            for p in tmodel.parameters():
+                p -= lr * p.grad
+        ref = params_from_jax(jax.tree.map(np.asarray, params))
+        for name, p in tmodel.named_parameters():
+            assert_grad_close(p, ref[name].numpy(), f"step {step} {name}")
+    moved = max(float((p - start[n]).abs().max() / start[n].abs().max())
+                for n, p in tmodel.named_parameters())
+    assert moved > 1e-2

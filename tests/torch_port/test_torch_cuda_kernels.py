@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from stnls_tpu_torch.ops import agg_cuda, nls_cuda
-from stnls_tpu_torch.ops.nls_k import nls_dists_at_cells
+from stnls_tpu_torch.ops.nls_k import nls_dists_at_cells, cells_geometry
 
 from torch_port_helpers import assert_close, assert_grad_close, \
     assert_cells_match
@@ -91,6 +91,103 @@ def test_impl_knob_keeps_the_modules_on_the_kernels(dev, search_impl,
     gather(v1, torch.softmax(-d, -1), inds)
     assert nls_cuda.nls_topk.launches == n_s + 1
     assert agg_cuda.nl_gather_stack.launches == n_g + 1
+
+
+def _off_integer(x, eps=1e-3):
+    """Positions away from the bilinear kinks at integer coordinates."""
+    frac = x - torch.floor(x)
+    return (frac > eps) & (frac < 1 - eps)
+
+
+@pytest.mark.parametrize("anchor,itype", [(True, "float"), (False, "float"),
+                                          (True, "int")])
+def test_search_backward_kernel_matches_plain(dev, anchor, itype):
+    v0, v1, flows = _inputs(dev)
+    stride1 = 0.5 if itype == "float" else 1
+    kw = dict(KW, anchor=anchor, itype=itype, stride1=stride1)
+    _, cells = nls_cuda.nls_topk(v0, v1, flows, **kw)
+    geo = cells_geometry(flows, cells, H=H, W=W, ws=5, wt=1, stride0=1,
+                         stride1=stride1, itype=itype)
+    cfg = dict(ps=3, stride0=1, dist_type="l2", dilation=1, use_adj=False,
+               itype=itype)
+    g_d = torch.randn(cells.shape, device=dev,
+                      generator=torch.Generator(dev).manual_seed(0))
+    args = (v0, v1, geo["prop_h"], geo["prop_w"], geo["tj_k"], geo["valid"],
+            g_d, cfg)
+    n0 = nls_cuda.nls_topk_bwd.launches
+    g_k = nls_cuda.nls_topk_bwd(*args)
+    torch.cuda.synchronize()
+    assert nls_cuda.nls_topk_bwd.launches == n0 + 1
+    g_p = nls_cuda.nls_topk_bwd_plain(*args)
+    assert_grad_close(g_k[0], g_p[0], "g_vid0")
+    assert_grad_close(g_k[1], g_p[1], "g_vid1")
+    # position gradients jump at integer coordinates: compare away from them
+    off = _off_integer(geo["prop_h"]) & _off_integer(geo["prop_w"])
+    for a, b, name in zip(g_k[2:], g_p[2:], ("g_prop_h", "g_prop_w")):
+        if itype == "int":
+            assert not a.any() and not b.any()
+        else:
+            assert_grad_close(a[off], b[off], name)
+
+
+@pytest.mark.parametrize("itype,extra", [("float", {}), ("float",
+                                                         {"stride0": 2}),
+                                         ("int", {}),
+                                         ("float", {"pt": 2, "use_adj": True})])
+def test_gather_backward_kernel_matches_plain(dev, itype, extra):
+    cfg = dict(dict(ps=3, stride0=1, pt=1, dilation=1, reflect_bounds=True,
+                    use_adj=False, itype=itype), **extra)
+    nH, nW = (H - 1) // cfg["stride0"] + 1, (W - 1) // cfg["stride0"] + 1
+    rng = np.random.default_rng(2)
+
+    def t(x):
+        return torch.from_numpy(np.asarray(x, np.float32)).to(dev)
+
+    K = 6
+    vid = t(rng.standard_normal((B, HD, T, F, H, W)))
+    weights = t(rng.random((B, HD, T, nH, nW, K)))
+    flows = np.stack([rng.integers(-1, 2, (B, HD, T, nH, nW, K)),
+                      3 * rng.standard_normal((B, HD, T, nH, nW, K)),
+                      3 * rng.standard_normal((B, HD, T, nH, nW, K))], -1)
+    flows = t(np.round(flows) if itype == "int" else flows)
+    g = t(rng.standard_normal((B, HD, K, T, F, H, W)))
+    n0 = agg_cuda.nl_gather_stack_bwd.launches
+    g_k = agg_cuda.nl_gather_stack_bwd(vid, weights, flows, g, cfg,
+                                       (True, True, True))
+    torch.cuda.synchronize()
+    assert agg_cuda.nl_gather_stack_bwd.launches == n0 + 1
+    g_p = agg_cuda._gather_bwd_plain(vid, weights, flows, g, cfg,
+                                     (True, True, True))
+    assert_grad_close(g_k[0], g_p[0], "g_vid")
+    assert_grad_close(g_k[1], g_p[1], "g_weights")
+    if itype == "int":
+        assert not g_k[2].any() and not g_p[2].any()
+    else:
+        off = _off_integer(flows[..., 1]) & _off_integer(flows[..., 2])
+        assert_grad_close(g_k[2][off], g_p[2][off], "g_flows")
+
+
+def test_one_backward_launches_each_backward_kernel_once(dev):
+    from stnls_tpu_torch.agg import NonLocalGather
+    from stnls_tpu_torch.search import NonLocalSearch
+    v0, v1, flows = (x.requires_grad_() for x in _inputs(dev))
+    search = NonLocalSearch(5, 1, 3, 6, nheads=HD, stride1=0.5,
+                            self_action="anchor")
+    gather = NonLocalGather(ps=3, stride0=1)
+    counts = (nls_cuda.nls_topk_bwd.launches,
+              agg_cuda.nl_gather_stack_bwd.launches,
+              nls_cuda.nls_topk_bwd_plain.calls,
+              agg_cuda._gather_bwd_plain.calls)
+    d, inds = search(v0, v1, flows)
+    gather(v1, torch.softmax(-d, -1), inds).pow(2).mean().backward()
+    torch.cuda.synchronize()
+    assert (nls_cuda.nls_topk_bwd.launches,
+            agg_cuda.nl_gather_stack_bwd.launches,
+            nls_cuda.nls_topk_bwd_plain.calls,
+            agg_cuda._gather_bwd_plain.calls) == (counts[0] + 1,
+                                                  counts[1] + 1,
+                                                  counts[2], counts[3])
+    assert float(flows.grad.abs().max()) > 0
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):

@@ -1,6 +1,7 @@
 """Port parity of the gather: nl_gather_stack_plain (the plain version of
-the B3 kernel) and NonLocalGather, forward and grads to the video, the
-weights and the (float) offsets."""
+the B3 kernel), _gather_bwd_plain (the plain version of the B4 kernel)
+and NonLocalGather, forward and grads to the video, the weights and the
+(float) offsets."""
 
 import numpy as np
 import pytest
@@ -11,7 +12,9 @@ import torch
 import stnls_tpu
 import stnls_tpu_torch
 from stnls_tpu.ops.agg import nl_gather_stack as j_gather
-from stnls_tpu_torch.ops.agg_cuda import nl_gather_stack, nl_gather_stack_plain
+from stnls_tpu_torch.ops.agg_cuda import (
+    nl_gather_stack, nl_gather_stack_plain, _gather_bwd_plain,
+)
 
 from torch_port_helpers import to_torch, assert_close, assert_grad_close
 
@@ -55,6 +58,14 @@ def test_gather_stack_forward_and_grads(rng, cfg):
                              (tv, tw, tf)[:len(argnums)])
     for a, b, name in zip(tg, jg, ("g_vid", "g_weights", "g_flows")):
         assert_grad_close(a, b, name)
+    # B4's plain version on the same cotangent: the same grads, and a
+    # zero offset gradient where the offsets are integers
+    needs = (True, True, True)
+    bg = _gather_bwd_plain(tv, tw, tf, torch.from_numpy(g), kw, needs)
+    for a, b, name in zip(bg, jg, ("B4 g_vid", "B4 g_weights", "B4 g_flows")):
+        assert_grad_close(a, b, name)
+    if itype == "int":
+        assert not bg[2].any()
 
 
 def test_non_local_gather_module(rng):

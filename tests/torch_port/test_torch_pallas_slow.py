@@ -2,18 +2,27 @@
 themselves, run in interpret mode with explicit budgets that leave no
 out-of-budget entry (outliers == 0 is asserted, so the Pallas outputs are
 exact). The Pallas kernels sum their taps in their own tile order, so
-values agree to 3e-4 (the JAX package's own Pallas-vs-lattice tolerance)."""
+values agree to 3e-4 (the JAX package's own Pallas-vs-lattice tolerance),
+and gradients to 3e-4 * max|g|. The backward checks hold the plain
+versions of B2 and B4 against the grads of the Pallas kernels' own
+custom_vjps (B2 topk_bwd_pallas, B4 agg_bwd_pallas) at the Pallas cells."""
 
 import numpy as np
 import pytest
+import jax
 import jax.numpy as jnp
+import torch
 
 from stnls_tpu.ops.nls_pallas import nls_pallas_topk
 from stnls_tpu.ops.agg_pallas import nl_gather_stack_pallas
-from stnls_tpu_torch.ops.nls_cuda import nls_topk_plain
-from stnls_tpu_torch.ops.agg_cuda import nl_gather_stack_plain
+from stnls_tpu_torch.ops.nls_cuda import nls_topk_plain, search_dists
+from stnls_tpu_torch.ops.nls_k import cells_geometry
+from stnls_tpu_torch.ops.agg_cuda import nl_gather_stack_plain, \
+    _gather_bwd_plain
 
-from torch_port_helpers import to_torch, assert_close, assert_cells_match
+from torch_port_helpers import (
+    to_torch, assert_close, assert_grad_close, assert_cells_match,
+)
 
 B, HD, T, F, H, W = 1, 1, 3, 4, 32, 32
 WS, WT, PS, K = 3, 1, 3, 4
@@ -52,3 +61,60 @@ def test_gather_plain_matches_pallas_gather(rng):
     out = nl_gather_stack_plain(to_torch(vid), to_torch(weights),
                                 to_torch(flows), ps=PS, stride0=1)
     assert_close(out, ref, "stack", atol=PALLAS_TOL, rtol=PALLAS_TOL)
+
+
+@pytest.mark.slow
+def test_search_backward_plain_matches_pallas_topk_bwd(rng):
+    v0 = rng.standard_normal((B, HD, T, F, H, W)).astype(np.float32)
+    v1 = rng.standard_normal((B, HD, T, F, H, W)).astype(np.float32)
+    flows = np.clip(1.5 * rng.standard_normal((B, HD, T, 2 * WT, 2, H, W)),
+                    -1.5, 1.5).astype(np.float32)
+    kw = dict(ws=WS, wt=WT, ps=PS, stride0=1, stride1=1, k=K, anchor=True,
+              itype="float")
+
+    def pallas_dists(a, b, f):
+        d, _, cells, outl = nls_pallas_topk(
+            a, b, f, flow_budget=4, spread_budget=8, interpret=True, **kw)
+        return d, (cells, outl)
+
+    d_p, vjp, (c_p, outl) = jax.vjp(pallas_dists, jnp.asarray(v0),
+                                    jnp.asarray(v1), jnp.asarray(flows),
+                                    has_aux=True)
+    assert int(jnp.sum(outl)) == 0
+    gd = rng.standard_normal(d_p.shape).astype(np.float32)
+    jg = vjp(jnp.asarray(gd))
+
+    tv0, tv1, tfl = to_torch(v0, True), to_torch(v1, True), \
+        to_torch(flows, True)
+    geo = cells_geometry(tfl, torch.from_numpy(np.asarray(c_p)), H=H, W=W,
+                         ws=WS, wt=WT, stride0=1, stride1=1)
+    td = search_dists(tv0, tv1, geo["prop_h"], geo["prop_w"], to_torch(d_p),
+                      geo["tj_k"], geo["valid"], ps=PS)
+    tg = torch.autograd.grad((td * torch.from_numpy(gd)).sum(),
+                             (tv0, tv1, tfl))
+    for a, b, name in zip(tg, jg, ("g_vid0", "g_vid1", "g_flows")):
+        assert_grad_close(a, b, name, tol=PALLAS_TOL)
+
+
+@pytest.mark.slow
+def test_gather_backward_plain_matches_pallas_agg_bwd(rng):
+    vid = rng.standard_normal((B, HD, T, F, H, W)).astype(np.float32)
+    weights = rng.random((B, HD, T, H, W, K)).astype(np.float32)
+    dt = rng.integers(-1, 2, (B, HD, T, H, W, K))
+    dhw = np.clip(1.5 * rng.standard_normal((2, B, HD, T, H, W, K)), -2, 2)
+    flows = np.stack([dt, dhw[0], dhw[1]], -1).astype(np.float32)
+    stack, vjp, outl = jax.vjp(
+        lambda v, w, f: nl_gather_stack_pallas(
+            v, w, f, ps=PS, stride0=1, budget=4, spread=8, interpret=True),
+        jnp.asarray(vid), jnp.asarray(weights), jnp.asarray(flows),
+        has_aux=True)
+    assert int(jnp.sum(outl)) == 0
+    g = rng.standard_normal(stack.shape).astype(np.float32)
+    jg = vjp(jnp.asarray(g))
+    cfg = dict(ps=PS, stride0=1, pt=1, dilation=1, reflect_bounds=True,
+               use_adj=False, itype="float")
+    tg = _gather_bwd_plain(to_torch(vid), to_torch(weights), to_torch(flows),
+                           torch.from_numpy(g), cfg, (True, True, True))
+    for a, b, name in zip(tg, jg, ("g_vid", "g_weights", "g_flows")):
+        # dt is an integer frame offset: no gradient on either side
+        assert_grad_close(a, b, name, tol=PALLAS_TOL)

@@ -22,11 +22,11 @@ def assert_close(port, ref, what="", atol=TOL, rtol=TOL):
                                err_msg=what)
 
 
-def assert_grad_close(port, ref, what=""):
-    """Gradients: atol = 1e-4 * max|g| (sums run in another order)."""
+def assert_grad_close(port, ref, what="", tol=TOL):
+    """Gradients: atol = tol * max|g| (sums run in another order)."""
     ref = to_np(ref)
     scale = max(float(np.abs(ref).max()), 1e-30)
-    np.testing.assert_allclose(to_np(port), ref, atol=TOL * scale, rtol=0,
+    np.testing.assert_allclose(to_np(port), ref, atol=tol * scale, rtol=0,
                                err_msg=what)
 
 
