@@ -8,7 +8,12 @@ Phases, in order; any failure raises and exits non-zero:
   3. each kernel against its plain PyTorch version on the card, at the
      slice config (128^2, wt=2, K=10, stride1=0.5) and the
      __graft_entry__ config (64^2, wt=1, K=8, stride1=1): B1 search
-     top-K, B2 search backward, B3 gather, B4 gather backward;
+     top-K, B2 search backward, B3 gather, B4 gather backward, B5 search
+     volume and B6 its backward (on a dense cotangent, as
+     topk_mode="none" gives, and on the sparse one of anchor_each with
+     per-frame top-2; at 64^2 also remove_ref_frame's, the int path and
+     prod distances; centre gradients compared off integer lattice
+     positions);
   4. the forward path at full width (B=1, T=5, F=16, 128^2):
      NonLocalAttention and the bench attention step, through the kernels
      and through the plain versions (`plain_route`), with launch counts;
@@ -19,8 +24,18 @@ Phases, in order; any failure raises and exits non-zero:
      backward called), through the plain backwards on the kernels'
      forward and through the plain route; gradients and each parameter's
      SGD update compared at 1e-4 * max|ref|, or at 1e-3 where the failing
-     element's own queries show a softmax near-tie (near_tie);
-  6. times with CUDA events (median after warm-ups).
+     element's own queries show a softmax near-tie (near_tie); elements
+     of a video or flow in reach of a query whose cells differ between
+     the routes at a near-tie of its dists are left out and counted
+     (flipped_reach);
+  6. the volume path at full width: NonLocalAttention with the search
+     self_action="anchor_each", topk_mode="each", k=2 (K = W_t * k = 10)
+     through B5, B6, B3 and B4, forward (outputs at 1e-4 away from the
+     flipped near-ties, counted), backward into the video, the flows and
+     the parameters, and 3 SGD steps, against the plain backwards on the
+     kernels' forward and against the plain route, under the rules of
+     phase 5;
+  7. times with CUDA events (median after warm-ups).
 The line before the last is a JSON object of the kernels; the last line
 is {"ok": true, "device": {...}}. The script imports nothing of JAX.
 """
@@ -43,7 +58,10 @@ TOL = 1e-4          # atol = rtol for forward outputs and dists (float32);
 # where its own queries show the cause, a near-tie of the search: the two
 # routes' dists there agree to TOL (float rounding, summation order), and
 # a query's softmax(-10 d) weights moved by more than TOL, or its cells
-# differ, at those equal dists (near_tie). Elsewhere TOL holds.
+# differ, at those equal dists (near_tie). Elsewhere TOL holds. Where a
+# query's cells differ at such a tie, the routes gather other patches
+# there: the video and flow elements in its reach are left out and
+# counted (flipped_reach); per-frame top-2 flips carry real weight.
 NEAR_TIE_TOL = 1e-3
 NORMZ_SCALE = 10.
 SEED = 0
@@ -62,7 +80,17 @@ HBM_BYTES_S, F32_FLOP_S = 3.35e12, 67e12
 # weight and offset gradients follow from the four sums once per pair)
 # + g * w (1) + 4 corner products and 4 adds into g_vid; the division by
 # the overlap count is counted once per cotangent element (bounds below).
-FLOPS_PER_TAP = {"B1": 10, "B2": 26, "B3": 9, "B4": 17}
+# B5 computes B1's arithmetic for every window cell, B6 B2's for every
+# cell with a cotangent.
+FLOPS_PER_TAP = {"B1": 10, "B2": 26, "B3": 9, "B4": 17, "B5": 10, "B6": 26}
+# The search of the volume path (attn_step.VOLUME_SEARCH) and the
+# configurations of the B5/B6 checks: (label, itype, dist_type, the
+# cotangents B6 is checked on)
+VOLUME_CASES = {
+    128: (("float l2", "float", "l2", ("each", "dense")),),
+    64: (("float l2", "float", "l2", ("each", "dense", "remove_ref_frame")),
+         ("int l2", "int", "l2", ("each",)),
+         ("float prod", "float", "prod", ("dense",)))}
 
 
 def log(*args):
@@ -135,15 +163,18 @@ def build_phase(cuda_lib):
 
 
 def counters():
-    """The launch counts of the four kernels and the call counts of the
+    """The launch counts of the six kernels and the call counts of the
     plain backwards, by name."""
-    from stnls_tpu_torch.ops import nls_cuda, agg_cuda
+    from stnls_tpu_torch.ops import nls_cuda, nls_vol_cuda, agg_cuda
     return {"nls_topk_fwd": nls_cuda.nls_topk,
             "nls_topk_bwd": nls_cuda.nls_topk_bwd,
             "agg_gather_fwd": agg_cuda.nl_gather_stack,
-            "agg_gather_bwd": agg_cuda.nl_gather_stack_bwd}, \
+            "agg_gather_bwd": agg_cuda.nl_gather_stack_bwd,
+            "nls_vol_fwd": nls_vol_cuda.nls_volume,
+            "nls_vol_bwd": nls_vol_cuda.nls_volume_bwd}, \
         {"nls_topk_bwd_plain": nls_cuda.nls_topk_bwd_plain,
-         "_gather_bwd_plain": agg_cuda._gather_bwd_plain}
+         "_gather_bwd_plain": agg_cuda._gather_bwd_plain,
+         "nls_volume_bwd_plain": nls_vol_cuda.nls_volume_bwd_plain}
 
 
 def reset_counts():
@@ -164,17 +195,23 @@ def read_counts():
 def plain_route(forward=True):
     """The reference route on the card: the search and the gather call
     their kernels' plain versions instead of the kernels while inside.
-    Swaps the names the main path calls (the backwards
-    nls_cuda.nls_topk_bwd and agg_cuda.nl_gather_stack_bwd and, with
-    `forward`, non_local_search.nls_topk and gather.nl_gather_stack) and
-    checks that none of the swapped kernels launched."""
+    Swaps the names the main paths call (the backwards
+    nls_cuda.nls_topk_bwd, nls_vol_cuda.nls_volume_bwd and
+    agg_cuda.nl_gather_stack_bwd and, with `forward`,
+    non_local_search.nls_topk, nls_vol_cuda.nls_volume and
+    gather.nl_gather_stack) and checks that none of the swapped kernels
+    launched."""
     from stnls_tpu_torch.search import non_local_search
     from stnls_tpu_torch.agg import gather
-    from stnls_tpu_torch.ops import nls_cuda, agg_cuda
+    from stnls_tpu_torch.ops import nls_cuda, nls_vol_cuda, agg_cuda
     names = [(nls_cuda, "nls_topk_bwd", nls_cuda.nls_topk_bwd_plain),
+             (nls_vol_cuda, "nls_volume_bwd",
+              nls_vol_cuda.nls_volume_bwd_plain),
              (agg_cuda, "nl_gather_stack_bwd", agg_cuda._gather_bwd_plain)]
     if forward:
         names += [(non_local_search, "nls_topk", nls_cuda.nls_topk_plain),
+                  (nls_vol_cuda, "nls_volume",
+                   nls_vol_cuda.nls_volume_plain),
                   (gather, "nl_gather_stack",
                    agg_cuda.nl_gather_stack_plain)]
     saved = [getattr(mod, name) for mod, name, _ in names]
@@ -187,8 +224,8 @@ def plain_route(forward=True):
         for (mod, name, _), fn in zip(names, saved):
             setattr(mod, name, fn)
     after = read_counts()[0]
-    swapped = after if forward else {k: after[k] for k in ("nls_topk_bwd",
-                                                           "agg_gather_bwd")}
+    swapped = after if forward else {k: after[k] for k in (
+        "nls_topk_bwd", "nls_vol_bwd", "agg_gather_bwd")}
     require(all(after[k] == before[k] for k in swapped),
             "a swapped kernel launched on the plain route")
 
@@ -352,22 +389,144 @@ def kernel_phase(torch, dev, name, cfg):
                 b2_args=b2_args, b4_args=b4_args)
 
 
+def volume_cotangent(torch, rng, d, inds3, kind, wt):
+    """A cotangent of the volume d [B,HD,T,W_t,ws,ws,nH,nW]: "dense"
+    (every cell, as topk_mode="none" gives), or the sparse one that
+    _self_action_topk gives to a seeded cotangent of its output: "each"
+    (anchor_each, per-frame top-2), "remove_ref_frame" (top-10 of the
+    other frames)."""
+    from stnls_tpu_torch.search.non_local_search import _self_action_topk
+    if kind == "dense":
+        return torch.from_numpy(rng.standard_normal(tuple(d.shape))
+                                .astype(np.float32)).to(d.device)
+    sa, mode, k = {"each": ("anchor_each", "each", 2),
+                   "remove_ref_frame": ("remove_ref_frame", "all", 10)}[kind]
+    d = d.detach().requires_grad_()
+    with torch.enable_grad():
+        ds, _ = _self_action_topk(d, inds3, self_action=sa, topk_mode=mode,
+                                  k=k, wt=wt, dist_type="l2")
+        g = torch.from_numpy(rng.standard_normal(tuple(ds.shape))
+                             .astype(np.float32)).to(d.device)
+        g_d, = torch.autograd.grad(ds, d, g)
+    return g_d
+
+
+def volume_kernel_phase(torch, dev, name, cfg):
+    """B5 and B6 against their plain versions at one config, for each of
+    its VOLUME_CASES; the plain B6 runs one (batch, head) slice at a time,
+    and its peak memory is printed. Returns the largest errors, the
+    bounds, and the arguments of the first case for the timings."""
+    from stnls_tpu_torch.ops import nls_vol_cuda
+    from stnls_tpu_torch.ops.nls import search_centres
+    from stnls_tpu_torch.ops.nls_k import search_aux, aux_to_inds3
+    rng = np.random.default_rng(SEED + 3)
+    B, HD, T, F, H = 1, 2, 5, 8, cfg["H"]
+    wt = cfg["wt"]
+    vid0, vid1, flows = make_inputs(torch, rng, dev, B=B, HD=HD, T=T, F=F,
+                                    H=H, W=H, wt=wt)
+    errs = {"B5": 0., "B6": 0.}
+    res = {}
+    for label, itype, dist_type, cotangents in VOLUME_CASES[H]:
+        stride1 = cfg["stride1"] if itype == "float" else 1
+        ctr_h, ctr_w = search_centres(vid0.shape, flows, wt=wt, stride0=1,
+                                      itype=itype)
+        kw = dict(ws=5, wt=wt, ps=3, stride0=1, stride1=stride1,
+                  dist_type=dist_type, itype=itype)
+        with torch.no_grad():
+            d = nls_vol_cuda.nls_volume(vid0, vid1, ctr_h, ctr_w, **kw)
+            torch.cuda.synchronize()
+            d_p = nls_vol_cuda.nls_volume_plain(vid0, vid1, ctr_h, ctr_w,
+                                                **kw)
+        require(bool((d.isinf() == d_p.isinf()).all()),
+                f"B5 {name} {label}: invalid cells differ")
+        err = close(d, d_p, f"B5 {name} {label} volume vs plain")
+        errs["B5"] = max(errs["B5"], err)
+        log(f"[kernels] B5 {name} {label}: max|volume-plain| {err:.3e}, "
+            f"{int(d.isinf().sum())} of {d.numel()} cells outside the frame")
+        aux = search_aux(vid0.shape, flows, ws=5, wt=wt, stride0=1,
+                         stride1=stride1, itype=itype)
+        inds3 = aux_to_inds3(aux, d.shape)
+        off = (off_integer(aux["dh"]).all(4), off_integer(aux["dw"]).all(4))
+        bwd_cfg = dict(kw, dilation=1, full_ws=True, use_adj=False)
+        for kind in cotangents:
+            g_d = volume_cotangent(torch, rng, d, inds3, kind, wt)
+            args = (vid0, vid1, ctr_h, ctr_w, g_d, bwd_cfg)
+            g_k = nls_vol_cuda.nls_volume_bwd(*args)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            g_p = nls_vol_cuda.nls_volume_bwd_plain(*args)
+            peak = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+            for gk, gp, what, mask in zip(g_k, g_p, ("g_vid0", "g_vid1",
+                                                     "g_ctr_h", "g_ctr_w"),
+                                          (None, None) + off):
+                if mask is not None and itype == "int":
+                    require(not gk.any() and not gp.any(),
+                            f"B6 {name} {label}: int-path {what} not 0")
+                    continue
+                if mask is not None:
+                    gk, gp = gk[mask], gp[mask]
+                err, scale = grad_close(gk, gp, f"B6 {name} {label} {kind} "
+                                        f"{what}")
+                errs["B6"] = max(errs["B6"], err)
+                log(f"[kernels] B6 {name} {label} {kind} {what}: max|g| "
+                    f"{scale:.3e}, max|kernel-plain| {err:.3e}")
+            active = int(((g_d != 0) & d.isfinite()).sum())
+            log(f"[kernels] B6 {name} {label} {kind}: {active} of "
+                f"{g_d.numel()} cells carry a cotangent; centre gradients "
+                f"compared at {int(off[0].sum())} (h) and {int(off[1].sum())}"
+                f" (w) of {off[0].numel()} (query, slot) off integer "
+                f"lattice positions; plain B6 peak {peak:.3f} GB")
+            res.setdefault(kind, dict(args=args, active=active,
+                                      kw=kw, g=(g_k, g_d)))
+
+    def nb(*xs):
+        return sum(x.numel() * x.element_size() for x in xs)
+
+    first = res["each"]
+    vid0, vid1, ctr_h, ctr_w, g_d, _ = first["args"]
+    with torch.no_grad():
+        d = nls_vol_cuda.nls_volume(vid0, vid1, ctr_h, ctr_w, **first["kw"])
+    valid = int(d.isfinite().sum())
+    bounds = {"B5": bound_ms(nb(vid0, vid1, ctr_h, ctr_w, d),
+                             valid * 9 * F * FLOPS_PER_TAP["B5"])}
+    for kind, r in res.items():
+        bounds[f"B6 {kind}"] = bound_ms(
+            nb(*r["args"][:5]) + nb(*r["g"][0]),
+            r["active"] * 9 * F * FLOPS_PER_TAP["B6"])
+    return dict(err=errs, bounds=bounds, b5_args=(vid0, vid1, ctr_h, ctr_w),
+                b5_kw=first["kw"],
+                b6_args={kind: r["args"] for kind, r in res.items()})
+
+
 def train_path(torch, attn, step, data):
     """The training path: forward and backward of the bench step and of
     NonLocalAttention into the video, the flows and the parameters, then
     SGD_STEPS steps of plain SGD of a copy of NonLocalAttention towards
-    the fixed target. Returns the gradients, the SGD updates (each
-    parameter's sum over the steps of LR * grad: its change, without the
-    rounding of p - LR * grad at |p|), the trained copy and the losses."""
-    from stnls_tpu_torch.utils.config import ConfigDict
+    the fixed target (attn_train_path). Returns the gradients, the SGD
+    updates, the trained copy and the losses."""
     vid, fflow, bflow, proj_w, stack_w, target = data
-    grads = {}
     leaves = [x.clone().requires_grad_() for x in (vid, fflow, proj_w,
                                                    stack_w)]
     loss = step(leaves[0], leaves[1], bflow, leaves[2], leaves[3]) \
         .pow(2).mean()
-    grads["bench step"] = dict(zip(("vid", "fflow", "proj_w", "stack_w"),
-                                   torch.autograd.grad(loss, leaves)))
+    grads = {"bench step": dict(zip(("vid", "fflow", "proj_w", "stack_w"),
+                                    torch.autograd.grad(loss, leaves)))}
+    attn_grads, updates, model, losses = attn_train_path(torch, attn, data)
+    grads.update(attn_grads)
+    return grads, updates, model, losses
+
+
+def attn_train_path(torch, attn, data):
+    """Forward and backward of NonLocalAttention `attn` into the video,
+    the flows and the parameters, then SGD_STEPS steps of plain SGD of a
+    copy of it towards the fixed target. Returns the gradients, the SGD
+    updates (each parameter's sum over the steps of LR * grad: its change,
+    without the rounding of p - LR * grad at |p|), the trained copy and
+    the losses."""
+    from stnls_tpu_torch.utils.config import ConfigDict
+    vid, fflow, bflow, proj_w, stack_w, target = data
+    grads = {}
     model = copy.deepcopy(attn)
     names, params = zip(*model.named_parameters())
     v, f = vid.clone().requires_grad_(), fflow.clone().requires_grad_()
@@ -460,17 +619,59 @@ def near_tie(torch, idx, shape, ours, ref, *, wt, ps):
         f"{s_r[j][:3].tolist()} (reference)")
 
 
+def flipped_reach(torch, shape, ours, ref, *, wt, ps, output=False):
+    """The elements of a video-shaped tensor [B,T,C,H,W] in reach (as in
+    near_tie; with `output`, of the attention's output: the query's own
+    frame within ps//2, the gather's patch fold, the projections being
+    1x1) of a query whose selected cells differ between the two routes:
+    there the routes took other cells, so they compute other functions.
+    A query's cells may differ only at a ranking near-tie, its sorted
+    dists agreeing to TOL between the routes (required). ours, ref: the
+    routes' (dists, offsets). Returns (mask of `shape`, the number of
+    such queries)."""
+    import torch.nn.functional as F_
+    (d_o, i_o), (d_r, i_r) = ours, ref
+    swap = (i_o != i_r).any(-1).any(-1)                   # [B,HD,T,nH,nW]
+    s_o, s_r = d_o.sort(-1).values, d_r.sort(-1).values
+    agree = ((s_o == s_r) | ((s_o - s_r).abs() <= TOL * (1 + s_r.abs()))) \
+        .all(-1)
+    require(bool(agree[swap].all()), "a query's cells differ between the "
+            "routes away from a near-tie of its dists")
+    off = max(float(i[..., 1:].abs().max()) for i in (i_o, i_r))
+    R = ps // 2 if output else ps // 2 + 1 + int(np.ceil(off))
+    wt = 0 if output else wt
+    m = F_.max_pool3d(swap.any(1)[:, None].float(),
+                      (2 * wt + 1, 2 * R + 1, 2 * R + 1), stride=1,
+                      padding=(wt, R, R)) > 0           # [B,1,T,H,W]
+    return m[:, 0, :, None].expand(shape), int(swap.sum())
+
+
 def compare(torch, g, ref, what, searches, *, wt, ps):
-    """g against ref within TOL * max|ref|; where it misses, within
-    NEAR_TIE_TOL * max|ref| if its largest error lies at a near-tie of the
-    search (near_tie). `searches()` returns the two routes' (dists,
-    offsets). Returns (max|g - ref|, max|ref|)."""
+    """g against ref within TOL * max|ref|. Where it misses: for a
+    video-shaped g, the elements in reach of a query whose cells differ
+    between the routes at a near-tie are left out (flipped_reach,
+    counted); then the largest remaining error is held to NEAR_TIE_TOL *
+    max|ref| if it lies at a near-tie of the search (near_tie).
+    `searches()` returns the two routes' (dists, offsets). Returns
+    (max|g - ref| compared, max|ref|)."""
     require(bool(g.isfinite().all()), f"{what}: non-finite")
     scale = float(ref.abs().max())
     diff = (g - ref).abs()
     err = float(diff.max()) if g.numel() else 0.
     if err <= TOL * scale:
         return err, scale
+    if g.ndim == 5:
+        mask, n_flip = flipped_reach(torch, tuple(g.shape), *searches(),
+                                     wt=wt, ps=ps)
+        if n_flip:
+            diff = diff.masked_fill(mask, 0.)
+            log(f"[train] {what}: max|err| {err:.3e} = {err / scale:.3e} * "
+                f"max|ref|; {n_flip} queries took other cells at a "
+                f"near-tie, {float(mask.float().mean()):.4%} of the "
+                f"elements lie in their reach and are left out")
+            err = float(diff.max())
+            if err <= TOL * scale:
+                return err, scale
     idx = tuple(int(x) for x in np.unravel_index(int(diff.argmax()),
                                                  tuple(diff.shape)))
     ok, cause = near_tie(torch, idx, tuple(g.shape), *searches(), wt=wt,
@@ -487,6 +688,79 @@ def compare(torch, g, ref, what, searches, *, wt, ps):
     return err, scale
 
 
+def check_routes(torch, label, run, kernels, attn, step, data, geo):
+    """A training path `run()` -> (grads, updates, trained model, losses)
+    through the kernels (each of `kernels` launched, no plain backward
+    called), through the plain backwards on the kernels' forward and
+    through the plain route. Gradients and each parameter's SGD update
+    are compared at TOL * max|ref| (NEAR_TIE_TOL at a printed near-tie,
+    against routes with another forward). `attn` is the NonLocalAttention
+    the path starts from. Returns the kernel route's launch counts."""
+    reset_counts()
+    grads, updates, model, losses = run()
+    torch.cuda.synchronize()
+    launches, plain_calls = read_counts()
+    log(f"[{label}] launches on the kernel route: {launches}; plain "
+        f"backward calls: {plain_calls}")
+    require(all(launches[k] > 0 for k in kernels),
+            f"a kernel of the {label} path was never launched")
+    require(not any(plain_calls.values()),
+            "a plain backward ran on the kernel route")
+    # the same forward with the plain backwards: the backwards in situ
+    with plain_route(forward=False):
+        bwd_grads, bwd_updates, bwd_model, _ = run()
+    with plain_route():
+        ref_grads, ref_updates, ref_model, ref_losses = run()
+
+    def searches(what, mine, theirs, plain):
+        """The search of `what` with this route's model `mine` and with
+        the reference's `theirs` on its route, computed once if asked."""
+        memo = []
+
+        def go():
+            if not memo:
+                memo.append(route_search(torch, what, mine, step, data))
+                with plain_route() if plain else contextlib.nullcontext():
+                    memo.append(route_search(torch, what, theirs, step,
+                                             data))
+            return memo
+        return go
+
+    for what, gs in grads.items():
+        plain_search = searches(what, attn, attn, True)
+        for name, g in gs.items():
+            # same forward: no near-tie can arise, TOL holds
+            err_b, _ = grad_close(g, bwd_grads[what][name],
+                                  f"{what} grad {name} vs the plain "
+                                  "backwards on the kernels' forward")
+            err, scale = compare(torch, g, ref_grads[what][name],
+                                 f"{what} grad {name} vs the plain route",
+                                 plain_search, **geo)
+            log(f"[{label}] {what} grad {name}: max|g| {scale:.3e}, "
+                f"max|kernels-plain| {err:.3e}, max|kernels-plain "
+                f"backwards| {err_b:.3e}")
+    require(float(grads["NonLocalAttention"]["fflow"].abs().max()) > 0,
+            "NonLocalAttention flow gradient vanished")
+    log(f"[{label}] SGD losses, kernels {losses}, plain {ref_losses}")
+    require(losses[-1] < losses[0], "SGD did not lower the loss")
+    # each parameter's change over the steps, against its change on the
+    # other routes: the tolerance scales with the change itself
+    for name, u in updates.items():
+        err, scale = compare(
+            torch, u, ref_updates[name], f"SGD update of {name} vs the "
+            "plain route", searches("NonLocalAttention", model, ref_model,
+                                    True), **geo)
+        err_b, _ = compare(
+            torch, u, bwd_updates[name], f"SGD update of {name} vs the "
+            "plain backwards", searches("NonLocalAttention", model,
+                                        bwd_model, False), **geo)
+        require(scale > 0, f"SGD left {name} unchanged")
+        log(f"[{label}] {SGD_STEPS} SGD steps, update of {name}: "
+            f"max|update| {scale:.3e}, max|kernels-plain| {err:.3e}, "
+            f"max|kernels-plain backwards| {err_b:.3e}")
+    return launches
+
+
 def main():
     here = Path(__file__).resolve().parent
     if not (here / "stnls_tpu_torch" / "csrc").is_dir():
@@ -501,9 +775,10 @@ def main():
     kind, smi_line = card_phase(torch)
     dev = torch.device("cuda", 0)
 
-    from stnls_tpu_torch.ops import cuda_lib, nls_cuda, agg_cuda
+    from stnls_tpu_torch.ops import cuda_lib, nls_cuda, nls_vol_cuda, \
+        agg_cuda
     from stnls_tpu_torch.attn_step import AttnStep, attention_module, \
-        cuda_ms, smooth_flows
+        cuda_ms, smooth_flows, VOLUME_SEARCH
     from stnls_tpu_torch.utils.config import ConfigDict
 
     # 2. the build
@@ -514,6 +789,10 @@ def main():
                                                        stride1=0.5))
     graft = kernel_phase(torch, dev, "graft 64^2", dict(H=64, wt=1, k=8,
                                                         stride1=1))
+    vres = volume_kernel_phase(torch, dev, "slice 128^2",
+                               dict(H=128, wt=2, stride1=0.5))
+    vgraft = volume_kernel_phase(torch, dev, "graft 64^2",
+                                 dict(H=64, wt=1, stride1=1))
 
     # 4. the forward path at full width
     B, T, F, H, W, K = 1, 5, 16, 128, 128, 10
@@ -529,6 +808,7 @@ def main():
     target = torch.from_numpy(rng.standard_normal((B, T, F, H, W))
                               .astype(np.float32)).to(dev)
     flows = ConfigDict(fflow=fflow, bflow=bflow)
+    data = (vid, fflow, bflow, proj_w, stack_w, target)
     attn = attention_module(SEED + 1, dev)
     step = AttnStep()
 
@@ -557,74 +837,51 @@ def main():
     # 5. the training path: through the kernels, then the plain route.
     # The bench step's flow gradient is 0 on both routes: q = k there, so
     # softmax(-10 d) puts all weight on the zero-distance self slot.
-    data = (vid, fflow, bflow, proj_w, stack_w, target)
-    reset_counts()
-    grads, updates, model, losses = train_path(torch, attn, step, data)
-    torch.cuda.synchronize()
-    train_launches, plain_calls = read_counts()
-    log(f"[train] launches on the training path: {train_launches}; plain "
-        f"backward calls: {plain_calls}")
-    require(all(n > 0 for n in train_launches.values()),
-            "a kernel of the training path was never launched")
-    require(not any(plain_calls.values()),
-            "a plain backward ran on the kernel route")
-    # the same forward (B1, B3) with the plain backwards: B2 and B4 in situ
-    with plain_route(forward=False):
-        bwd_grads, bwd_updates, bwd_model, _ = train_path(torch, attn, step,
-                                                          data)
-    with plain_route():
-        ref_grads, ref_updates, ref_model, ref_losses = train_path(
-            torch, attn, step, data)
-
-    def searches(what, mine, theirs, plain):
-        """The search of `what` with this route's model `mine` and with
-        the reference's `theirs` on its route, computed once if asked."""
-        memo = []
-
-        def run():
-            if not memo:
-                memo.append(route_search(torch, what, mine, step, data))
-                with plain_route() if plain else contextlib.nullcontext():
-                    memo.append(route_search(torch, what, theirs, step,
-                                             data))
-            return memo
-        return run
-
     geo = dict(wt=step.search.wt, ps=step.search.ps)
-    for what, gs in grads.items():
-        plain_search = searches(what, attn, attn, True)
-        for name, g in gs.items():
-            # same forward: no near-tie can arise, TOL holds
-            err_b, _ = grad_close(g, bwd_grads[what][name],
-                                  f"{what} grad {name} vs the plain "
-                                  "backwards on B1's forward")
-            err, scale = compare(torch, g, ref_grads[what][name],
-                                 f"{what} grad {name} vs the plain route",
-                                 plain_search, **geo)
-            log(f"[train] {what} grad {name}: max|g| {scale:.3e}, "
-                f"max|kernels-plain| {err:.3e}, max|kernels-plain "
-                f"backwards| {err_b:.3e}")
-    require(float(grads["NonLocalAttention"]["fflow"].abs().max()) > 0,
-            "NonLocalAttention flow gradient vanished")
-    log(f"[train] SGD losses, kernels {losses}, plain {ref_losses}")
-    require(losses[-1] < losses[0], "SGD did not lower the loss")
-    # each parameter's change over the steps, against its change on the
-    # other routes: the tolerance scales with the change itself
-    for name, u in updates.items():
-        err, scale = compare(
-            torch, u, ref_updates[name], f"SGD update of {name} vs the "
-            "plain route", searches("NonLocalAttention", model, ref_model,
-                                    True), **geo)
-        err_b, _ = compare(
-            torch, u, bwd_updates[name], f"SGD update of {name} vs the "
-            "plain backwards", searches("NonLocalAttention", model,
-                                        bwd_model, False), **geo)
-        require(scale > 0, f"SGD left {name} unchanged")
-        log(f"[train] {SGD_STEPS} SGD steps, update of {name}: max|update| "
-            f"{scale:.3e}, max|kernels-plain| {err:.3e}, max|kernels-plain "
-            f"backwards| {err_b:.3e}")
+    train_launches = check_routes(
+        torch, "train", lambda: train_path(torch, attn, step, data),
+        ("nls_topk_fwd", "nls_topk_bwd", "agg_gather_fwd", "agg_gather_bwd"),
+        attn, step, data, geo)
 
-    # 6. times at the slice config
+    # 6. the volume path: NonLocalAttention with per-frame top-K
+    vattn = attention_module(SEED + 1, dev, search=VOLUME_SEARCH)
+    reset_counts()
+    with torch.no_grad():
+        out_v, _ = vattn(vid, flows)
+    torch.cuda.synchronize()
+    vol_fwd_launches = read_counts()[0]
+    with torch.no_grad(), plain_route():
+        ref_v, _ = vattn(vid, flows)
+    require(tuple(out_v.shape) == (B, T, F, H, W) and
+            bool(torch.isfinite(out_v).all()),
+            f"volume NonLocalAttention: shape {tuple(out_v.shape)} or "
+            "non-finite")
+    # where B5's and the plain volume's rounding flips a per-frame top-2
+    # at a near-tie, the routes gather other cells: those outputs are
+    # left out and counted (flipped_reach)
+    mine = route_search(torch, "NonLocalAttention", vattn, step, data)
+    with plain_route():
+        theirs = route_search(torch, "NonLocalAttention", vattn, step, data)
+    mask, n_flip = flipped_reach(torch, tuple(out_v.shape), mine, theirs,
+                                 output=True, **geo)
+    err = close(out_v.masked_fill(mask, 0.), ref_v.masked_fill(mask, 0.),
+                "volume NonLocalAttention kernels vs plain")
+    log(f"[volume] forward launches {vol_fwd_launches}; out "
+        f"{tuple(out_v.shape)}, max|kernels-plain| {err:.3e} away from the "
+        f"{n_flip} queries whose per-frame top-2 flipped at a near-tie "
+        f"({float(mask.float().mean()):.4%} of the outputs left out; "
+        f"max|kernels-plain| there "
+        f"{float((out_v - ref_v).abs().max()):.3e})")
+    require(vol_fwd_launches["nls_vol_fwd"] > 0 and
+            vol_fwd_launches["agg_gather_fwd"] > 0 and
+            vol_fwd_launches["nls_topk_fwd"] == 0,
+            "the volume path's forward did not run through B5 and B3")
+    vol_launches = check_routes(
+        torch, "volume", lambda: attn_train_path(torch, vattn, data),
+        ("nls_vol_fwd", "nls_vol_bwd", "agg_gather_fwd", "agg_gather_bwd"),
+        vattn, step, data, geo)
+
+    # 7. times at the slice config
     vid0, vid1, sflows, weights, inds = res["inputs"]
     kw = res["kw"]
 
@@ -657,6 +914,39 @@ def main():
     t_train = cuda_ms(fwd_bwd)
     with plain_route():
         t_trainp = cuda_ms(fwd_bwd, n=5)
+    b5_args, b5_kw, b6_args = vres["b5_args"], vres["b5_kw"], vres["b6_args"]
+    with torch.no_grad():
+        t_b5 = cuda_ms(lambda: nls_vol_cuda.nls_volume(*b5_args, **b5_kw))
+        t_b5p = cuda_ms(lambda: nls_vol_cuda.nls_volume_plain(
+            *b5_args, **b5_kw), n=3, warm=1)
+        t_b6 = {kind: cuda_ms(lambda: nls_vol_cuda.nls_volume_bwd(*args))
+                for kind, args in b6_args.items()}
+    t_b6p = {kind: cuda_ms(lambda: nls_vol_cuda.nls_volume_bwd_plain(*args),
+                           n=3, warm=1) for kind, args in b6_args.items()}
+
+    def vol_fwd():
+        with torch.no_grad():
+            vattn(vid, flows)
+
+    def vol_fwd_bwd():
+        v, f = vid.clone().requires_grad_(), fflow.clone().requires_grad_()
+        out, _ = vattn(v, ConfigDict(fflow=f, bflow=bflow))
+        torch.autograd.grad(out.pow(2).mean(), [v, f]
+                            + list(vattn.parameters()))
+
+    t_vol = cuda_ms(vol_fwd)
+    t_vol_train = cuda_ms(vol_fwd_bwd)
+    with plain_route():
+        t_volp = cuda_ms(vol_fwd, n=3, warm=1)
+        t_vol_trainp = cuda_ms(vol_fwd_bwd, n=3, warm=1)
+    log(f"[times] {smi_line}: B5 {t_b5:.3f} ms (plain {t_b5p:.3f}, bound "
+        f"{vres['bounds']['B5'][0]:.3f}); " + "; ".join(
+            f"B6 {kind} {t_b6[kind]:.3f} ms (plain {t_b6p[kind]:.3f}, bound "
+            f"{vres['bounds'][f'B6 {kind}'][0]:.3f})" for kind in t_b6))
+    log(f"[times] {smi_line}: volume NonLocalAttention forward {t_vol:.3f} "
+        f"ms = {T / (t_vol / 1e3):.1f} frames/s (plain {t_volp:.3f} ms); "
+        f"fwd+bwd {t_vol_train:.3f} ms = {T / (t_vol_train / 1e3):.2f} "
+        f"frames/s (plain {t_vol_trainp:.3f} ms)")
     log(f"[times] {smi_line}: B1 {t_b1:.3f} ms (plain {t_b1p:.3f}); "
         f"B2 {t_b2:.3f} ms (plain {t_b2p:.3f}); B3 {t_b3:.3f} ms (plain "
         f"{t_b3p:.3f}); B4 {t_b4:.3f} ms (plain {t_b4p:.3f})")
@@ -670,22 +960,36 @@ def main():
             ("B2", "nls_topk_bwd", "nls_pallas_bwd.py:675", t_b2, t_b2p),
             ("B3", "agg_gather_fwd", "agg_pallas.py:408", t_b3, t_b3p),
             ("B4", "agg_gather_bwd", "agg_pallas_bwd.py:244", t_b4, t_b4p))
+    # B5 and B6 on the volume path (B6 on its sparse per-frame top-K
+    # cotangent); launches from the paths' kernel routes
+    rows += (("B5", "nls_vol_fwd", "nls_pallas.py:705", t_b5, t_b5p),
+             ("B6", "nls_vol_bwd", "nls_pallas_bwd.py:733", t_b6["each"],
+              t_b6p["each"]))
+    bounds = dict(res["bounds"], B5=vres["bounds"]["B5"],
+                  B6=vres["bounds"]["B6 each"])
+    errs = {key: max(r["err"][key], g["err"][key])
+            for r, g in ((res, graft), (vres, vgraft)) for key in r["err"]}
     kernels = []
     for key, name, site, ms, plain_ms in rows:
-        b_ms, b_by = res["bounds"][key]
+        b_ms, b_by = bounds[key]
+        launches = vol_launches if key in ("B5", "B6") else train_launches
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"stnls_tpu_torch/csrc/{name}.cu",
             "replaces": f"stnls_tpu/ops/{site}",
-            "launches": train_launches[name],
-            "max_abs_err": max(res["err"][key], graft["err"][key]),
+            "launches": launches[name], "max_abs_err": errs[key],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None})
     print(json.dumps({"steps": {
         "forward_ms": t_step, "forward_plain_ms": t_stepp,
         "forward_frames_per_s": T / (t_step / 1e3),
         "fwd_bwd_ms": t_train, "fwd_bwd_plain_ms": t_trainp,
-        "fwd_bwd_frames_per_s": T / (t_train / 1e3)}}))
+        "fwd_bwd_frames_per_s": T / (t_train / 1e3),
+        "volume_forward_ms": t_vol, "volume_forward_plain_ms": t_volp,
+        "volume_fwd_bwd_ms": t_vol_train,
+        "volume_fwd_bwd_plain_ms": t_vol_trainp,
+        "b6_dense_ms": t_b6["dense"], "b6_dense_plain_ms": t_b6p["dense"],
+        "b6_dense_bound_ms": vres["bounds"]["B6 dense"][0]}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

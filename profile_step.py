@@ -20,10 +20,11 @@ and the same forward + backward for NonLocalAttention
 (attn_step.attention_module, seed 1, as chip_smoke.py drives it), whose
 search gets a non-zero cotangent (the bench
 step's q = k puts all of softmax(-10 d) on the zero-distance self slot,
-so its search backward has nothing to do). Each breakdown lists the
-device ms of the port's four kernels (B1-B4). The last line is one JSON
-object of these numbers. Exits non-zero without a CUDA device. Imports
-nothing of JAX.
+so its search backward has nothing to do), and for the same module on the
+volume path (attn_step.VOLUME_SEARCH: anchor_each, per-frame top-2,
+through B5/B6). Each breakdown lists the device ms of the port's six
+kernels (B1-B6). The last line is one JSON object of these numbers.
+Exits non-zero without a CUDA device. Imports nothing of JAX.
 """
 
 import json
@@ -38,7 +39,8 @@ STEPS = 5
 TOP = 8
 # the port's kernels (stnls_tpu_torch/csrc), by their device names
 PORT_KERNELS = {"B1": "nls_topk_kernel", "B2": "nls_topk_bwd_kernel",
-                "B3": "agg_gather_kernel", "B4": "agg_gather_bwd_kernel"}
+                "B3": "agg_gather_kernel", "B4": "agg_gather_bwd_kernel",
+                "B5": "nls_vol_fwd_kernel", "B6": "nls_vol_bwd_kernel"}
 
 
 def device_us(evt):
@@ -128,7 +130,7 @@ def fwd_bwd_breakdown(torch, dev, fn, T, label, ms, peak):
 
 def profile(torch, dev, H=128):
     from stnls_tpu_torch.attn_step import AttnStep, attention_module, \
-        smooth_flows
+        smooth_flows, VOLUME_SEARCH
     from stnls_tpu_torch.utils.config import ConfigDict
     B, T, F, K = 1, 5, 16, 10
     rng = np.random.default_rng(0)
@@ -153,18 +155,19 @@ def profile(torch, dev, H=128):
         out = step(v, f, bflow, proj_w, stack_w)
         torch.autograd.grad(out.pow(2).mean(), (v, f))
 
-    attn = attention_module(1, dev)
-
-    def attn_fwd_bwd():
+    def attn_fwd_bwd(attn):
         v = vid.clone().requires_grad_()
         f = fflow.clone().requires_grad_()
         out, _ = attn(v, ConfigDict(fflow=f, bflow=bflow))
         params = tuple(attn.parameters())
         torch.autograd.grad(out.pow(2).mean(), (v, f) + params)
 
+    attn = attention_module(1, dev)
+    vattn = attention_module(1, dev, search=VOLUME_SEARCH)
+    paths = {"NonLocalAttention fwd+bwd": lambda: attn_fwd_bwd(attn),
+             "volume NonLocalAttention fwd+bwd": lambda: attn_fwd_bwd(vattn)}
     untraced = {label: timed(torch, dev, fn, T, label) for label, fn in (
-        ("forward", fwd), ("fwd+bwd", fwd_bwd),
-        ("NonLocalAttention fwd+bwd", attn_fwd_bwd))}
+        ("forward", fwd), ("fwd+bwd", fwd_bwd), *paths.items())}
 
     fwd_ms = untraced["forward"][0]
     host_ms, rows = trace(torch, fwd, STEPS, dev)
@@ -178,9 +181,11 @@ def profile(torch, dev, H=128):
                         "launches": launches, "top": top},
             "fwd_bwd": fwd_bwd_breakdown(torch, dev, fwd_bwd, T, "fwd+bwd",
                                          *untraced["fwd+bwd"]),
-            "attn_fwd_bwd": fwd_bwd_breakdown(
-                torch, dev, attn_fwd_bwd, T, "NonLocalAttention fwd+bwd",
-                *untraced["NonLocalAttention fwd+bwd"])}
+            **{key: fwd_bwd_breakdown(torch, dev, fn, T, label,
+                                      *untraced[label])
+               for key, (label, fn) in zip(("attn_fwd_bwd",
+                                            "volume_attn_fwd_bwd"),
+                                           paths.items())}}
 
 
 def main():

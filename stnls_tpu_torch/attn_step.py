@@ -7,7 +7,9 @@ projection (einsum with stack_w [K,F,F]). `smooth_flows` is bench.py's
 smooth random flow field, from a numpy Generator. `attention_module` is
 NonLocalAttention at the same search config with seeded weights, and
 `cuda_ms` the one step timer; chip_smoke.py and profile_step.py drive
-both.
+both. `VOLUME_SEARCH` is the search of the volume path's slice: per-frame
+top-2 with each frame's self cell anchored (K = W_t * k = 10, the same K
+as the bench step), which runs the full-volume kernels B5/B6.
 """
 
 import numpy as np
@@ -40,16 +42,20 @@ def smooth_flows(rng, shape, amp=4.0, modes=4):
     return out
 
 
-def attention_module(seed, device="cuda"):
+VOLUME_SEARCH = {"self_action": "anchor_each", "topk_mode": "each", "k": 2}
+
+
+def attention_module(seed, device="cuda", search=None):
     """NonLocalAttention (2 heads of 8 channels, the bench step's search:
     ws=5, wt=2, ps=3, K=10, stride1=0.5, anchor, float) with weights drawn
-    from numpy seed `seed`, scaled by 1/sqrt(fan-in)."""
+    from numpy seed `seed`, scaled by 1/sqrt(fan-in). `search` overrides
+    entries of the search config (e.g. VOLUME_SEARCH)."""
     attn_cfg = {"nheads": 2, "embed_dim": 8, "use_attn_projection": True,
                 "use_attn_flow": True}
     search_cfg = {"search_name": "nls", "ws": 5, "wt": 2, "ps": 3, "k": 10,
                   "nheads": 2, "stride0": 1, "stride1": 0.5,
                   "self_action": "anchor", "itype": "float",
-                  "dist_type": "l2"}
+                  "dist_type": "l2", **(search or {})}
     normz_cfg = {"normz_name": "softmax", "normz_scale": 10,
                  "dist_type": "l2"}
     agg_cfg = {"agg_name": "gather", "ps": 3, "stride0": 1,

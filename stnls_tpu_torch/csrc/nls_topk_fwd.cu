@@ -34,6 +34,8 @@
 #include <math_constants.h>
 #include <limits.h>
 
+#include "nls_common.cuh"
+
 namespace {
 
 constexpr int KMAX = 64;   // bound on the ranked slots (k, or k-1 anchored)
@@ -52,51 +54,6 @@ struct NlsArgs {
   int K, anchor, l2, full_ws, use_adj, is_int;
 };
 
-__device__ __forceinline__ int reflect_i(int v, int lim) {
-  int out = v < 0 ? -v : v;
-  return v > lim - 1 ? 2 * (lim - 1) - v : out;
-}
-
-__device__ __forceinline__ float reflect_f(float v, int lim) {
-  float out = v < 0.f ? -v : v;
-  return v > (float)(lim - 1) ? __fsub_rn((float)(2 * (lim - 1)), v) : out;
-}
-
-__device__ __forceinline__ bool inb_f(float v, int lim) {
-  return v >= 0.f && v <= (float)(lim - 1);
-}
-
-// Window offset of one axis (geometry.search_offsets), float path. The
-// _rn intrinsics keep nvcc from contracting into FMAs, so the lattice is
-// bitwise the reference's.
-__device__ float ws_offset_f(float xi, const NlsArgs& a, int L) {
-  float off = (float)((a.ws - 1) / 2);
-  if (!a.full_ws) return off;
-  const float s1 = a.stride1;
-  float off_min = floorf(__fdiv_rn(xi, s1));
-  if (__fsub_rn(xi, a.s1_half) < 0.f) off = off_min;
-  float x_max = __fadd_rn(xi, __fmul_rn(s1, __fsub_rn((float)(a.ws - 1), off)));
-  float off_max = ceilf(__fadd_rn(__fdiv_rn(__fsub_rn(xi, (float)(L - 1)), s1),
-                                  (float)(a.ws - 1)));
-  if (x_max > (float)(L - 1)) off = off_max;
-  return rintf(off);
-}
-
-// Int path: integer centre, integer stride.
-__device__ int ws_offset_i(int xi, const NlsArgs& a, int L) {
-  const int wsHalf = (a.ws - 1) / 2;
-  int off = wsHalf;
-  if (!a.full_ws) return off;
-  const int s1 = (int)a.stride1;
-  int off_min = (int)floorf(__fdiv_rn((float)xi, (float)s1));
-  if (xi - s1 * wsHalf < 0) off = off_min;
-  int x_max = xi + s1 * ((a.ws - 1) - off);
-  int off_max = (int)ceilf(__fadd_rn(__fdiv_rn((float)(xi - (L - 1)), (float)s1),
-                                     (float)(a.ws - 1)));
-  if (x_max > L - 1) off = off_max;
-  return off;
-}
-
 // Centre and window offset of time slot st along both axes. Int-path
 // values are integers held exactly in floats.
 struct Slot {
@@ -108,10 +65,8 @@ __device__ Slot slot_geometry(const NlsArgs& a, int b, int hd, int t, int qh,
                               int qw, int st, int ref_h, int ref_w) {
   const int T = a.T;
   const int W_t = min(2 * a.wt + 1, T);
-  const int t_shift = min(0, t - a.wt) + max(0, t + a.wt - (T - 1));
-  const int t_max = min(T - 1, t + a.wt - t_shift);
   Slot s;
-  s.tj = (t + st <= t_max) ? t + st : t_max - st;
+  s.tj = window_frame(t, st, a.wt, T);
   const int st_off = W_t - a.St;
   float fh = 0.f, fw = 0.f;
   if (st >= st_off) {
@@ -123,87 +78,18 @@ __device__ Slot slot_geometry(const NlsArgs& a, int b, int hd, int t, int qh,
     fh = a.flows[base + plane];
   }
   if (a.is_int) {
-    const int ch = reflect_i(ref_h + (int)rintf(fh), a.H);
-    const int cw = reflect_i(ref_w + (int)rintf(fw), a.W);
-    s.ch = (float)ch;
-    s.cw = (float)cw;
-    s.oh = (float)ws_offset_i(ch, a, a.H);
-    s.ow = (float)ws_offset_i(cw, a, a.W);
+    s.ch = (float)reflect_i(ref_h + (int)rintf(fh), a.H);
+    s.cw = (float)reflect_i(ref_w + (int)rintf(fw), a.W);
   } else {
     s.ch = reflect_f(__fadd_rn((float)ref_h, fh), a.H);
     s.cw = reflect_f(__fadd_rn((float)ref_w, fw), a.W);
-    s.oh = ws_offset_f(s.ch, a, a.H);
-    s.ow = ws_offset_f(s.cw, a, a.W);
   }
+  window_offsets(a, s.ch, s.cw, &s.oh, &s.ow);
   return s;
-}
-
-__device__ __forceinline__ float lattice(float ctr, float off, float s1, int i) {
-  return __fadd_rn(ctr, __fmul_rn(s1, __fsub_rn((float)i, off)));
 }
 
 __device__ __forceinline__ bool better(bool l2, float d, int p, float d2, int p2) {
   return l2 ? (d < d2 || (d == d2 && p < p2)) : (d > d2 || (d == d2 && p < p2));
-}
-
-template <int PS, int FC>
-__device__ __forceinline__ float patch_dist(const NlsArgs& a, const float* v1, const float* qv,
-                            const bool* qok, float ph0, float pw0) {
-  const int H = a.H, W = a.W;
-  const long long HW = (long long)H * W;
-  const int po = a.use_adj ? 0 : -(PS / 2);
-  float acc = 0.f;
-#pragma unroll
-  for (int pi = 0; pi < PS; ++pi) {
-    const float ph = reflect_f(__fadd_rn(ph0, (float)(a.dilation * (pi + po))), H);
-    const bool okh = inb_f(ph, H);
-#pragma unroll
-    for (int pj = 0; pj < PS; ++pj) {
-      const float pw = reflect_f(__fadd_rn(pw0, (float)(a.dilation * (pj + po))), W);
-      const int tap = pi * PS + pj;
-      if (!(qok[tap] && okh && inb_f(pw, W))) continue;
-      float s = 0.f;
-      if (a.is_int) {
-        const float* p = v1 + (int)ph * W + (int)pw;
-#pragma unroll
-        for (int f = 0; f < FC; ++f) {
-          const float p1 = p[f * HW];
-          const float q = qv[tap * FC + f];
-          if (a.l2) { const float df = q - p1; s += df * df; }
-          else { s += q * p1; }
-        }
-      } else {
-        const float h0 = floorf(ph), w0 = floorf(pw);
-        const float wh0 = fmaxf(0.f, 1.f - fabsf(h0 - ph));
-        const float wh1 = fmaxf(0.f, 1.f - fabsf(__fadd_rn(h0, 1.f) - ph));
-        const float ww0 = fmaxf(0.f, 1.f - fabsf(w0 - pw));
-        const float ww1 = fmaxf(0.f, 1.f - fabsf(__fadd_rn(w0, 1.f) - pw));
-        const int ih0 = (int)h0, iw0 = (int)w0;
-        const bool okh1 = ih0 + 1 <= H - 1, okw1 = iw0 + 1 <= W - 1;
-        const int ih1 = okh1 ? ih0 + 1 : ih0, iw1 = okw1 ? iw0 + 1 : iw0;
-        const float w00 = wh0 * ww0;
-        const float w01 = okw1 ? wh0 * ww1 : 0.f;
-        const float w10 = okh1 ? wh1 * ww0 : 0.f;
-        const float w11 = (okh1 && okw1) ? wh1 * ww1 : 0.f;
-        const int o00 = ih0 * W + iw0, o01 = ih0 * W + iw1;
-        const int o10 = ih1 * W + iw0, o11 = ih1 * W + iw1;
-#pragma unroll
-        for (int f = 0; f < FC; ++f) {
-          const float* p = v1 + f * HW;
-          float p1 = 0.f;
-          p1 += w00 * p[o00];
-          p1 += w01 * p[o01];
-          p1 += w10 * p[o10];
-          p1 += w11 * p[o11];
-          const float q = qv[tap * FC + f];
-          if (a.l2) { const float df = q - p1; s += df * df; }
-          else { s += q * p1; }
-        }
-      }
-      acc += s;
-    }
-  }
-  return acc;
 }
 
 template <int PS, int FC>
@@ -224,26 +110,14 @@ __global__ void __launch_bounds__(128) nls_topk_kernel(NlsArgs a) {
   const long long HW = (long long)H * W;
   const int ref_h = (qh * a.stride0) % H;
   const int ref_w = (qw * a.stride0) % W;
-  const int po = a.use_adj ? 0 : -(PS / 2);
   const float s1 = a.stride1;
   const int W_t = min(2 * a.wt + 1, T);
 
   // query patch, in registers
   float qv[PS * PS * FC];
   bool qok[PS * PS];
-  const float* v0 = a.vid0 + (((long long)b * a.HD + hd) * T + t) * FC * HW;
-#pragma unroll
-  for (int pi = 0; pi < PS; ++pi) {
-#pragma unroll
-    for (int pj = 0; pj < PS; ++pj) {
-      const int rh = reflect_i(ref_h + a.dilation * (pi + po), H);
-      const int rw = reflect_i(ref_w + a.dilation * (pj + po), W);
-      qok[pi * PS + pj] = rh >= 0 && rh < H && rw >= 0 && rw < W;
-      const int o = min(max(rh, 0), H - 1) * W + min(max(rw, 0), W - 1);
-#pragma unroll
-      for (int f = 0; f < FC; ++f) qv[(pi * PS + pj) * FC + f] = v0[f * HW + o];
-    }
-  }
+  load_query_patch<PS, FC>(a, a.vid0 + (((long long)b * a.HD + hd) * T + t) * FC * HW,
+                           ref_h, ref_w, qv, qok);
 
   // anchor: lexicographically first argmin of |dt| + |dh| + |dw|
   int self_idx = -1;

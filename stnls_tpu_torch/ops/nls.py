@@ -4,9 +4,12 @@
 fractional) around each per-(query, window slot) centre, shifted in-frame
 when full_ws=True, and accumulates patchwise distances (prod or l2) over
 (ps, ps, F) with reflected patch reads and, in the float path, bilinear
-reads of vid1. `nls_search_volume` feeds it the flow-shifted centres of
-the W_t temporal window slots. Together they are the body of the plain
-version of the search kernel (ops/nls_cuda.py).
+reads of vid1. `volume_at_centres` runs it over the W_t temporal window
+slots at given centres: the plain version of the volume kernel B5, and
+its autograd that of B6 (ops/nls_vol_cuda.py); with the top-K rule it is
+the plain version of the search kernel B1 (ops/nls_cuda.py).
+`nls_search_volume` feeds it the flow-shifted centres of the slots
+(`search_centres`).
 
 Only what the search's main path runs is ported: pt=1, no query offsets
 (off_Hq/off_Wq), no ws_interior and no refine/time-sharded volumes.
@@ -39,6 +42,31 @@ def _expand_flow_heads(flows, HD):
         return flows
     reps = torch.tensor([h % HDf for h in range(HD)], device=flows.device)
     return flows[:, reps]
+
+
+def _slot_flows(flows, W_t):
+    """flows [B,HD,T,W_t(-1),2,nH,nW] -> (fH, fW) [B,HD,T,W_t,nH,nW] float,
+    with the reference frame's zero slot prepended when missing."""
+    st_offset = W_t - flows.shape[3]
+    if st_offset not in (0, 1):
+        raise ValueError("flows must cover W_t or W_t-1 slots")
+    fH = flows[:, :, :, :, 1].float()
+    fW = flows[:, :, :, :, 0].float()
+    if st_offset == 1:
+        zero = fH.new_zeros(fH.shape[:3] + (1,) + fH.shape[4:])
+        fH = torch.cat([zero, fH], dim=3)
+        fW = torch.cat([zero, fW], dim=3)
+    return fH, fW
+
+
+def _sum_channels(x):
+    """Sum over the last (channel) axis in order, one rounded add at a
+    time: the order the search kernels sum in (csrc/nls_common.cuh), so
+    that their distances and these agree bitwise."""
+    s = x[..., 0]
+    for f in range(1, x.shape[-1]):
+        s = s + x[..., f]
+    return s
 
 
 def _rows(vid):
@@ -132,10 +160,10 @@ def lattice_search(vid0, vid1, ctr_t, ctr_h, ctr_w, *, ws, stride1,
                         p1 = p1 + wgt[..., None] * v1_rows[ci]
             pair_ok = v_prop & v_ref
             if dist_type == "prod":
-                contrib = torch.sum(p0 * p1, dim=-1)
+                contrib = _sum_channels(p0 * p1)
             else:
                 diff = p0 - p1
-                contrib = torch.sum(diff * diff, dim=-1)
+                contrib = _sum_channels(diff * diff)
             acc = acc + torch.where(pair_ok, contrib,
                                     torch.zeros_like(contrib))
 
@@ -143,52 +171,71 @@ def lattice_search(vid0, vid1, ctr_t, ctr_h, ctr_w, *, ws, stride1,
     return torch.where(valid_patch, acc, torch.full_like(acc, init_val))
 
 
+def search_centres(vid_shape, flows, *, wt, stride0, itype="float"):
+    """Reflected search centres of the W_t window slots: the query grid
+    shifted by the flows. vid_shape (B,HD,T,F,H,W); flows
+    [B,HDf,T,W_t or W_t-1,2,nH,nW] (channel 0 = w, 1 = h; the reference
+    frame's slot is prepended with zero flow when missing). Returns
+    (ctr_h, ctr_w) float [B,HD,T,W_t,nH,nW], differentiable in the flows
+    (the reflection's sign included); integers in the int path, whose
+    flows are rounded."""
+    B, HD, T, F, H, W = vid_shape
+    dev = flows.device
+    nH, nW = num_queries(H, W, stride0)
+    flows = _expand_flow_heads(flows, HD)
+    if itype == "int":
+        flows = torch.round(flows)
+    fH, fW = _slot_flows(flows, min(2 * wt + 1, T))
+    ref_h = (torch.arange(nH, device=dev) * stride0) % H
+    ref_w = (torch.arange(nW, device=dev) * stride0) % W
+    ctr_h = reflect_bounds(ref_h[:, None].float() + fH, H)
+    ctr_w = reflect_bounds(ref_w[None, :].float() + fW, W)
+    return ctr_h, ctr_w
+
+
+def volume_at_centres(vid0, vid1, ctr_h, ctr_w, *, ws, wt, ps, stride0,
+                      stride1, dist_type="l2", dilation=1,
+                      reflect_bounds_=True, full_ws=True, use_adj=False,
+                      itype="float"):
+    """The search volume at given reflected centres: `lattice_search` over
+    the W_t window frames. vid0/vid1 [B,HD,T,F,H,W]; ctr_h, ctr_w
+    [B,HD,T,W_t,nH,nW] (`search_centres`). Returns dists
+    [B,HD,T,W_t,ws,ws,nH,nW]. The plain version of B5
+    (ops/nls_vol_cuda.py)."""
+    T, (H, W) = vid0.shape[2], vid0.shape[-2:]
+    dev = vid0.device
+    is_int = (itype == "int")
+    nH, nW = num_queries(H, W, stride0)
+    if is_int:
+        stride1 = max(1, int(stride1))
+        ctr_h, ctr_w = ctr_h.to(torch.int32), ctr_w.to(torch.int32)
+    else:
+        stride1 = float(stride1)
+        ctr_h, ctr_w = ctr_h.to(vid0.dtype), ctr_w.to(vid0.dtype)
+    tj_tab = torch.as_tensor(time_window_frames(T, wt), device=dev)
+    return lattice_search(
+        vid0, vid1, tj_tab[None, None, :, :, None, None], ctr_h, ctr_w,
+        ws=ws, stride1=stride1,
+        ref_h=(torch.arange(nH, device=dev) * stride0) % H,
+        ref_w=(torch.arange(nW, device=dev) * stride0) % W,
+        dist_type=dist_type, ps=ps, dilation=dilation,
+        patch_offset=0 if use_adj else -(ps // 2),
+        reflect_bounds_=reflect_bounds_, full_ws=full_ws, is_int=is_int)
+
+
 def nls_search_volume(vid0, vid1, flows, *, ws, wt, ps, stride0, stride1,
                       dist_type="l2", dilation=1, reflect_bounds_=True,
                       full_ws=True, use_adj=False, itype="float"):
-    """Exhaustive NonLocalSearch volume.
+    """Exhaustive NonLocalSearch volume: `volume_at_centres` at the flows'
+    `search_centres`.
 
     vid0/vid1 [B,HD,T,F,H,W]; flows [B,HDf,T,W_t or W_t-1,2,nH,nW].
     Returns dists [B,HD,T,W_t,ws,ws,nH,nW].
     """
-    B, HD, T, F, qH, qW = vid0.shape
-    kH, kW = vid1.shape[-2:]
-    dev = vid0.device
-    is_int = (itype == "int")
-    patch_offset = 0 if use_adj else -(ps // 2)
-    W_t = min(2 * wt + 1, T)
-    nH, nW = num_queries(kH, kW, stride0)
-    st_offset = W_t - flows.shape[3]
-    if st_offset not in (0, 1):
-        raise ValueError("flows must cover W_t or W_t-1 slots")
-    if is_int:
-        stride1 = max(1, int(stride1))
-        flows = torch.round(flows).to(torch.int32)
-    else:
-        stride1 = float(stride1)
-    cdtype = torch.int32 if is_int else vid0.dtype
-
-    ref_h = (torch.arange(nH, device=dev) * stride0) % qH
-    ref_w = (torch.arange(nW, device=dev) * stride0) % qW
-
-    tj_tab = torch.as_tensor(time_window_frames(T, wt), device=dev)
-    flows = _expand_flow_heads(flows, HD)
-    base_h = ref_h[None, None, None, None, :, None].to(cdtype)
-    base_w = ref_w[None, None, None, None, None, :].to(cdtype)
-    # flow layout: [...,0,:,:] = dW, [...,1,:,:] = dH
-    fH = flows[:, :, :, :, 1]
-    fW = flows[:, :, :, :, 0]
-    if st_offset == 1:
-        # slot 0 searches the query frame itself with zero flow
-        zero = fH.new_zeros(fH.shape[:3] + (1,) + fH.shape[4:])
-        fH = torch.cat([zero, fH], dim=3)
-        fW = torch.cat([zero, fW], dim=3)
-    ctr_h = reflect_bounds(base_h + fH, kH)
-    ctr_w = reflect_bounds(base_w + fW, kW)
-    ctr_t = tj_tab[None, None, :, :, None, None]
-
-    return lattice_search(
-        vid0, vid1, ctr_t, ctr_h, ctr_w, ws=ws, stride1=stride1,
-        ref_h=ref_h, ref_w=ref_w, dist_type=dist_type, ps=ps, dilation=dilation,
-        patch_offset=patch_offset, reflect_bounds_=reflect_bounds_,
-        full_ws=full_ws, is_int=is_int)
+    ctr_h, ctr_w = search_centres(vid0.shape, flows, wt=wt, stride0=stride0,
+                                  itype=itype)
+    return volume_at_centres(
+        vid0, vid1, ctr_h, ctr_w, ws=ws, wt=wt, ps=ps, stride0=stride0,
+        stride1=stride1, dist_type=dist_type, dilation=dilation,
+        reflect_bounds_=reflect_bounds_, full_ws=full_ws, use_adj=use_adj,
+        itype=itype)

@@ -10,6 +10,8 @@ carries the flow gradient (reflection sign flips, head broadcast).
 with plain differentiable torch; its autograd is the function of the
 search backward kernel (B2, ops/nls_cuda.py), which takes its place on
 the card. `nls_dists_at_cells` is the composition of the two.
+`aux_to_inds3` materializes the offsets of every window cell, which the
+full-volume search path (search.non_local_search) ranks.
 """
 
 import numpy as np
@@ -20,49 +22,30 @@ from stnls_tpu_torch.ops.geometry import (
     reflect_bounds, in_bounds, num_queries, time_window_frames,
     search_offsets,
 )
-from stnls_tpu_torch.ops.nls import dist_type_select, _expand_flow_heads
+from stnls_tpu_torch.ops.nls import (
+    dist_type_select, _expand_flow_heads, _slot_flows, search_centres,
+)
 from stnls_tpu_torch.ops.pgather import patch_gather, pad_frames_cf
-
-
-def _slot_flows(flows, W_t):
-    """flows [B,HD,T,W_t(-1),2,nH,nW] -> (fH, fW) [B,HD,T,W_t,nH,nW] float,
-    with the reference frame's zero slot prepended when missing."""
-    st_offset = W_t - flows.shape[3]
-    if st_offset not in (0, 1):
-        raise ValueError("flows must cover W_t or W_t-1 slots")
-    fH = flows[:, :, :, :, 1].float()
-    fW = flows[:, :, :, :, 0].float()
-    if st_offset == 1:
-        zero = fH.new_zeros(fH.shape[:3] + (1,) + fH.shape[4:])
-        fH = torch.cat([zero, fH], dim=3)
-        fW = torch.cat([zero, fW], dim=3)
-    return fH, fW
 
 
 def search_aux(vid_shape, flows, *, ws, wt, stride0, stride1, itype="float",
                full_ws=True):
     """Separable offset factors of the search volume (geometry only, no
     video reads): dict(dt_tab [T,W_t], dh [B,HD,T,W_t,ws,nH,nW], dw
-    likewise). Feeds the anchor of the top-K selection rule
-    (search.non_local_search._pallas_topk_aux)."""
+    likewise, and the reflected centres ctr_h, ctr_w [B,HD,T,W_t,nH,nW] of
+    ops/nls.search_centres). Feeds the anchor of the top-K selection rule
+    (search.non_local_search._pallas_topk_aux) and the volume path."""
     B, HD, T, F, H, W = vid_shape
     dev = flows.device
     is_int = (itype == "int")
-    if is_int:
-        stride1 = float(max(1, int(stride1)))
-        flows = torch.round(flows)
-    else:
-        stride1 = float(stride1)
-    W_t = min(2 * wt + 1, T)
-    flows = _expand_flow_heads(flows, HD)
-    nH, nW = flows.shape[-2], flows.shape[-1]
-    fH, fW = _slot_flows(flows, W_t)
+    stride1 = float(max(1, int(stride1))) if is_int else float(stride1)
+    ctr_h, ctr_w = search_centres(vid_shape, flows, wt=wt, stride0=stride0,
+                                  itype=itype)
+    nH, nW = ctr_h.shape[-2:]
     base_h = (torch.arange(nH, device=dev) * stride0) % H
     base_w = (torch.arange(nW, device=dev) * stride0) % W
     bh = base_h[None, None, None, None, :, None].float()
     bw = base_w[None, None, None, None, None, :].float()
-    ctr_h = reflect_bounds(bh + fH, H)
-    ctr_w = reflect_bounds(bw + fW, W)
     off_h, off_w = search_offsets(ctr_h, ctr_w, stride1, ws, H, W,
                                   full_ws, False)
     cells_w = torch.arange(ws, device=dev, dtype=torch.float32)
@@ -79,7 +62,7 @@ def search_aux(vid_shape, flows, *, ws, wt, stride0, stride1, itype="float",
     if is_int:
         dh = dh.to(cdtype)
         dw = dw.to(cdtype)
-    return dict(dt_tab=dt, dh=dh, dw=dw)
+    return dict(dt_tab=dt, dh=dh, dw=dw, ctr_h=ctr_h, ctr_w=ctr_w)
 
 
 def cells_geometry(flows, cells, *, H, W, ws, wt, stride0, stride1,
@@ -252,3 +235,13 @@ def nls_dists_at_cells(vid0, vid1, flows, cells, *, ws, wt, ps, stride0,
         use_adj=use_adj, itype=itype)
     odt = torch.int32 if itype == "int" else vid0.dtype
     return dists, tuple(geo[key].to(odt) for key in ("dt", "dh", "dw"))
+
+
+def aux_to_inds3(aux, shape8):
+    """The full offset volume inds3 [3, B,HD,T,W_t,ws,ws,nH,nW] (dt, dh,
+    dw) from the separable factors of `search_aux`, differentiable in the
+    flows through dh and dw (float path)."""
+    dt = aux["dt_tab"][None, None, :, :, None, None, None, None]
+    dh = aux["dh"][:, :, :, :, :, None]            # broadcast over wj
+    dw = aux["dw"][:, :, :, :, None, :]            # broadcast over wi
+    return torch.stack([x.expand(shape8) for x in (dt, dh, dw)], dim=0)

@@ -1,30 +1,103 @@
 """NonLocalSearch: the centrepiece search op (PyTorch port of
 stnls_tpu/search/non_local_search.py).
 
-The search selects the K winning window cells and their distances with
-the fused top-K kernel (ops/nls_cuda.nls_topk, B1) under no_grad, as the
-JAX package's TPU route does with `nls_pallas_topk`. The cells' key
-positions and offsets come from torch geometry (ops/nls_k.cells_geometry,
-differentiable in the flows), and ops/nls_cuda.search_dists returns B1's
-distances with the K-sparse backward kernel (B2) as their gradient. On
-CPU tensors both kernels run their plain versions.
+Two routes, as in the JAX package:
+  * lazy top-K (self_action in {None, "anchor", "anchor_self"},
+    topk_mode="all", k > 0, grad "auto"/"sparse_k"): the fused top-K
+    kernel (ops/nls_cuda.nls_topk, B1) selects the K winning window cells
+    and their distances under no_grad, as the JAX package's TPU route does
+    with `nls_pallas_topk`. The cells' key positions and offsets come from
+    torch geometry (ops/nls_k.cells_geometry, differentiable in the
+    flows), and ops/nls_cuda.search_dists returns B1's distances with the
+    K-sparse backward kernel (B2) as their gradient;
+  * the full volume (every other self_action and topk_mode, k <= 0,
+    grad="dense", and frames too small for the lazy route's reflect pad):
+    the volume kernel (ops/nls_vol_cuda.search_volume, B5, with B6 as its
+    backward) at the flows' reflected centres (ops/nls.search_centres),
+    the offsets of every cell (ops/nls_k.aux_to_inds3), then the
+    self_action and top-K menu `_self_action_topk`, as `nls_pallas_volume`
+    and the lattice engine feed it in the JAX package.
+On CPU tensors every kernel runs its plain version.
 
-Ported: self_action in {None, "anchor", "anchor_self"}, topk_mode="all",
-k > 0, pt=1, reflect_bounds=True, no query offsets, no ws_interior, and
-the k_agg/normalize_bwd gradient policy. Other configurations raise
-NotImplementedError. The TPU-only knobs (impl, flow_budget,
-spread_budget, cv_tile, qchunk, band_dtype, mx_precision) are accepted
-and do nothing: the kernel is exact for any flow.
+Ported: every self_action and topk_mode, with pt=1, reflect_bounds=True,
+no query offsets (strideQ, off_Hq/off_Wq), no ws_interior, integer
+dilation, and the k_agg/normalize_bwd gradient policy. Other
+configurations raise NotImplementedError. The TPU-only knobs (impl,
+flow_budget, spread_budget, cv_tile, qchunk, band_dtype, mx_precision)
+are accepted and do nothing: the kernels are exact for any flow.
 """
 
 import numpy as np
 import torch
 
 from stnls_tpu_torch.utils.config import extract_pairs
+from stnls_tpu_torch.ops import anchor as anchor_ops
+from stnls_tpu_torch.ops import topk as topk_ops
 from stnls_tpu_torch.ops.nls import dist_type_select
 from stnls_tpu_torch.ops.nls_cuda import nls_topk, search_dists
-from stnls_tpu_torch.ops.nls_k import cells_geometry
+from stnls_tpu_torch.ops.nls_k import cells_geometry, search_aux, aux_to_inds3
+from stnls_tpu_torch.ops.nls_vol_cuda import search_volume
 from stnls_tpu_torch.search.utils import shape_vids, shape_flows, empty_flows
+
+SELF_ACTIONS = (None, "anchor", "anchor_self", "anchor_each", "remove",
+                "remove_ref_frame", "anchor_and_remove_ref_frame")
+
+
+def _self_action_topk(dists, inds3, *, self_action, topk_mode, k, wt,
+                      dist_type):
+    """Apply the self_action menu then top-K.
+
+    In: volume layout dists [B,HD,T,W_t,ws,ws,nH,nW], inds3
+    [3,B,HD,T,W_t,ws,ws,nH,nW]. Out: reference layout dists
+    [B,HD,T,nH,nW,K], inds [B,HD,T,nH,nW,K,3]."""
+    B, HD, T, W_t, ws, _, nH, nW = dists.shape
+    Q = T * nH * nW
+    # queries major, search cells minor: [B,HD,Q,W_t,ws*ws]
+    dists = dists.permute(0, 1, 2, 6, 7, 3, 4, 5).reshape(B, HD, Q, W_t,
+                                                          ws * ws)
+    inds3 = inds3.permute(0, 1, 2, 3, 7, 8, 4, 5, 6).reshape(3, B, HD, Q,
+                                                             W_t, ws * ws)
+    if self_action not in SELF_ACTIONS:
+        raise ValueError(f"Unknown self_action [{self_action}]")
+    anchor_flag = self_action is not None and "anchor" in self_action
+    if self_action in ("remove_ref_frame", "anchor_and_remove_ref_frame") \
+            and wt <= 0:
+        raise ValueError("Cannot remove ref frame if not searching across "
+                         "time.")
+
+    if self_action in ("anchor", "anchor_self", "remove"):
+        d, i, _ = anchor_ops.anchor_self(dists.reshape(B, HD, Q, -1),
+                                         inds3.reshape(3, B, HD, Q, -1))
+        if self_action == "remove":
+            # flattened: groups no longer meaningful
+            dists, inds3 = d[..., 1:], i[..., 1:]
+        else:
+            dists = d.reshape(B, HD, Q, W_t, ws * ws)
+            inds3 = i.reshape(3, B, HD, Q, W_t, ws * ws)
+    elif self_action == "anchor_each":
+        dists, inds3, _ = anchor_ops.anchor_self_time(dists, inds3)
+    elif self_action in ("remove_ref_frame", "anchor_and_remove_ref_frame"):
+        dists, inds3 = dists[..., 1:, :], inds3[..., 1:, :]
+        if self_action == "anchor_and_remove_ref_frame":
+            dists, inds3, _ = anchor_ops.anchor_self_time(dists, inds3)
+
+    _, descending, _ = dist_type_select(dist_type)
+    if topk_mode == "all":
+        dists, inds3 = topk_ops.topk(dists.reshape(B, HD, Q, -1),
+                                     inds3.reshape(3, B, HD, Q, -1), k,
+                                     descending, anchor=anchor_flag)
+    elif topk_mode == "each":
+        dists, inds3 = topk_ops.topk_each(dists, inds3, k, descending,
+                                          anchor_self=anchor_flag)
+    elif topk_mode == "none":
+        if k > 0:
+            raise ValueError("If topk_mode is 'none' then k must be <= 0")
+    else:
+        raise ValueError(f"Unknown topk_mode [{topk_mode}]")
+
+    dists = dists.reshape(B, HD, T, nH, nW, -1)
+    inds = torch.movedim(inds3.reshape(3, B, HD, T, nH, nW, -1), 0, -1)
+    return dists, inds
 
 
 def _pallas_topk_aux(dists, aux, *, self_action, k, dist_type):
@@ -87,14 +160,13 @@ def patch_fold_counts(H, W, ps, stride):
     return counts[sH:sH + H, sW:sW + W]
 
 
+def _lazy_topk_ok(cfg):
+    return (cfg["self_action"] in (None, "anchor", "anchor_self")
+            and cfg["topk_mode"] == "all" and cfg["k"] > 0)
+
+
 def _not_ported(cfg):
     """Why the port cannot run `cfg` yet, or None."""
-    if cfg["self_action"] not in (None, "anchor", "anchor_self"):
-        return f"self_action={cfg['self_action']!r}"
-    if cfg["topk_mode"] != "all" or cfg["k"] <= 0:
-        return f"topk_mode={cfg['topk_mode']!r} with k={cfg['k']}"
-    if cfg.get("grad", "auto") not in ("auto", "sparse_k"):
-        return f"grad={cfg['grad']!r}"
     if cfg["pt"] != 1 or not cfg["reflect_bounds"]:
         return "pt != 1 or reflect_bounds=False"
     if cfg["strideQ"] not in (None, cfg["stride0"]):
@@ -147,17 +219,37 @@ def _sparse_assemble(vid0, vid1, flows, d_sel, cells, cfg):
     return d, inds
 
 
+def _volume_search(vid0, vid1, flows, cfg):
+    """The full volume (B5, backward B6) at the flows' centres, the
+    offsets of every cell, then the self_action and top-K menu."""
+    kw = dict(ws=cfg["ws"], wt=cfg["wt"], stride0=cfg["stride0"],
+              stride1=cfg["stride1"], full_ws=cfg["full_ws"],
+              itype=cfg["itype"])
+    aux = search_aux(vid0.shape, flows, **kw)
+    dists = search_volume(
+        vid0, vid1, aux["ctr_h"], aux["ctr_w"], ps=cfg["ps"],
+        dist_type=cfg["dist_type"], dilation=int(cfg["dilation"]),
+        use_adj=cfg["use_adj"], **kw)
+    return _self_action_topk(
+        dists, aux_to_inds3(aux, dists.shape),
+        self_action=cfg["self_action"], topk_mode=cfg["topk_mode"],
+        k=cfg["k"], wt=cfg["wt"], dist_type=cfg["dist_type"])
+
+
 def nls_pipeline(vid0, vid1, flows, cfg):
-    """Forward: select the K cells and their dists, then attach the
-    geometry and the backward. vid0/vid1 [B,HD,T,F,H,W]; flows
+    """Forward: the lazy top-K route (select the K cells and their dists,
+    then attach the geometry and the backward) where it applies, else the
+    full volume. vid0/vid1 [B,HD,T,F,H,W]; flows
     [B,HDf,T,W_t(-1),2,nH,nW] -> (dists [B,HD,T,nH,nW,K],
     inds [B,HD,T,nH,nW,K,3])."""
     why = _not_ported(cfg)
-    if why is None and not _sparse_k_pad_ok(cfg, vid0.shape):
-        why = "frames smaller than the patch reads' reflect pad"
     if why is not None:
         raise NotImplementedError(
             f"NonLocalSearch with {why} is not yet ported, see ROADMAP")
+    if not (_lazy_topk_ok(cfg)
+            and cfg.get("grad", "auto") in ("auto", "sparse_k")
+            and _sparse_k_pad_ok(cfg, vid0.shape)):
+        return _volume_search(vid0, vid1, flows, cfg)
     with torch.no_grad():
         d_sel, cells = _select_cells(vid0.detach(), vid1.detach(),
                                      flows.detach(), cfg)

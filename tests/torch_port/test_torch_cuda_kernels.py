@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from stnls_tpu_torch.ops import agg_cuda, nls_cuda
+from stnls_tpu_torch.ops import agg_cuda, nls_cuda, nls_vol_cuda
 from stnls_tpu_torch.ops.nls_k import nls_dists_at_cells, cells_geometry
 
 from torch_port_helpers import assert_close, assert_grad_close, \
@@ -205,3 +205,105 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
                                  reflect_bounds=False)
     with pytest.raises(ValueError):
         agg_cuda.nl_gather_stack(v1, w[..., :1], f, ps=3, stride0=1)
+
+
+VOL_KW = dict(ws=5, wt=1, ps=3, stride0=1)
+
+
+def _volume_inputs(dev, itype, seed=3):
+    from stnls_tpu_torch.ops.nls import search_centres
+    v0, v1, flows = _inputs(dev, seed)
+    ctr_h, ctr_w = search_centres(v0.shape, flows, wt=1, stride0=1,
+                                  itype=itype)
+    return v0, v1, flows, ctr_h.contiguous(), ctr_w.contiguous()
+
+
+@pytest.mark.parametrize("itype,dist_type", [("float", "l2"), ("int", "l2"),
+                                             ("float", "prod")])
+def test_volume_kernel_matches_plain(dev, itype, dist_type):
+    v0, v1, _, ctr_h, ctr_w = _volume_inputs(dev, itype)
+    kw = dict(VOL_KW, stride1=0.5 if itype == "float" else 1,
+              dist_type=dist_type, itype=itype)
+    n0 = nls_vol_cuda.nls_volume.launches
+    d = nls_vol_cuda.nls_volume(v0, v1, ctr_h, ctr_w, **kw)
+    torch.cuda.synchronize()
+    assert nls_vol_cuda.nls_volume.launches == n0 + 1
+    d_p = nls_vol_cuda.nls_volume_plain(v0, v1, ctr_h, ctr_w, **kw)
+    assert torch.equal(d.isinf(), d_p.isinf())
+    assert_close(d, d_p, "volume")
+
+
+def _lattice_off_integer(flows, itype, stride1):
+    """Per (query, slot): every lattice position of both axes away from
+    the integer kinks of the bilinear read (where the centre gradients
+    jump)."""
+    from stnls_tpu_torch.ops.nls_k import search_aux
+    aux = search_aux((B, HD, T, F, H, W), flows, ws=5, wt=1, stride0=1,
+                     stride1=stride1, itype=itype)
+    return (_off_integer(aux["dh"]).all(4), _off_integer(aux["dw"]).all(4))
+
+
+@pytest.mark.parametrize("itype,dist_type,cotangent", [
+    ("float", "l2", "dense"), ("float", "l2", "each"), ("int", "l2", "each"),
+    ("float", "prod", "dense")])
+def test_volume_backward_kernel_matches_plain(dev, itype, dist_type,
+                                              cotangent):
+    from stnls_tpu_torch.ops.nls_k import search_aux, aux_to_inds3
+    from stnls_tpu_torch.search.non_local_search import _self_action_topk
+    v0, v1, flows, ctr_h, ctr_w = _volume_inputs(dev, itype)
+    stride1 = 0.5 if itype == "float" else 1
+    cfg = dict(VOL_KW, stride1=stride1, dist_type=dist_type, dilation=1,
+               full_ws=True, use_adj=False, itype=itype)
+    gen = torch.Generator(dev).manual_seed(1)
+    if cotangent == "dense":
+        d = nls_vol_cuda.nls_volume(v0, v1, ctr_h, ctr_w, **{
+            k: cfg[k] for k in cfg if k != "dilation"})
+        g_d = torch.randn(d.shape, device=dev, generator=gen)
+    else:
+        # the cotangent of the volume under anchor_each / topk each, k=2
+        d = nls_vol_cuda.nls_volume(v0, v1, ctr_h, ctr_w, **{
+            k: cfg[k] for k in cfg if k != "dilation"}).requires_grad_()
+        aux = search_aux(v0.shape, flows, ws=5, wt=1, stride0=1,
+                         stride1=stride1, itype=itype)
+        ds, _ = _self_action_topk(d, aux_to_inds3(aux, d.shape),
+                                  self_action="anchor_each",
+                                  topk_mode="each", k=2, wt=1,
+                                  dist_type=dist_type)
+        g_d, = torch.autograd.grad(ds, d, torch.randn(
+            ds.shape, device=dev, generator=gen))
+        assert int((g_d != 0).sum()) == ds.numel()
+    n0 = nls_vol_cuda.nls_volume_bwd.launches
+    g_k = nls_vol_cuda.nls_volume_bwd(v0, v1, ctr_h, ctr_w, g_d, cfg)
+    torch.cuda.synchronize()
+    assert nls_vol_cuda.nls_volume_bwd.launches == n0 + 1
+    g_p = nls_vol_cuda.nls_volume_bwd_plain(v0, v1, ctr_h, ctr_w, g_d, cfg)
+    assert_grad_close(g_k[0], g_p[0], "g_vid0")
+    assert_grad_close(g_k[1], g_p[1], "g_vid1")
+    offs = _lattice_off_integer(flows, itype, stride1)
+    for a, b, off, name in zip(g_k[2:], g_p[2:], offs,
+                               ("g_ctr_h", "g_ctr_w")):
+        if itype == "int":
+            assert not a.any() and not b.any()
+        else:
+            assert_grad_close(a[off], b[off], name)
+
+
+def test_volume_search_launches_its_kernels(dev):
+    from stnls_tpu_torch.search import NonLocalSearch
+    v0, v1, flows = (x.requires_grad_() for x in _inputs(dev))
+    search = NonLocalSearch(5, 1, 3, 2, nheads=HD, stride1=0.5,
+                            self_action="anchor_each", topk_mode="each")
+    counts = (nls_vol_cuda.nls_volume.launches,
+              nls_vol_cuda.nls_volume_bwd.launches,
+              nls_vol_cuda.nls_volume_bwd_plain.calls,
+              nls_cuda.nls_topk.launches)
+    d, inds = search(v0, v1, flows)
+    assert d.shape == (B, HD, T, H, W, 3 * 2)
+    (torch.softmax(-d, -1) * inds[..., 1]).sum().backward()
+    torch.cuda.synchronize()
+    assert (nls_vol_cuda.nls_volume.launches,
+            nls_vol_cuda.nls_volume_bwd.launches,
+            nls_vol_cuda.nls_volume_bwd_plain.calls,
+            nls_cuda.nls_topk.launches) == (counts[0] + 1, counts[1] + 1,
+                                            counts[2], counts[3])
+    assert float(flows.grad.abs().max()) > 0

@@ -4,8 +4,9 @@ out-of-budget entry (outliers == 0 is asserted, so the Pallas outputs are
 exact). The Pallas kernels sum their taps in their own tile order, so
 values agree to 3e-4 (the JAX package's own Pallas-vs-lattice tolerance),
 and gradients to 3e-4 * max|g|. The backward checks hold the plain
-versions of B2 and B4 against the grads of the Pallas kernels' own
-custom_vjps (B2 topk_bwd_pallas, B4 agg_bwd_pallas) at the Pallas cells."""
+versions of B2, B4 and B6 against the grads of the Pallas kernels' own
+custom_vjps (B2 topk_bwd_pallas, B4 agg_bwd_pallas at the Pallas cells,
+B6 vol_bwd_pallas through nls_pallas_volume's _vol_op)."""
 
 import numpy as np
 import pytest
@@ -13,10 +14,13 @@ import jax
 import jax.numpy as jnp
 import torch
 
-from stnls_tpu.ops.nls_pallas import nls_pallas_topk
+from stnls_tpu.ops.nls_pallas import nls_pallas_topk, nls_pallas_volume
 from stnls_tpu.ops.agg_pallas import nl_gather_stack_pallas
 from stnls_tpu_torch.ops.nls_cuda import nls_topk_plain, search_dists
-from stnls_tpu_torch.ops.nls_k import cells_geometry
+from stnls_tpu_torch.ops.nls import search_centres
+from stnls_tpu_torch.ops.nls_k import cells_geometry, search_aux, \
+    aux_to_inds3
+from stnls_tpu_torch.ops.nls_vol_cuda import search_volume
 from stnls_tpu_torch.ops.agg_cuda import nl_gather_stack_plain, \
     _gather_bwd_plain
 
@@ -117,4 +121,64 @@ def test_gather_backward_plain_matches_pallas_agg_bwd(rng):
                            torch.from_numpy(g), cfg, (True, True, True))
     for a, b, name in zip(tg, jg, ("g_vid", "g_weights", "g_flows")):
         # dt is an integer frame offset: no gradient on either side
+        assert_grad_close(a, b, name, tol=PALLAS_TOL)
+
+
+def _pallas_volume_inputs(rng):
+    """Flows within the budget and off the bilinear kinks: a clip at
+    +-1.5 would put a third of them where the stride1=0.5 lattice hits
+    integer coordinates and the flow derivative jumps (the two engines
+    then take different one-sided derivatives)."""
+    v0 = rng.standard_normal((B, HD, T, F, H, W)).astype(np.float32)
+    v1 = rng.standard_normal((B, HD, T, F, H, W)).astype(np.float32)
+    flows = (1.4 * np.tanh(rng.standard_normal((B, HD, T, 2 * WT, 2, H, W)))
+             ).astype(np.float32)
+    return v0, v1, flows
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("dist_type", ["l2", "prod"])
+def test_volume_plain_matches_pallas_volume(rng, dist_type):
+    """B5's plain version (lattice_search at the flows' centres) and the
+    offsets of every cell against nls_pallas_volume's _vol_op."""
+    v0, v1, flows = _pallas_volume_inputs(rng)
+    kw = dict(ws=WS, wt=WT, ps=PS, stride0=1, stride1=0.5,
+              dist_type=dist_type, itype="float")
+    d_p, i3_p, outl = nls_pallas_volume(
+        jnp.asarray(v0), jnp.asarray(v1), jnp.asarray(flows), flow_budget=4,
+        spread_budget=8, interpret=True, **kw)
+    assert int(jnp.sum(outl)) == 0
+    tfl = to_torch(flows)
+    ctr_h, ctr_w = search_centres(v0.shape, tfl, wt=WT, stride0=1)
+    d = search_volume(to_torch(v0), to_torch(v1), ctr_h, ctr_w, **kw)
+    assert_close(d, d_p, "volume", atol=PALLAS_TOL, rtol=PALLAS_TOL)
+    aux = search_aux(v0.shape, tfl, ws=WS, wt=WT, stride0=1, stride1=0.5)
+    assert_close(aux_to_inds3(aux, d.shape), i3_p, "inds3")
+
+
+@pytest.mark.slow
+def test_volume_backward_plain_matches_pallas_vol_bwd(rng):
+    """B6's plain version, chained to the flows through the centres,
+    against the grads of nls_pallas_volume's custom_vjp (vol_bwd_pallas)
+    on a dense cotangent."""
+    v0, v1, flows = _pallas_volume_inputs(rng)
+    kw = dict(ws=WS, wt=WT, ps=PS, stride0=1, stride1=0.5, itype="float")
+
+    def pallas_volume(a, b, f):
+        d, _, outl = nls_pallas_volume(a, b, f, flow_budget=4,
+                                       spread_budget=8, interpret=True, **kw)
+        return d, outl
+
+    d_p, vjp, outl = jax.vjp(pallas_volume, jnp.asarray(v0), jnp.asarray(v1),
+                             jnp.asarray(flows), has_aux=True)
+    assert int(jnp.sum(outl)) == 0
+    gd = rng.standard_normal(d_p.shape).astype(np.float32)
+    jg = vjp(jnp.asarray(gd))
+    tv0, tv1, tfl = to_torch(v0, True), to_torch(v1, True), \
+        to_torch(flows, True)
+    ctr_h, ctr_w = search_centres(v0.shape, tfl, wt=WT, stride0=1)
+    td = search_volume(tv0, tv1, ctr_h, ctr_w, **kw)
+    tg = torch.autograd.grad((td * torch.from_numpy(gd)).sum(),
+                             (tv0, tv1, tfl))
+    for a, b, name in zip(tg, jg, ("g_vid0", "g_vid1", "g_flows")):
         assert_grad_close(a, b, name, tol=PALLAS_TOL)

@@ -1,6 +1,7 @@
 """Port parity of NonLocalSearch end to end (select + recompute), forward
 and grads to both videos and the flows, including the k_agg /
-normalize_bwd gradient policy, and the not-yet-ported guard."""
+normalize_bwd gradient policy, and the not-yet-ported guard (the full
+self_action / topk_mode menu: test_torch_search_menu.py)."""
 
 import numpy as np
 import pytest
@@ -74,9 +75,12 @@ def test_fused_flows_and_menu(rng):
 
 def test_unported_configs_raise():
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        stnls_tpu_torch.search.NonLocalSearch(5, 1, k=4, topk_mode="each")
+        stnls_tpu_torch.search.NonLocalSearch(5, 1, k=4, pt=2)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         stnls_tpu_torch.search.NonLocalSearch(5, 1, k=4,
-                                              self_action="remove")
+                                              reflect_bounds=False)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         stnls_tpu_torch.search.init({"search_name": "refine"})
+    # the volume path runs the rest of the menu
+    stnls_tpu_torch.search.NonLocalSearch(5, 1, k=4, topk_mode="each")
+    stnls_tpu_torch.search.NonLocalSearch(5, 1, k=4, self_action="remove")
