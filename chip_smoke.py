@@ -35,7 +35,22 @@ Phases, in order; any failure raises and exits non-zero:
      the parameters, and 3 SGD steps, against the plain backwards on the
      kernels' forward and against the plain route, under the rules of
      phase 5;
-  7. times with CUDA events (median after warm-ups).
+  7. times with CUDA events (median after warm-ups);
+  8. the aggregation kernels against their plain versions on the card:
+     B7 ScatterAdd and B9 PooledPatchSum forwards, B8 and B10 their
+     backwards on a seeded cotangent, at the agg example's config (128^2,
+     its search's weights and offsets) and at a second one (64^2, strides
+     2, dilation 2, use_adj, ps 4 (pool: 5), pt 2, half-integer offsets,
+     -1e8 fills, weights below 1e-8 and negative);
+  9. the agg example's twin (stnls_tpu_torch/agg_example.py) at full width
+     (B=1, T=3, F=16, HD=2, 128^2, K=8): one search, then Gather,
+     GatherAdd, ScatterAdd and Pool forward and the gradients of
+     mean(out^2) to the video, the weights and the offsets, through the
+     kernels (launch counts of B1, B3, B4, B7-B10; no plain backward) and
+     through the plain route on the same search outputs; every gradient
+     compared is non-zero, the offsets' gradients of ScatterAdd and Pool
+     are exactly 0;
+ 10. the times of B7-B10 and of the twin.
 The line before the last is a JSON object of the kernels; the last line
 is {"ok": true, "device": {...}}. The script imports nothing of JAX.
 """
@@ -81,8 +96,16 @@ HBM_BYTES_S, F32_FLOP_S = 3.35e12, 67e12
 # + g * w (1) + 4 corner products and 4 adds into g_vid; the division by
 # the overlap count is counted once per cotangent element (bounds below).
 # B5 computes B1's arithmetic for every window cell, B6 B2's for every
-# cell with a cotangent.
-FLOPS_PER_TAP = {"B1": 10, "B2": 26, "B3": 9, "B4": 17, "B5": 10, "B6": 26}
+# cell with a cotangent. The aggregation kernels count per (query, slot,
+# frame step, patch tap) the function keeps, and channel: B7 w * v and
+# its add into out (2), for the terms of a non-zero weight. B8: w * g and
+# its add into g_vid (2) for those terms, and v * g and its add into g_w
+# (2) for every in-frame term (a zero weight still has a gradient). B9:
+# as B7 (2), for the terms of a weight >= 1e-8, plus the division by the
+# count once per output element. B10: w * g and v * g and their adds (4)
+# for those terms, plus the cotangent's division once per element.
+FLOPS_PER_TAP = {"B1": 10, "B2": 26, "B3": 9, "B4": 17, "B5": 10, "B6": 26,
+                 "B7": 2, "B8": 2, "B9": 2, "B10": 4}
 # The search of the volume path (attn_step.VOLUME_SEARCH) and the
 # configurations of the B5/B6 checks: (label, itype, dist_type, the
 # cotangents B6 is checked on)
@@ -155,7 +178,7 @@ def build_phase(cuda_lib):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             func = m.group(1)
-        elif func and ("ILi3ELi8E" in func or "agg_gather" in func
+        elif func and ("ILi3ELi8E" in func or "agg_" in func
                        or "nls_topk_bwd" in func) and \
                 ("registers" in line or "spill" in line):
             log(f"[build] {func[:48]}: {line.strip()}")
@@ -163,18 +186,25 @@ def build_phase(cuda_lib):
 
 
 def counters():
-    """The launch counts of the six kernels and the call counts of the
+    """The launch counts of the ten kernels and the call counts of the
     plain backwards, by name."""
-    from stnls_tpu_torch.ops import nls_cuda, nls_vol_cuda, agg_cuda
+    from stnls_tpu_torch.ops import nls_cuda, nls_vol_cuda, agg_cuda, \
+        agg_sp_cuda as sp
     return {"nls_topk_fwd": nls_cuda.nls_topk,
             "nls_topk_bwd": nls_cuda.nls_topk_bwd,
             "agg_gather_fwd": agg_cuda.nl_gather_stack,
             "agg_gather_bwd": agg_cuda.nl_gather_stack_bwd,
             "nls_vol_fwd": nls_vol_cuda.nls_volume,
-            "nls_vol_bwd": nls_vol_cuda.nls_volume_bwd}, \
+            "nls_vol_bwd": nls_vol_cuda.nls_volume_bwd,
+            "agg_scatter_add_fwd": sp.nl_scatter_add,
+            "agg_scatter_add_bwd": sp.nl_scatter_add_bwd,
+            "agg_pool_fwd": sp.nl_pool,
+            "agg_pool_bwd": sp.nl_pool_bwd}, \
         {"nls_topk_bwd_plain": nls_cuda.nls_topk_bwd_plain,
          "_gather_bwd_plain": agg_cuda._gather_bwd_plain,
-         "nls_volume_bwd_plain": nls_vol_cuda.nls_volume_bwd_plain}
+         "nls_volume_bwd_plain": nls_vol_cuda.nls_volume_bwd_plain,
+         "_scatter_add_bwd_plain": sp._scatter_add_bwd_plain,
+         "_pool_bwd_plain": sp._pool_bwd_plain}
 
 
 def reset_counts():
@@ -193,27 +223,35 @@ def read_counts():
 
 @contextlib.contextmanager
 def plain_route(forward=True):
-    """The reference route on the card: the search and the gather call
-    their kernels' plain versions instead of the kernels while inside.
-    Swaps the names the main paths call (the backwards
-    nls_cuda.nls_topk_bwd, nls_vol_cuda.nls_volume_bwd and
-    agg_cuda.nl_gather_stack_bwd and, with `forward`,
-    non_local_search.nls_topk, nls_vol_cuda.nls_volume and
-    gather.nl_gather_stack) and checks that none of the swapped kernels
-    launched."""
+    """The reference route on the card: the search and the aggregators
+    call their kernels' plain versions instead of the kernels while
+    inside. Swaps the names the main paths call (the backwards
+    nls_cuda.nls_topk_bwd, nls_vol_cuda.nls_volume_bwd,
+    agg_cuda.nl_gather_stack_bwd, agg_sp_cuda.nl_scatter_add_bwd and
+    agg_sp_cuda.nl_pool_bwd and, with `forward`, non_local_search.nls_topk,
+    nls_vol_cuda.nls_volume, gather.nl_gather_stack,
+    gather_add.nl_gather_stack, scatter_add.nl_scatter_add and
+    pool.nl_pool) and checks that none of the swapped kernels launched."""
     from stnls_tpu_torch.search import non_local_search
-    from stnls_tpu_torch.agg import gather
-    from stnls_tpu_torch.ops import nls_cuda, nls_vol_cuda, agg_cuda
+    from stnls_tpu_torch.agg import gather, gather_add, scatter_add, pool
+    from stnls_tpu_torch.ops import nls_cuda, nls_vol_cuda, agg_cuda, \
+        agg_sp_cuda as sp
     names = [(nls_cuda, "nls_topk_bwd", nls_cuda.nls_topk_bwd_plain),
              (nls_vol_cuda, "nls_volume_bwd",
               nls_vol_cuda.nls_volume_bwd_plain),
-             (agg_cuda, "nl_gather_stack_bwd", agg_cuda._gather_bwd_plain)]
+             (agg_cuda, "nl_gather_stack_bwd", agg_cuda._gather_bwd_plain),
+             (sp, "nl_scatter_add_bwd", sp._scatter_add_bwd_plain),
+             (sp, "nl_pool_bwd", sp._pool_bwd_plain)]
     if forward:
         names += [(non_local_search, "nls_topk", nls_cuda.nls_topk_plain),
                   (nls_vol_cuda, "nls_volume",
                    nls_vol_cuda.nls_volume_plain),
                   (gather, "nl_gather_stack",
-                   agg_cuda.nl_gather_stack_plain)]
+                   agg_cuda.nl_gather_stack_plain),
+                  (gather_add, "nl_gather_stack",
+                   agg_cuda.nl_gather_stack_plain),
+                  (scatter_add, "nl_scatter_add", sp.nl_scatter_add_plain),
+                  (pool, "nl_pool", sp.nl_pool_plain)]
     saved = [getattr(mod, name) for mod, name, _ in names]
     before = read_counts()[0]
     for mod, name, plain in names:
@@ -225,7 +263,8 @@ def plain_route(forward=True):
             setattr(mod, name, fn)
     after = read_counts()[0]
     swapped = after if forward else {k: after[k] for k in (
-        "nls_topk_bwd", "nls_vol_bwd", "agg_gather_bwd")}
+        "nls_topk_bwd", "nls_vol_bwd", "agg_gather_bwd",
+        "agg_scatter_add_bwd", "agg_pool_bwd")}
     require(all(after[k] == before[k] for k in swapped),
             "a swapped kernel launched on the plain route")
 
@@ -760,6 +799,167 @@ def check_routes(torch, label, run, kernels, attn, step, data, geo):
             f"max|kernels-plain backwards| {err_b:.3e}")
     return launches
 
+def agg_inputs(torch, dev, *, B=1, HD=2, T=3, F=8, H=64, K=8, stride=2):
+    """The second config of the aggregation checks: a seeded video,
+    weights with negative ones and ones below 1e-8, and offsets with exact
+    half-integers (rounded half to even) and -1e8 fills."""
+    rng = np.random.default_rng(SEED + 5)
+    n = (H - 1) // stride + 1
+    weights = rng.random((B, HD, T, n, n, K))
+    weights[..., 0], weights[..., 1] = -0.25, 5e-9
+    flows = np.stack([rng.integers(-1, 2, (B, HD, T, n, n, K)),
+                      4 * rng.standard_normal((B, HD, T, n, n, K)),
+                      4 * rng.standard_normal((B, HD, T, n, n, K))], -1)
+    flows[..., 2, 1:] = (0.5, -1.5)
+    flows[..., 3, 1:] = (1.5, -0.5)
+    flows[:, :, :, ::5, ::3, 7, :] = -1e8
+    return tuple(torch.from_numpy(np.asarray(x, np.float32)).to(dev) for x in
+                 (rng.standard_normal((B, HD, T, F, H, H)), weights, flows))
+
+
+def agg_terms(torch, plain, vid, live, flows, cfg):
+    """The (query, slot, frame step, tap) terms a ScatterAdd or Pool
+    computes on this run's data: its plain version on a one-channel video
+    of ones, with weight 1 where `live` and 0 elsewhere (the pool divides
+    by a count of 1 where it writes)."""
+    with torch.no_grad():
+        ones = torch.ones_like(vid[:, :, :, :1])
+        return float(plain(ones, live.float(), flows, **cfg).double().sum())
+
+
+def agg_kernel_phase(torch, dev, name, inputs, scfg, pcfg):
+    """B7-B10 against their plain versions on (vid, weights, offsets) at
+    one config (scfg, pcfg: every keyword of the ScatterAdd and the Pool
+    wrapper but the output size, which the backward's config gets from
+    the output): outputs at atol = rtol = TOL, gradients on a seeded
+    cotangent at TOL * max|ref|, each non-zero, and the offsets' gradients
+    exactly 0. Returns the largest errors, the bounds from this run's data
+    and the arguments of the timings."""
+    from stnls_tpu_torch.ops import agg_sp_cuda as sp
+    vid, weights, flows = inputs
+    rng = np.random.default_rng(SEED + 6)
+    F = vid.shape[3]
+
+    def nb(*xs):
+        return sum(x.numel() * x.element_size() for x in xs)
+
+    errs, bounds, args = {}, {}, {}
+    for kf, kb, fwd, plain, bwd, plain_bwd, cfg, live in (
+            ("B7", "B8", sp.nl_scatter_add, sp.nl_scatter_add_plain,
+             sp.nl_scatter_add_bwd, sp._scatter_add_bwd_plain, scfg,
+             weights != 0),
+            ("B9", "B10", sp.nl_pool, sp.nl_pool_plain, sp.nl_pool_bwd,
+             sp._pool_bwd_plain, pcfg, weights >= 1e-8)):
+        with torch.no_grad():
+            out = fwd(vid, weights, flows, **cfg)
+            torch.cuda.synchronize()
+            ref = plain(vid, weights, flows, **cfg)
+        require(float(ref.abs().max()) > 0, f"{kf} {name}: the output is 0")
+        errs[kf] = close(out, ref, f"{kf} {name} out vs plain")
+        terms = agg_terms(torch, plain, vid, live, flows, cfg)
+        log(f"[agg] {kf} {name}: out {tuple(out.shape)}, max|kernel-plain| "
+            f"{errs[kf]:.3e}; {terms:.0f} (query, slot, step, tap) terms "
+            "with a live weight")
+        g = torch.from_numpy(rng.standard_normal(tuple(out.shape))
+                             .astype(np.float32)).to(dev)
+        bcfg = dict(cfg, outH=out.shape[-2], outW=out.shape[-1]) \
+            if kf == "B7" else cfg
+        b_args = (vid, weights, flows, g, bcfg, (True, True, True))
+        g_k = bwd(*b_args)
+        torch.cuda.synchronize()
+        g_p = plain_bwd(*b_args)
+        errs[kb] = 0.
+        for gk, gp, what in zip(g_k, g_p, ("g_vid", "g_weights")):
+            err, scale = grad_close(gk, gp, f"{kb} {name} {what}")
+            require(scale > 0, f"{kb} {name} {what}: the gradient is 0")
+            errs[kb] = max(errs[kb], err)
+            log(f"[agg] {kb} {name} {what}: max|g| {scale:.3e}, "
+                f"max|kernel-plain| {err:.3e}")
+        require(not g_k[2].any() and not g_p[2].any(),
+                f"{kb} {name}: the offsets' gradient is not 0")
+        in_bytes = nb(vid, weights, flows)
+        if kf == "B7":
+            in_frame = agg_terms(torch, plain, vid, torch.ones_like(live),
+                                 flows, cfg)
+            bounds["B7"] = bound_ms(in_bytes + nb(out),
+                                    terms * F * FLOPS_PER_TAP["B7"])
+            bounds["B8"] = bound_ms(in_bytes + nb(g, *g_k[:2]),
+                                    (terms + in_frame) * F
+                                    * FLOPS_PER_TAP["B8"])
+        else:
+            bounds["B9"] = bound_ms(in_bytes + nb(out), terms * F
+                                    * FLOPS_PER_TAP["B9"] + out.numel())
+            bounds["B10"] = bound_ms(in_bytes + nb(g, *g_k[:2]), terms * F
+                                     * FLOPS_PER_TAP["B10"] + g.numel())
+        args[kf], args[kb] = (inputs, cfg), b_args
+    return dict(err=errs, bounds=bounds, args=args)
+
+
+def agg_example_phase(torch, dev):
+    """The agg example's twin at full width through the kernels (launch
+    counts; no plain backward), then its four aggregators through the
+    plain route on the same search outputs: outputs at TOL, gradients to
+    the video and the weights at TOL * max|ref| and non-zero, the offsets'
+    gradients exactly 0 for ScatterAdd and Pool and compared (non-zero)
+    for Gather and GatherAdd. Its search is held against the plain
+    route's. Returns the launch counts and the twin's arguments."""
+    from stnls_tpu_torch import agg_example
+    cfg = agg_example.CONFIG
+    inputs = agg_example.make_inputs(SEED, device=dev, **cfg)
+    reset_counts()
+    weights, offsets, v6, res = agg_example.run(*inputs, cfg)
+    torch.cuda.synchronize()
+    launches, plain_calls = read_counts()
+    log(f"[agg example] launches: {launches}; plain backward calls: "
+        f"{plain_calls}")
+    require(all(launches[k] > 0 for k in (
+        "nls_topk_fwd", "agg_gather_fwd", "agg_gather_bwd",
+        "agg_scatter_add_fwd", "agg_scatter_add_bwd", "agg_pool_fwd",
+        "agg_pool_bwd")), "a kernel of the agg example was never launched")
+    require(not any(plain_calls.values()),
+            "a plain backward ran on the kernel route")
+    with plain_route():
+        ref = agg_example.aggregate(v6, weights, offsets, **cfg)
+    B, T, C, H, W = inputs[0].shape
+    HD, K, ps = cfg["HD"], cfg["K"], cfg["ps"]
+    shapes = {"gather": (B, HD, K, T, C // HD, H, W),
+              "gather_add": (B, HD, T, C // HD, H, W),
+              "scatter_add": (B, HD, T, C // HD, H, W),
+              "pool": (B, HD, T, C // HD, ps * H, ps * W)}
+    for name, (out, *grads) in res.items():
+        r_out, *r_grads = ref[name]
+        require(tuple(out.shape) == shapes[name] and
+                bool(out.isfinite().all()),
+                f"agg example {name}: shape {tuple(out.shape)} or non-finite")
+        err = close(out, r_out, f"agg example {name} kernels vs plain")
+        msg = [f"out {tuple(out.shape)} max|kernels-plain| {err:.3e}"]
+        pairs = list(zip(grads[:2], r_grads[:2], ("g_vid", "g_weights")))
+        if name in ("scatter_add", "pool"):
+            require(not grads[2].any() and not r_grads[2].any(),
+                    f"agg example {name}: the offsets' gradient is not 0")
+            msg.append("g_offsets 0 on both routes")
+        else:
+            # all of them: off the self slot's integer offsets the
+            # softmax(-10 d) weights underflow to 0, and so do the
+            # offsets' gradients
+            pairs.append((grads[2], r_grads[2], "g_offsets"))
+        for g, r, what in pairs:
+            err, scale = grad_close(g, r, f"agg example {name} {what}")
+            require(scale > 0, f"agg example {name} {what}: the gradient "
+                    "is 0")
+            msg.append(f"{what} max|g| {scale:.3e} max|kernels-plain| "
+                       f"{err:.3e}")
+        log(f"[agg example] {name}: " + "; ".join(msg))
+    d_k, o_k = agg_example.search(*inputs, **cfg)
+    with plain_route():
+        d_p, o_p = agg_example.search(*inputs, **cfg)
+    err = close(d_k, d_p, "agg example search dists kernels vs plain")
+    share = float((o_k != o_p).any(-1).float().mean())
+    log(f"[agg example] search: max|dists-plain| {err:.3e}; slots whose "
+        f"offsets differ {share:.4%}")
+    return dict(launches=launches, inputs=inputs,
+                search=(v6.contiguous(), weights, offsets))
+
 
 def main():
     here = Path(__file__).resolve().parent
@@ -955,6 +1155,57 @@ def main():
         f"fwd+bwd step {t_train:.3f} ms = {T / (t_train / 1e3):.2f} "
         f"frames/s (plain {t_trainp:.3f} ms)")
 
+    # 8. the aggregation kernels against their plain versions
+    from stnls_tpu_torch import agg_example
+    from stnls_tpu_torch.ops import agg_sp_cuda as sp
+    from stnls_tpu_torch.search.utils import shape_vids
+    a_cfg = agg_example.CONFIG
+    a_in = agg_example.make_inputs(SEED, device=dev, **a_cfg)
+    d_a, o_a = agg_example.search(*a_in, **a_cfg)
+    v6_a = shape_vids(a_cfg["HD"], [a_in[0]])[0].contiguous()
+    w_a = torch.softmax(-10. * d_a, -1).contiguous()
+    a1 = dict(ps=3, pt=1, dilation=1, reflect_bounds=True, use_adj=False)
+    ares = agg_kernel_phase(
+        torch, dev, "agg example 128^2", (v6_a, w_a, o_a.contiguous()),
+        dict(a1, strideIn=1, strideOut=1), dict(a1, stride0=1))
+    a2 = dict(ps=4, pt=2, dilation=2, reflect_bounds=True, use_adj=True)
+    ares2 = agg_kernel_phase(
+        torch, dev, "strided 64^2", agg_inputs(torch, dev),
+        dict(a2, strideIn=2, strideOut=2), dict(a2, stride0=2))
+
+    # 9. the agg example's twin at full width
+    twin = agg_example_phase(torch, dev)
+
+    # 10. times of B7-B10 and of the twin
+    with torch.no_grad():
+        t_agg = {}
+        for key, fwd, plain in (("B7", sp.nl_scatter_add,
+                                 sp.nl_scatter_add_plain),
+                                ("B9", sp.nl_pool, sp.nl_pool_plain)):
+            args, cfg = ares["args"][key]
+            t_agg[key] = (cuda_ms(lambda: fwd(*args, **cfg)),
+                          cuda_ms(lambda: plain(*args, **cfg), n=5, warm=1))
+        for key, bwd, plain in (("B8", sp.nl_scatter_add_bwd,
+                                 sp._scatter_add_bwd_plain),
+                                ("B10", sp.nl_pool_bwd,
+                                 sp._pool_bwd_plain)):
+            args = ares["args"][key]
+            t_agg[key] = (cuda_ms(lambda: bwd(*args)),
+                          cuda_ms(lambda: plain(*args), n=5, warm=1))
+    v6_t, w_t, o_t = twin["search"]
+    t_aggs = cuda_ms(lambda: agg_example.aggregate(v6_t, w_t, o_t, **a_cfg))
+    with plain_route():
+        t_aggsp = cuda_ms(lambda: agg_example.aggregate(v6_t, w_t, o_t,
+                                                        **a_cfg), n=3, warm=1)
+    t_twin = cuda_ms(lambda: agg_example.run(*twin["inputs"], a_cfg))
+    log(f"[times] {smi_line}: " + "; ".join(
+        f"{key} {t_agg[key][0]:.3f} ms (plain {t_agg[key][1]:.3f}, bound "
+        f"{ares['bounds'][key][0]:.4f} by {ares['bounds'][key][1]})"
+        for key in ("B7", "B8", "B9", "B10")))
+    log(f"[times] {smi_line}: agg example, the four aggregators fwd+bwd "
+        f"{t_aggs:.3f} ms (plain route {t_aggsp:.3f} ms); search + the four "
+        f"{t_twin:.3f} ms")
+
     require("jax" not in sys.modules, "JAX was imported")
     rows = (("B1", "nls_topk_fwd", "nls_pallas.py:761", t_b1, t_b1p),
             ("B2", "nls_topk_bwd", "nls_pallas_bwd.py:675", t_b2, t_b2p),
@@ -965,14 +1216,23 @@ def main():
     rows += (("B5", "nls_vol_fwd", "nls_pallas.py:705", t_b5, t_b5p),
              ("B6", "nls_vol_bwd", "nls_pallas_bwd.py:733", t_b6["each"],
               t_b6p["each"]))
+    # B7-B10 on the agg example's twin (times at its config)
+    rows += tuple((key, name, site) + t_agg[key] for key, name, site in (
+        ("B7", "agg_scatter_add_fwd", "agg_pallas_sp.py:269"),
+        ("B8", "agg_scatter_add_bwd", "agg_pallas_sp.py:440"),
+        ("B9", "agg_pool_fwd", "agg_pallas_sp.py:756"),
+        ("B10", "agg_pool_bwd", "agg_pallas_sp.py:917")))
     bounds = dict(res["bounds"], B5=vres["bounds"]["B5"],
-                  B6=vres["bounds"]["B6 each"])
+                  B6=vres["bounds"]["B6 each"], **ares["bounds"])
     errs = {key: max(r["err"][key], g["err"][key])
-            for r, g in ((res, graft), (vres, vgraft)) for key in r["err"]}
+            for r, g in ((res, graft), (vres, vgraft), (ares, ares2))
+            for key in r["err"]}
     kernels = []
     for key, name, site, ms, plain_ms in rows:
         b_ms, b_by = bounds[key]
-        launches = vol_launches if key in ("B5", "B6") else train_launches
+        launches = vol_launches if key in ("B5", "B6") else \
+            twin["launches"] if key in ("B7", "B8", "B9", "B10") else \
+            train_launches
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"stnls_tpu_torch/csrc/{name}.cu",
@@ -989,7 +1249,10 @@ def main():
         "volume_fwd_bwd_ms": t_vol_train,
         "volume_fwd_bwd_plain_ms": t_vol_trainp,
         "b6_dense_ms": t_b6["dense"], "b6_dense_plain_ms": t_b6p["dense"],
-        "b6_dense_bound_ms": vres["bounds"]["B6 dense"][0]}}))
+        "b6_dense_bound_ms": vres["bounds"]["B6 dense"][0],
+        "agg_example_aggregators_fwd_bwd_ms": t_aggs,
+        "agg_example_aggregators_fwd_bwd_plain_ms": t_aggsp,
+        "agg_example_ms": t_twin}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -22,8 +22,12 @@ search gets a non-zero cotangent (the bench
 step's q = k puts all of softmax(-10 d) on the zero-distance self slot,
 so its search backward has nothing to do), and for the same module on the
 volume path (attn_step.VOLUME_SEARCH: anchor_each, per-frame top-2,
-through B5/B6). Each breakdown lists the device ms of the port's six
-kernels (B1-B6). The last line is one JSON object of these numbers.
+through B5/B6), and for the twin of examples/agg_example.py
+(stnls_tpu_torch/agg_example.py: B=1, T=3, F=16, HD=2, 128^2, K=8; its
+search, then Gather, GatherAdd, ScatterAdd and Pool forward and backward,
+through B1, B3/B4, B7/B8 and B9/B10). Each breakdown lists the device ms
+of the port's ten kernels (B1-B10). The last line is one JSON object of
+these numbers.
 Exits non-zero without a CUDA device. Imports nothing of JAX.
 """
 
@@ -38,9 +42,15 @@ import numpy as np
 STEPS = 5
 TOP = 8
 # the port's kernels (stnls_tpu_torch/csrc), by their device names
-PORT_KERNELS = {"B1": "nls_topk_kernel", "B2": "nls_topk_bwd_kernel",
-                "B3": "agg_gather_kernel", "B4": "agg_gather_bwd_kernel",
-                "B5": "nls_vol_fwd_kernel", "B6": "nls_vol_bwd_kernel"}
+PORT_KERNELS = {"B1": ("nls_topk_kernel",), "B2": ("nls_topk_bwd_kernel",),
+                "B3": ("agg_gather_kernel",),
+                "B4": ("agg_gather_bwd_kernel",),
+                "B5": ("nls_vol_fwd_kernel",), "B6": ("nls_vol_bwd_kernel",),
+                "B7": ("agg_scatter_add_fwd_kernel",),
+                "B8": ("agg_scatter_add_bwd_vid_kernel",
+                       "agg_scatter_add_bwd_w_kernel"),
+                "B9": ("agg_pool_fwd_kernel",),
+                "B10": ("agg_pool_bwd_kernel",)}
 
 
 def device_us(evt):
@@ -92,9 +102,9 @@ def summarise(rows, steps, label):
                   f"{r.key[:100]}", flush=True)
             top[kind].append({"name": r.key, "ms": ms, "share": share})
     port = {}
-    for key, name in PORT_KERNELS.items():
-        hits = [r for r in dev_rows if f"{name}<" in r.key or f"{name}(" in
-                r.key]
+    for key, names in PORT_KERNELS.items():
+        hits = [r for r in dev_rows if any(
+            f"{name}<" in r.key or f"{name}(" in r.key for name in names)]
         port[key] = sum(device_us(r) for r in hits) / 1e3 / steps
     print(f"[{label}] port kernels, device ms a step: {port}", flush=True)
     top["port kernels"] = port
@@ -129,6 +139,7 @@ def fwd_bwd_breakdown(torch, dev, fn, T, label, ms, peak):
 
 
 def profile(torch, dev, H=128):
+    from stnls_tpu_torch import agg_example
     from stnls_tpu_torch.attn_step import AttnStep, attention_module, \
         smooth_flows, VOLUME_SEARCH
     from stnls_tpu_torch.utils.config import ConfigDict
@@ -164,10 +175,14 @@ def profile(torch, dev, H=128):
 
     attn = attention_module(1, dev)
     vattn = attention_module(1, dev, search=VOLUME_SEARCH)
+    a_in = agg_example.make_inputs(0, device=dev, **agg_example.CONFIG)
     paths = {"NonLocalAttention fwd+bwd": lambda: attn_fwd_bwd(attn),
-             "volume NonLocalAttention fwd+bwd": lambda: attn_fwd_bwd(vattn)}
-    untraced = {label: timed(torch, dev, fn, T, label) for label, fn in (
-        ("forward", fwd), ("fwd+bwd", fwd_bwd), *paths.items())}
+             "volume NonLocalAttention fwd+bwd": lambda: attn_fwd_bwd(vattn),
+             "agg example fwd+bwd": lambda: agg_example.run(*a_in)}
+    frames = {"agg example fwd+bwd": agg_example.CONFIG["T"]}
+    untraced = {label: timed(torch, dev, fn, frames.get(label, T), label)
+                for label, fn in (("forward", fwd), ("fwd+bwd", fwd_bwd),
+                                  *paths.items())}
 
     fwd_ms = untraced["forward"][0]
     host_ms, rows = trace(torch, fwd, STEPS, dev)
@@ -181,10 +196,11 @@ def profile(torch, dev, H=128):
                         "launches": launches, "top": top},
             "fwd_bwd": fwd_bwd_breakdown(torch, dev, fwd_bwd, T, "fwd+bwd",
                                          *untraced["fwd+bwd"]),
-            **{key: fwd_bwd_breakdown(torch, dev, fn, T, label,
-                                      *untraced[label])
+            **{key: fwd_bwd_breakdown(torch, dev, fn, frames.get(label, T),
+                                      label, *untraced[label])
                for key, (label, fn) in zip(("attn_fwd_bwd",
-                                            "volume_attn_fwd_bwd"),
+                                            "volume_attn_fwd_bwd",
+                                            "agg_example_fwd_bwd"),
                                            paths.items())}}
 
 

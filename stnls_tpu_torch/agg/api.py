@@ -1,6 +1,7 @@
 """String-menu construction of aggregation ops (PyTorch port of
-stnls_tpu/agg/api.py). Only the ported entries resolve; the others raise
-NotImplementedError."""
+stnls_tpu/agg/api.py). The default "wpsum" resolves to PooledPatchSum, as
+in the JAX package. Every entry resolves but "scatter" (NonLocalScatter)
+and "stack_conv", which raise NotImplementedError."""
 
 import importlib
 
@@ -18,7 +19,7 @@ MENU = ConfigDict({
     "scatter_add": "scatter_add",
     "stack_conv": "stack_conv",
 })
-PORTED = ("gather",)
+PORTED = ("gather", "gather_add", "scatter_add", "pool")
 
 
 def from_agg_menu(name):

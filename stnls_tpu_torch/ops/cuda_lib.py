@@ -35,6 +35,10 @@ SIGNATURES = {
     "stnls_agg_gather_bwd": [_P] * 7 + [_I] * 15 + [_P],
     "stnls_nls_vol_fwd": [_P] * 5 + [_I] * 14 + [_F, _F] + [_I] * 4 + [_P],
     "stnls_nls_vol_bwd": [_P] * 9 + [_I] * 14 + [_F, _F] + [_I] * 4 + [_P],
+    "stnls_agg_scatter_add_fwd": [_P] * 4 + [_I] * 18 + [_P],
+    "stnls_agg_scatter_add_bwd": [_P] * 6 + [_I] * 20 + [_P],
+    "stnls_agg_pool_fwd": [_P] * 4 + [_I] * 15 + [_P],
+    "stnls_agg_pool_bwd": [_P] * 6 + [_I] * 16 + [_P],
 }
 
 

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from stnls_tpu_torch.ops import agg_cuda, nls_cuda, nls_vol_cuda
+from stnls_tpu_torch.ops import agg_cuda, agg_sp_cuda, nls_cuda, nls_vol_cuda
 from stnls_tpu_torch.ops.nls_k import nls_dists_at_cells, cells_geometry
 
 from torch_port_helpers import assert_close, assert_grad_close, \
@@ -307,3 +307,122 @@ def test_volume_search_launches_its_kernels(dev):
             nls_cuda.nls_topk.launches) == (counts[0] + 1, counts[1] + 1,
                                             counts[2], counts[3])
     assert float(flows.grad.abs().max()) > 0
+
+
+def _sp_inputs(dev, stride, seed=4, K=6):
+    """Video, weights (negative ones and ones below 1e-8 included) and
+    offsets with exact half-integers and -1e8 fills, on the stride grid."""
+    rng = np.random.default_rng(seed)
+    nH, nW = (H - 1) // stride + 1, (W - 1) // stride + 1
+
+    def t(x):
+        return torch.from_numpy(np.asarray(x, np.float32)).to(dev)
+
+    weights = rng.random((B, HD, T, nH, nW, K))
+    weights[..., 0], weights[..., 1] = -0.25, 5e-9
+    flows = np.stack([rng.integers(-1, 2, (B, HD, T, nH, nW, K)),
+                      3 * rng.standard_normal((B, HD, T, nH, nW, K)),
+                      3 * rng.standard_normal((B, HD, T, nH, nW, K))], -1)
+    flows[..., 2, 1:] = (0.5, -1.5)
+    flows[..., 3, 1:] = (1.5, -0.5)
+    flows[:, :, 1, ::3, 1::2, 5, :] = -1e8
+    return (t(rng.standard_normal((B, HD, T, F, H, W))), t(weights),
+            t(flows))
+
+
+SP_CASES = [dict(), dict(stride=2, dilation=2, use_adj=True, ps=4, pt=2),
+            dict(reflect_bounds=False)]
+# ScatterAdd also takes strideIn != strideOut and an explicit output size
+SCATTER_CASES = SP_CASES + [dict(stride=2, strideOut=1),
+                            dict(strideOut=2, outH=24, outW=40)]
+
+
+def _check_sp_backward(bwd, plain_bwd, args, cfg):
+    n0 = bwd.launches
+    g_k = bwd(*args, cfg, (True, True, True))
+    torch.cuda.synchronize()
+    assert bwd.launches == n0 + 1
+    g_p = plain_bwd(*args, cfg, (True, True, True))
+    for a, b, name in zip(g_k, g_p, ("g_vid", "g_weights")):
+        assert float(b.abs().max()) > 0
+        assert_grad_close(a, b, name)
+    assert not g_k[2].any() and not g_p[2].any()
+
+
+@pytest.mark.parametrize("extra", SCATTER_CASES)
+def test_scatter_add_kernels_match_plain(dev, extra):
+    s = extra.get("stride", 1)
+    cfg = dict(ps=extra.get("ps", 3), strideIn=s,
+               strideOut=extra.get("strideOut", s), pt=extra.get("pt", 1),
+               dilation=extra.get("dilation", 1),
+               reflect_bounds=extra.get("reflect_bounds", True),
+               use_adj=extra.get("use_adj", False),
+               outH=extra.get("outH", 0), outW=extra.get("outW", 0))
+    vid, weights, flows = _sp_inputs(dev, s)
+    n0 = agg_sp_cuda.nl_scatter_add.launches
+    out = agg_sp_cuda.nl_scatter_add(vid, weights, flows, **cfg)
+    torch.cuda.synchronize()
+    assert agg_sp_cuda.nl_scatter_add.launches == n0 + 1
+    assert_close(out, agg_sp_cuda.nl_scatter_add_plain(vid, weights, flows,
+                                                       **cfg), "out")
+    g = torch.randn(out.shape, device=dev,
+                    generator=torch.Generator(dev).manual_seed(0))
+    _check_sp_backward(agg_sp_cuda.nl_scatter_add_bwd,
+                       agg_sp_cuda._scatter_add_bwd_plain,
+                       (vid, weights, flows, g),
+                       dict(cfg, outH=out.shape[-2], outW=out.shape[-1]))
+
+
+@pytest.mark.parametrize("extra", SP_CASES)
+def test_pool_kernels_match_plain(dev, extra):
+    s = extra.get("stride", 1)
+    cfg = dict(ps=extra.get("ps", 3), stride0=s, pt=extra.get("pt", 1),
+               dilation=extra.get("dilation", 1),
+               reflect_bounds=extra.get("reflect_bounds", True),
+               use_adj=extra.get("use_adj", False))
+    vid, weights, flows = _sp_inputs(dev, s)
+    n0 = agg_sp_cuda.nl_pool.launches
+    out = agg_sp_cuda.nl_pool(vid, weights, flows, **cfg)
+    torch.cuda.synchronize()
+    assert agg_sp_cuda.nl_pool.launches == n0 + 1
+    assert_close(out, agg_sp_cuda.nl_pool_plain(vid, weights, flows, **cfg),
+                 "out")
+    g = torch.randn(out.shape, device=dev,
+                    generator=torch.Generator(dev).manual_seed(0))
+    _check_sp_backward(agg_sp_cuda.nl_pool_bwd, agg_sp_cuda._pool_bwd_plain,
+                       (vid, weights, flows, g), cfg)
+
+
+def test_agg_example_runs_through_its_kernels(dev):
+    """The twin of examples/agg_example.py at 32^2: B1, B3/B4 (Gather,
+    GatherAdd), B7/B8 and B9/B10 each launched, no plain backward called,
+    and no gradient to the rounded offsets of ScatterAdd and Pool."""
+    from stnls_tpu_torch import agg_example
+    cfg = dict(agg_example.CONFIG, H=32, W=32)
+    kernels = (nls_cuda.nls_topk, agg_cuda.nl_gather_stack,
+               agg_cuda.nl_gather_stack_bwd, agg_sp_cuda.nl_scatter_add,
+               agg_sp_cuda.nl_scatter_add_bwd, agg_sp_cuda.nl_pool,
+               agg_sp_cuda.nl_pool_bwd)
+    plains = (agg_cuda._gather_bwd_plain, agg_sp_cuda._scatter_add_bwd_plain,
+              agg_sp_cuda._pool_bwd_plain)
+    before = [k.launches for k in kernels], [p.calls for p in plains]
+    *_, res = agg_example.run(*agg_example.make_inputs(0, device=dev, **cfg),
+                              cfg)
+    torch.cuda.synchronize()
+    assert all(k.launches > n for k, n in zip(kernels, before[0]))
+    assert [p.calls for p in plains] == before[1]
+    for name in ("scatter_add", "pool"):
+        assert not res[name][3].any()
+    assert all(float(res[name][2].abs().max()) > 0 for name in res)
+
+
+def test_sp_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    vid, weights, flows = _sp_inputs(dev, 1)
+    with pytest.raises(TypeError):
+        agg_sp_cuda.nl_pool(vid.double(), weights, flows, ps=3, stride0=1)
+    with pytest.raises(ValueError):
+        agg_sp_cuda.nl_scatter_add(vid, weights[..., :2], flows, ps=3,
+                                   strideIn=1, strideOut=1)
+    with pytest.raises(ValueError):
+        agg_sp_cuda.nl_pool(vid, weights, flows, ps=3, stride0=1,
+                            dilation=1.5)

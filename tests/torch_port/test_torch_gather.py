@@ -79,4 +79,4 @@ def test_non_local_gather_module(rng):
                                         to_torch(flows))
     assert_close(out, ref, "NonLocalGather")
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        stnls_tpu_torch.agg.init({"agg_name": "scatter_add"})
+        stnls_tpu_torch.agg.init({"agg_name": "scatter"})

@@ -4,9 +4,10 @@ out-of-budget entry (outliers == 0 is asserted, so the Pallas outputs are
 exact). The Pallas kernels sum their taps in their own tile order, so
 values agree to 3e-4 (the JAX package's own Pallas-vs-lattice tolerance),
 and gradients to 3e-4 * max|g|. The backward checks hold the plain
-versions of B2, B4 and B6 against the grads of the Pallas kernels' own
-custom_vjps (B2 topk_bwd_pallas, B4 agg_bwd_pallas at the Pallas cells,
-B6 vol_bwd_pallas through nls_pallas_volume's _vol_op)."""
+versions of B2, B4, B6, B8 and B10 against the grads of the Pallas
+kernels' own custom_vjps (B2 topk_bwd_pallas, B4 agg_bwd_pallas at the
+Pallas cells, B6 vol_bwd_pallas through nls_pallas_volume's _vol_op, B8
+and B10 through nl_scatter_add_pallas's and nl_pool_pallas's)."""
 
 import numpy as np
 import pytest
@@ -16,6 +17,8 @@ import torch
 
 from stnls_tpu.ops.nls_pallas import nls_pallas_topk, nls_pallas_volume
 from stnls_tpu.ops.agg_pallas import nl_gather_stack_pallas
+from stnls_tpu.ops.agg_pallas_sp import nl_scatter_add_pallas, \
+    nl_pool_pallas
 from stnls_tpu_torch.ops.nls_cuda import nls_topk_plain, search_dists
 from stnls_tpu_torch.ops.nls import search_centres
 from stnls_tpu_torch.ops.nls_k import cells_geometry, search_aux, \
@@ -23,6 +26,8 @@ from stnls_tpu_torch.ops.nls_k import cells_geometry, search_aux, \
 from stnls_tpu_torch.ops.nls_vol_cuda import search_volume
 from stnls_tpu_torch.ops.agg_cuda import nl_gather_stack_plain, \
     _gather_bwd_plain
+from stnls_tpu_torch.ops.agg_sp_cuda import nl_scatter_add_plain, \
+    nl_pool_plain, _scatter_add_bwd_plain, _pool_bwd_plain
 
 from torch_port_helpers import (
     to_torch, assert_close, assert_grad_close, assert_cells_match,
@@ -182,3 +187,56 @@ def test_volume_backward_plain_matches_pallas_vol_bwd(rng):
                              (tv0, tv1, tfl))
     for a, b, name in zip(tg, jg, ("g_vid0", "g_vid1", "g_flows")):
         assert_grad_close(a, b, name, tol=PALLAS_TOL)
+
+
+def _sp_pallas_inputs(rng, stride0):
+    """Integer offsets within the Pallas kernels' budgets (|dh|, |dw| <= 2,
+    |dt| <= 1), as the JAX package's own tests of these kernels take."""
+    nH = (H - 1) // stride0 + 1
+    vid = rng.standard_normal((B, HD, T, F, H, W)).astype(np.float32)
+    weights = rng.random((B, HD, T, nH, nH, K)).astype(np.float32)
+    flows = rng.integers(-2, 3, (B, HD, T, nH, nH, K, 3)).astype(np.float32)
+    flows[..., 0] = np.clip(flows[..., 0], -1, 1)
+    return vid, weights, flows
+
+
+def _check_sp_plain_vs_pallas(rng, pallas, plain, plain_bwd, cfg, stride0):
+    """Forward of the plain version and its backward (on a seeded
+    cotangent) against the Pallas kernel's output and custom_vjp grads."""
+    vid, weights, flows = _sp_pallas_inputs(rng, stride0)
+    out, vjp, outl = jax.vjp(lambda v, w: pallas(v, w, jnp.asarray(flows)),
+                             jnp.asarray(vid), jnp.asarray(weights),
+                             has_aux=True)
+    assert int(jnp.sum(outl)) == 0
+    tv, tw, tf = to_torch(vid), to_torch(weights), to_torch(flows)
+    assert_close(plain(tv, tw, tf, **cfg), out, "out", atol=PALLAS_TOL,
+                 rtol=PALLAS_TOL)
+    g = rng.standard_normal(out.shape).astype(np.float32)
+    jg = vjp(jnp.asarray(g))
+    tg = plain_bwd(tv, tw, tf, torch.from_numpy(g), cfg, (True, True, False))
+    for a, b, name in zip(tg, jg, ("g_vid", "g_weights")):
+        assert_grad_close(a, b, name, tol=PALLAS_TOL)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("stride0", [1, 2])
+def test_scatter_add_plain_matches_pallas(rng, stride0):
+    """B7's and B8's plain versions against nl_scatter_add_pallas."""
+    cfg = dict(ps=PS, strideIn=stride0, strideOut=stride0, pt=1, dilation=1,
+               reflect_bounds=True, use_adj=False, outH=H, outW=W)
+    _check_sp_plain_vs_pallas(
+        rng, lambda v, w, f: nl_scatter_add_pallas(
+            v, w, f, ps=PS, stride0=stride0, budget=8, spread=12,
+            interpret=True),
+        nl_scatter_add_plain, _scatter_add_bwd_plain, cfg, stride0)
+
+
+@pytest.mark.slow
+def test_pool_plain_matches_pallas(rng):
+    """B9's and B10's plain versions against nl_pool_pallas."""
+    cfg = dict(ps=PS, stride0=1, pt=1, dilation=1, reflect_bounds=True,
+               use_adj=False)
+    _check_sp_plain_vs_pallas(
+        rng, lambda v, w, f: nl_pool_pallas(v, w, f, ps=PS, budget=4,
+                                            spread=8, interpret=True),
+        nl_pool_plain, _pool_bwd_plain, cfg, 1)
