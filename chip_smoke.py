@@ -50,7 +50,23 @@ Phases, in order; any failure raises and exits non-zero:
      through the plain route on the same search outputs; every gradient
      compared is non-zero, the offsets' gradients of ScatterAdd and Pool
      are exactly 0;
- 10. the times of B7-B10 and of the twin.
+ 10. the times of B7-B10 and of the twin;
+ 11. B1, B5 and B6 against their plain versions at (ps, F a head) other
+     than the slice's, on 48^2 frames: ps 1, 5 and 7 with F 2, 4, 16 and
+     32, among them dilation 2, use_adj, prod, int, stride0 = 2 and an
+     anchored K = 65 (64 ranked slots); B1's and B5's dists bitwise equal
+     to the plain volume's, B6 at 1e-4 * max|ref|; then a K = 100 search,
+     which must run on the volume route (B5, no B1);
+ 12. benchmarks/matrix.py's search-only configs 1, 4, 5 and 7
+     (stnls_tpu_torch/matrix_steps.py) at their published sizes through
+     the kernels: shapes, finite values, launch counts, no plain backward,
+     peak memory, and (q = k) dist 0 in the anchored slot 0 with the other
+     slots ascending; against the plain route at full size for 1 and 4 and
+     on a 270x480 crop for 5 and 7, under the rules of phase 5;
+ 13. times: the four matrix steps; B1, B5 and B6 at (ps, F a head) =
+     (1, 2) and (1, 16) against their plain versions, with their bounds;
+     the bodies of B1 and B5 with (ps, F) compiled in ((3, 8); B5 also
+     (3, 16)) against the run-time body.
 The line before the last is a JSON object of the kernels; the last line
 is {"ok": true, "device": {...}}. The script imports nothing of JAX.
 """
@@ -178,8 +194,8 @@ def build_phase(cuda_lib):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             func = m.group(1)
-        elif func and ("ILi3ELi8E" in func or "agg_" in func
-                       or "nls_topk_bwd" in func) and \
+        elif func and ("ILi3ELi8E" in func or "ILi0ELi0E" in func
+                       or "agg_" in func or "nls_topk_bwd" in func) and \
                 ("registers" in line or "spill" in line):
             log(f"[build] {func[:48]}: {line.strip()}")
     return secs
@@ -269,7 +285,9 @@ def plain_route(forward=True):
             "a swapped kernel launched on the plain route")
 
 
-def make_inputs(torch, rng, dev, *, B, HD, T, F, H, W, wt):
+def make_inputs(torch, rng, dev, *, B, HD, T, F, H, W, wt, stride0=1):
+    """Seeded videos [B,HD,T,F,H,W] and the search flows of smooth fflow
+    and bflow on the stride0 query grid, [B,1,T,W_t-1,2,nH,nW]."""
     from stnls_tpu_torch.attn_step import smooth_flows
     from stnls_tpu_torch.nn.flow import search_flow
     vid0 = torch.from_numpy(rng.standard_normal((B, HD, T, F, H, W))
@@ -278,7 +296,7 @@ def make_inputs(torch, rng, dev, *, B, HD, T, F, H, W, wt):
                             .astype(np.float32)).to(dev)
     fflow = torch.from_numpy(smooth_flows(rng, (B, T, 2, H, W))).to(dev)
     bflow = torch.from_numpy(smooth_flows(rng, (B, T, 2, H, W))).to(dev)
-    flows = search_flow(fflow, bflow, wt, 1)[:, None].contiguous()
+    flows = search_flow(fflow, bflow, wt, stride0)[:, None].contiguous()
     return vid0, vid1, flows
 
 
@@ -406,16 +424,17 @@ def kernel_phase(torch, dev, name, cfg):
 
     nq = B * HD * T * H * H
     K = c_k.shape[-1]
+    ps = kw["ps"]
     cells_all = (min(2 * cfg["wt"] + 1, T)) * 25      # full_ws: all valid
-    taps = taps_in_frame(H, H, 3) ** 2 * B * HD * T * K   # (q, k, tap)
+    taps = taps_in_frame(H, H, ps) ** 2 * B * HD * T * K   # (q, k, tap)
     active = int((geo["valid"] & (g_d != 0)).sum())
     bounds = {
         "B1": bound_ms(nb(vid0, vid1, flows, d_k, c_k),
-                       nq * cells_all * 9 * F * FLOPS_PER_TAP["B1"]),
+                       nq * cells_all * ps * ps * F * FLOPS_PER_TAP["B1"]),
         "B2": bound_ms(nb(vid0, vid1, geo["prop_h"], geo["prop_w"],
                           geo["tj_k"].int(), g_d)
                        + nb(vid0, vid1, geo["prop_h"], geo["prop_w"]),
-                       active * 9 * F * FLOPS_PER_TAP["B2"]),
+                       active * ps * ps * F * FLOPS_PER_TAP["B2"]),
         "B3": bound_ms(nb(vid1, weights, inds, s_k),
                        taps * F * FLOPS_PER_TAP["B3"] + s_k.numel()),
         "B4": bound_ms(nb(vid1, weights, inds, g_stack) + nb(vid1, weights,
@@ -527,12 +546,13 @@ def volume_kernel_phase(torch, dev, name, cfg):
     with torch.no_grad():
         d = nls_vol_cuda.nls_volume(vid0, vid1, ctr_h, ctr_w, **first["kw"])
     valid = int(d.isfinite().sum())
+    taps = first["kw"]["ps"] ** 2
     bounds = {"B5": bound_ms(nb(vid0, vid1, ctr_h, ctr_w, d),
-                             valid * 9 * F * FLOPS_PER_TAP["B5"])}
+                             valid * taps * F * FLOPS_PER_TAP["B5"])}
     for kind, r in res.items():
         bounds[f"B6 {kind}"] = bound_ms(
             nb(*r["args"][:5]) + nb(*r["g"][0]),
-            r["active"] * 9 * F * FLOPS_PER_TAP["B6"])
+            r["active"] * taps * F * FLOPS_PER_TAP["B6"])
     return dict(err=errs, bounds=bounds, b5_args=(vid0, vid1, ctr_h, ctr_w),
                 b5_kw=first["kw"],
                 b6_args={kind: r["args"] for kind, r in res.items()})
@@ -961,6 +981,479 @@ def agg_example_phase(torch, dev):
                 search=(v6.contiguous(), weights, offsets))
 
 
+# The checks of B1, B5 and B6 at (ps, F a head) beside the slice's, on
+# 48^2 frames (B=1, HD=1, T=3, ws=5, wt=1, smooth flows): each of ps 1, 5
+# and 7 with each F of 2, 4, 16 and 32, among them dilation 2, use_adj,
+# prod, int, stride0 = 2, stride1 = 0.5, no anchor, and an anchored K = 65
+# (64 ranked slots, the most B1 keeps). B6's cotangent: the per-frame
+# top-2 of anchor_each for l2 ("each"), every cell for prod ("dense").
+PS_CASES = (
+    dict(ps=1, F=2, k=10),
+    dict(ps=1, F=4, k=10, itype="int", dilation=2),
+    dict(ps=1, F=16, k=65, dist_type="prod", stride0=2),
+    dict(ps=1, F=32, k=10, anchor=False, use_adj=True),
+    dict(ps=5, F=2, k=10, dilation=2, use_adj=True),
+    dict(ps=5, F=4, k=10, dist_type="prod"),
+    dict(ps=5, F=16, k=65, itype="int", stride0=2),
+    dict(ps=5, F=32, k=10, stride1=0.5),
+    dict(ps=7, F=2, k=10, dilation=2),
+    dict(ps=7, F=4, k=10, itype="int", dist_type="prod", use_adj=True),
+    dict(ps=7, F=16, k=10, stride0=2, use_adj=True, stride1=0.5),
+    dict(ps=7, F=32, k=65, stride0=2),
+)
+PS_DEFAULTS = dict(ws=5, wt=1, stride0=1, stride1=1, anchor=True,
+                   dist_type="l2", dilation=1, use_adj=False, itype="float")
+
+
+def search_kernel_case(torch, dev, vid0, vid1, flows, c, label):
+    """B1 and B5 against their plain versions, bitwise, and B6 at
+    TOL * max|ref| (centre gradients off the integer lattice, 0 on the int
+    path), at one configuration c (PS_DEFAULTS' keys, ps, k). Returns B6's
+    largest error, and the arguments and cotangent kind of B5 and B6."""
+    from stnls_tpu_torch.ops import nls_cuda, nls_vol_cuda
+    from stnls_tpu_torch.ops.nls import search_centres
+    from stnls_tpu_torch.ops.nls_k import search_aux, aux_to_inds3
+    rng = np.random.default_rng(SEED + 7)
+    kw = {key: c[key] for key in ("ws", "wt", "ps", "stride0", "stride1",
+                                  "dist_type", "dilation", "use_adj",
+                                  "itype")}
+    with torch.no_grad():
+        d_k, c_k = nls_cuda.nls_topk(vid0, vid1, flows, k=c["k"],
+                                     anchor=c["anchor"], **kw)
+        torch.cuda.synchronize()
+        d_p, c_p = nls_cuda.nls_topk_plain(vid0, vid1, flows, k=c["k"],
+                                           anchor=c["anchor"], **kw)
+    require(torch.equal(d_k, d_p), f"B1 {label}: dists differ from the "
+            f"plain version's (max {float((d_k - d_p).abs().max()):.3e})")
+    require(torch.equal(c_k, c_p), f"B1 {label}: cells differ")
+    ctr_h, ctr_w = (x.contiguous() for x in search_centres(
+        vid0.shape, flows, wt=c["wt"], stride0=c["stride0"],
+        itype=c["itype"]))
+    with torch.no_grad():
+        d = nls_vol_cuda.nls_volume(vid0, vid1, ctr_h, ctr_w, **kw)
+        torch.cuda.synchronize()
+        d_vp = nls_vol_cuda.nls_volume_plain(vid0, vid1, ctr_h, ctr_w, **kw)
+    require(torch.equal(d, d_vp), f"B5 {label}: volume differs from the "
+            "plain version's")
+    aux = search_aux(vid0.shape, flows, ws=c["ws"], wt=c["wt"],
+                     stride0=c["stride0"], stride1=c["stride1"],
+                     itype=c["itype"])
+    kind = "each" if c["dist_type"] == "l2" else "dense"
+    g_d = volume_cotangent(torch, rng, d, aux_to_inds3(aux, d.shape), kind,
+                           c["wt"])
+    args = (vid0, vid1, ctr_h, ctr_w, g_d, dict(kw, full_ws=True))
+    g_k = nls_vol_cuda.nls_volume_bwd(*args)
+    torch.cuda.synchronize()
+    g_p = nls_vol_cuda.nls_volume_bwd_plain(*args)
+    off = (off_integer(aux["dh"]).all(4), off_integer(aux["dw"]).all(4))
+    err6 = 0.
+    for gk, gp, what, mask in zip(g_k, g_p, ("g_vid0", "g_vid1", "g_ctr_h",
+                                             "g_ctr_w"), (None, None) + off):
+        if mask is not None and c["itype"] == "int":
+            require(not gk.any() and not gp.any(),
+                    f"B6 {label}: int-path {what} not 0")
+            continue
+        if mask is not None:
+            gk, gp = gk[mask], gp[mask]
+        if gp.numel() == 0:
+            continue    # no lattice off the integers (no flows, stride1 1)
+        err, scale = grad_close(gk, gp, f"B6 {label} {kind} {what}")
+        require(scale > 0, f"B6 {label} {what}: the gradient is 0")
+        err6 = max(err6, err)
+    active = int(((g_d != 0) & d.isfinite()).sum())
+    log(f"[ps kernels] {label}: B1 dists and cells and B5 volume equal to "
+        f"the plain versions bitwise (K = {d_k.shape[-1]}, "
+        f"{int(d.isinf().sum())} of {d.numel()} cells outside the frame); "
+        f"B6 ({kind}, {active} cells with a cotangent) max|kernel-plain| "
+        f"{err6:.3e}, centre gradients compared at {int(off[0].sum())} (h) "
+        f"and {int(off[1].sum())} (w) of {off[0].numel()} (query, slot)")
+    return dict(err6=err6, b5_args=(vid0, vid1, ctr_h, ctr_w), kw=kw,
+                b6_args=args, active=active, d=d)
+
+
+def ps_kernel_phase(torch, dev):
+    """B1, B5 and B6 at PS_CASES, then a K = 100 search (99 ranked slots)
+    through NonLocalSearch: it runs on the volume route (B5, no B1) and
+    gives the plain B1's top-100. Returns B6's largest error."""
+    from stnls_tpu_torch.ops import nls_cuda
+    from stnls_tpu_torch.search import NonLocalSearch
+    rng = np.random.default_rng(SEED + 8)
+    err6 = 0.
+    for case in PS_CASES:
+        c = dict(PS_DEFAULTS, **case)
+        shape = dict(B=1, HD=1, T=3, F=c["F"], H=48, W=48, wt=c["wt"],
+                     stride0=c["stride0"])
+        label = f"(ps, F) = ({c['ps']}, {c['F']}) " + ", ".join(
+            f"{key}={c[key]}" for key in ("k", "anchor", "itype", "dist_type",
+                                          "dilation", "use_adj", "stride0",
+                                          "stride1")
+            if c[key] != PS_DEFAULTS.get(key, c[key]) or key == "k")
+        r = search_kernel_case(torch, dev, *make_inputs(torch, rng, dev,
+                                                          **shape), c, label)
+        err6 = max(err6, r["err6"])
+    vid0, vid1, flows = make_inputs(torch, rng, dev, B=1, HD=1, T=3, F=2,
+                                      H=48, W=48, wt=1)
+    search = NonLocalSearch(9, 1, 1, 100, self_action="anchor")
+    reset_counts()
+    with torch.no_grad():
+        d, _ = search(vid0, vid1, flows)
+    torch.cuda.synchronize()
+    launches = read_counts()[0]
+    require(launches["nls_vol_fwd"] > 0 and launches["nls_topk_fwd"] == 0,
+            f"K = 100 did not take the volume route: {launches}")
+    with torch.no_grad():
+        d_p, _ = nls_cuda.nls_topk_plain(vid0, vid1, flows, ws=9, wt=1, ps=1,
+                                         stride0=1, stride1=1, k=100,
+                                         anchor=True)
+    err = close(d, d_p, "K = 100 search vs the plain B1")
+    log(f"[ps kernels] K = 100 (99 ranked slots): volume route, launches "
+        f"nls_vol_fwd {launches['nls_vol_fwd']}, nls_topk_fwd "
+        f"{launches['nls_topk_fwd']}; dists {tuple(d.shape)} "
+        f"max|search-plain B1| {err:.3e}")
+    return err6
+
+
+@contextlib.contextmanager
+def run_time_body():
+    """B1 and B5 take their run-time body for every (ps, F) inside."""
+    from stnls_tpu_torch.ops import nls_cuda, nls_vol_cuda
+    nls_cuda.COMPILED_BODY = nls_vol_cuda.COMPILED_BODY = False
+    try:
+        yield
+    finally:
+        nls_cuda.COMPILED_BODY = nls_vol_cuda.COMPILED_BODY = True
+
+
+def compiled_vs_run_time(torch, dev, smi_line, res, vres):
+    """At the slice config, (ps, F a head) = (3, 8) (its kernel checks'
+    inputs) and (3, 16) (the same shape with one head of 16): each body
+    with ps and F compiled in (the pairs B1's and B5's sources list) against
+    the run-time body, first for bitwise equal outputs, then timed in turns
+    (compiled, run-time, run-time, compiled). Returns {pair: {kernel:
+    (compiled ms, run-time ms)}}."""
+    from stnls_tpu_torch.attn_step import cuda_ms
+    from stnls_tpu_torch.ops import cuda_lib, nls_cuda, nls_vol_cuda
+    from stnls_tpu_torch.ops.nls import search_centres
+    lib = cuda_lib.load()
+    kw, vkw = res["kw"], vres["b5_kw"]
+    rng = np.random.default_rng(SEED + 9)
+    u0, u1, uflows = make_inputs(torch, rng, dev, B=1, HD=1, T=5, F=16,
+                                 H=128, W=128, wt=2)
+    uc = tuple(x.contiguous() for x in search_centres(
+        u0.shape, uflows, wt=2, stride0=1))
+    cases = {(3, 8): (res["inputs"][:3], vres["b5_args"]),
+             (3, 16): ((u0, u1, uflows), (u0, u1) + uc)}
+    out = {}
+    for pair, (b1_args, b5_args) in cases.items():
+        calls = {}      # each returns a tuple of tensors
+        if lib.stnls_nls_topk_compiled(*pair):
+            calls["B1"] = lambda: nls_cuda.nls_topk(*b1_args, **kw)
+        if lib.stnls_nls_vol_compiled(*pair):
+            calls["B5"] = lambda: (nls_vol_cuda.nls_volume(*b5_args,
+                                                           **vkw),)
+        times = {}
+        with torch.no_grad():
+            for key, fn in calls.items():
+                compiled = fn()
+                with run_time_body():
+                    run = fn()
+                require(all(torch.equal(x, y) for x, y in zip(compiled,
+                                                              run)),
+                        f"{key} {pair}: the run-time body differs from the "
+                        "compiled one")
+                t = [cuda_ms(fn)]
+                with run_time_body():
+                    t += [cuda_ms(fn), cuda_ms(fn)]
+                t.append(cuda_ms(fn))
+                times[key] = ((t[0] + t[3]) / 2, (t[1] + t[2]) / 2)
+        out[f"{pair[0]},{pair[1]}"] = times
+        log(f"[times] {smi_line}: (ps, F) = {pair}, compiled / run-time body "
+            "(outputs bitwise equal): " + "; ".join(
+                f"{key} {a:.3f} / {b:.3f} ms" for key, (a, b) in
+                times.items()))
+    return out
+
+
+def crop_inputs(inputs, H, W):
+    """The top-left H x W of each [B,T,C,H,W] input."""
+    return tuple(x[..., :H, :W].contiguous() for x in inputs)
+
+
+# configs 5 and 7 hold their plain route to this crop of the frames (the
+# plain exhaustive volume at 1080p would take 29 GB before its
+# intermediates); configs 1 and 4 run it at full size, config 4 falling
+# back to the crop should the card run out of memory
+MATRIX_CROP = (270, 480)
+
+
+def matrix_phase(torch, dev):
+    """benchmarks/matrix.py configs 1, 4, 5 and 7 at their published sizes
+    through the kernels (stnls_tpu_torch.matrix_steps): shapes, finite
+    values, the launch counts (B1, with B2 for a backward, B3/B4 for config
+    1; no volume kernel, no plain backward) and peak memory; q = k, so the
+    anchored slot 0 holds dist 0 exactly and slots 1.. ascend. Then the
+    plain route (plain_route) on the same inputs, or on MATRIX_CROP of them
+    for 5 and 7: dists, offsets and the loss at TOL, the video gradient
+    under compare()'s rules. Returns {name: (step, inputs, launches,
+    peak GB)}."""
+    from stnls_tpu_torch import matrix_steps as ms
+    out = {}
+    for name in ms.CONFIGS:
+        cfg = ms.config(name)
+        step = ms.make_step(name)
+        inputs = ms.make_inputs(name, SEED, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        reset_counts()
+        res = step(*inputs)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+        launches, plain_calls = read_counts()
+        B, T, F, H, W = inputs[0].shape
+        d = res["dists"]
+        require(tuple(d.shape) == (B, cfg["HD"], T, H, W, cfg["K"]) and
+                tuple(res["inds"].shape) == tuple(d.shape) + (3,),
+                f"matrix {name}: shapes {tuple(d.shape)}")
+        require(all(bool(x.isfinite().all()) for x in res.values()),
+                f"matrix {name}: non-finite output")
+        wanted = ["nls_topk_fwd"] + (["nls_topk_bwd"] if cfg["backward"]
+                                     else [])
+        if cfg["config"] == 1:
+            wanted += ["agg_gather_fwd", "agg_gather_bwd"]
+        require(all(launches[k] > 0 for k in wanted) and
+                launches["nls_vol_fwd"] == 0,
+                f"matrix {name}: launches {launches}")
+        require(not any(plain_calls.values()),
+                f"matrix {name}: a plain backward ran on the kernel route")
+        require(not d[..., 0].any(), f"matrix {name}: slot 0 is not 0")
+        require(bool((d[..., 2:] >= d[..., 1:-1]).all()),
+                f"matrix {name}: slots 1.. do not ascend")
+        if cfg["backward"]:
+            require(float(res["g_vid"].abs().max()) > 0,
+                    f"matrix {name}: the video gradient is 0")
+        log(f"[matrix] {name} (config {cfg['config']}, "
+            f"{'fwd+bwd' if cfg['backward'] else 'fwd'}): dists "
+            f"{tuple(d.shape)}, launches {launches}, peak {peak:.3f} GB")
+        crops = [None, MATRIX_CROP] if cfg["config"] in (1, 4) \
+            else [MATRIX_CROP]
+        for crop in crops:
+            p_in = inputs if crop is None else crop_inputs(inputs, *crop)
+            try:
+                with plain_route():
+                    ref = step(*p_in)
+            except torch.cuda.OutOfMemoryError:
+                torch.cuda.empty_cache()
+                log(f"[matrix] {name}: the plain route ran out of memory at "
+                    f"{tuple(p_in[0].shape[-2:])}; holding it to the crop")
+                continue
+            mine = res if crop is None else step(*p_in)
+            break
+        compare_matrix(torch, name, cfg, mine, ref,
+                       tuple(p_in[0].shape[-2:]))
+        out[name] = (step, inputs, launches, peak)
+        del res, mine, ref
+    return out
+
+
+def compare_matrix(torch, name, cfg, mine, ref, size):
+    """One matrix config's kernel route against its plain route: dists and
+    the loss at TOL, offsets at TOL where a query's cells agree (they may
+    differ only at a near-tie: flipped_reach requires it), the video
+    gradient by compare()."""
+    err = close(mine["dists"], ref["dists"], f"matrix {name} dists")
+    searches = ((mine["dists"], mine["inds"]), (ref["dists"], ref["inds"]))
+    swap = (mine["inds"] != ref["inds"]).any(-1).any(-1)
+    if bool(swap.any()):
+        flipped_reach(torch, tuple(mine["inds"].shape[:1]) + (
+            cfg["T"], 1) + size, *searches, wt=cfg["wt"], ps=cfg["ps"])
+    close(mine["inds"][~swap], ref["inds"][~swap], f"matrix {name} offsets")
+    msg = (f"dists max|kernels-plain| {err:.3e}, {int(swap.sum())} queries "
+           "took other cells at a near-tie")
+    if cfg["backward"]:
+        close(mine["loss"], ref["loss"], f"matrix {name} loss")
+        g_err, scale = compare(torch, mine["g_vid"], ref["g_vid"],
+                               f"matrix {name} g_vid", lambda: searches,
+                               wt=cfg["wt"], ps=cfg["ps"])
+        msg += f"; g_vid max|g| {scale:.3e}, max|kernels-plain| {g_err:.3e}"
+    log(f"[matrix] {name} vs the plain route at {size[0]}x{size[1]}: {msg}")
+
+
+def matrix_search_args(torch, cfg, inputs):
+    """A matrix config's inputs as its search's kernels take them: the
+    video split into heads [B,HD,T,F,H,W] and the window flows
+    [B,1,T,W_t-1,2,H,W] (none for config 4, which has no flows)."""
+    from stnls_tpu_torch.nn.flow import search_flow
+    from stnls_tpu_torch.search.utils import shape_vids
+    v = shape_vids(cfg["HD"], [inputs[0]])[0].contiguous()
+    fl = search_flow(inputs[1], inputs[2], cfg["wt"], 1) \
+        if len(inputs) == 3 else torch.zeros(
+            (1, cfg["T"], 0, 2) + tuple(v.shape[-2:]), device=v.device)
+    return v, fl[:, None].contiguous()
+
+
+# config 7's whole 1080p frames are held head by head: B1 against its plain
+# version over bands of this many query rows (the plain volume of one whole
+# head would take 14.5 GB before its intermediates), B2 against its plain
+# version over chunks of this many query frames
+FULL_BAND_ROWS, FULL_CHUNK_FRAMES = 90, 2
+
+
+def full_frame_phase(torch, name, inputs, rows=FULL_BAND_ROWS,
+                     frames=FULL_CHUNK_FRAMES):
+    """A matrix config at its full frames, where its plain route does not
+    fit, one head at a time. B1's dists and cells against the plain
+    selection (search._pallas_topk_aux) of the plain volume
+    (ops/nls.lattice_search), computed for each band of `rows` query rows
+    against the whole frames: bitwise. B2 at B1's cells on a seeded
+    cotangent against its plain version, run over chunks of `frames` query
+    frames (each against all key frames, g_vid1 summed over the chunks):
+    1e-4 * max|ref|, position gradients off the integer lattice. A float
+    search (configs 5 and 7). Returns B2's largest error."""
+    from stnls_tpu_torch import matrix_steps as ms
+    from stnls_tpu_torch.ops import nls_cuda
+    from stnls_tpu_torch.ops.geometry import time_window_frames
+    from stnls_tpu_torch.ops.nls import lattice_search
+    from stnls_tpu_torch.ops.nls_k import cells_geometry, search_aux
+    from stnls_tpu_torch.search.non_local_search import _pallas_topk_aux
+    cfg = ms.config(name)
+    require(cfg["itype"] == "float", f"{name}: a float search expected")
+    ws, wt, ps, K = cfg["ws"], cfg["wt"], cfg["ps"], cfg["K"]
+    v_all, fl = matrix_search_args(torch, cfg, inputs)
+    B, HD, T, F, H, W = v_all.shape
+    dev = v_all.device
+    b1 = dict(ws=ws, wt=wt, ps=ps, stride0=1, stride1=1, k=K, anchor=True)
+    bwd_cfg = dict(ps=ps, stride0=1, dist_type="l2", dilation=1,
+                   use_adj=False, itype="float")
+    tj = torch.as_tensor(time_window_frames(T, wt), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    err2, n_off = 0., 0
+    for h in range(HD):
+        v = v_all[:, h:h + 1].contiguous()
+        with torch.no_grad():
+            d_k, c_k = nls_cuda.nls_topk(v, v, fl, **b1)
+            aux = search_aux(v.shape, fl, ws=ws, wt=wt, stride0=1, stride1=1)
+            for r0 in range(0, H, rows):
+                band = slice(r0, min(r0 + rows, H))
+                vol = lattice_search(
+                    v, v, tj[None, None, :, :, None, None],
+                    aux["ctr_h"][..., band, :], aux["ctr_w"][..., band, :],
+                    ws=ws, stride1=1., ref_h=torch.arange(H, device=dev)[band],
+                    ref_w=torch.arange(W, device=dev), dist_type="l2", ps=ps,
+                    patch_offset=-(ps // 2))
+                d_p, c_p = _pallas_topk_aux(
+                    vol, dict(dt_tab=aux["dt_tab"], dh=aux["dh"][..., band, :],
+                              dw=aux["dw"][..., band, :]),
+                    self_action="anchor", k=K, dist_type="l2")
+                require(torch.equal(d_k[..., band, :, :], d_p) and
+                        torch.equal(c_k[..., band, :, :], c_p.int()),
+                        f"B1 {name} head {h}: query rows {band.start}.."
+                        f"{band.stop - 1} differ from the plain volume's")
+                del vol, d_p, c_p
+            del aux
+        geo = cells_geometry(fl, c_k, H=H, W=W, ws=ws, wt=wt, stride0=1,
+                             stride1=1)
+        pos = (geo["prop_h"], geo["prop_w"], geo["tj_k"], geo["valid"])
+        g_d = torch.randn(d_k.shape, generator=gen, device=dev)
+        g_k = nls_cuda.nls_topk_bwd(v, v, *pos, g_d, bwd_cfg)
+        g_p = [torch.zeros_like(v), torch.zeros_like(v),
+               torch.empty_like(pos[0]), torch.empty_like(pos[1])]
+        for t0 in range(0, T, frames):
+            ts = slice(t0, min(t0 + frames, T))
+            part = nls_cuda.nls_topk_bwd_plain(
+                v[:, :, ts], v, *(x[:, :, ts] for x in pos), g_d[:, :, ts],
+                bwd_cfg)
+            g_p[0][:, :, ts] = part[0]
+            g_p[1] += part[1]
+            g_p[2][:, :, ts], g_p[3][:, :, ts] = part[2], part[3]
+            del part
+        off = off_integer(geo["prop_h"]) & off_integer(geo["prop_w"])
+        n_off += int(off.sum())
+        for gk, gp, what, mask in zip(g_k, g_p, ("g_vid0", "g_vid1",
+                                                 "g_prop_h", "g_prop_w"),
+                                      (None, None, off, off)):
+            if mask is not None:
+                gk, gp = gk[mask], gp[mask]
+            err2 = max(err2, grad_close(gk, gp, f"B2 {name} head {h} "
+                                                f"{what}")[0])
+        del d_k, c_k, geo, pos, g_d, g_k, g_p, off
+    log(f"[matrix] {name} at the full {H}x{W}, {HD} heads: B1 dists and "
+        f"cells equal to the plain volume's bitwise ({rows}-row bands); B2 "
+        f"on a seeded cotangent max|kernel-plain| {err2:.3e} (plain over "
+        f"{frames}-frame chunks; position gradients compared at {n_off} of "
+        f"{B * HD * T * H * W * K} (query, slot))")
+    return err2
+
+
+def ps1_kernel_times(torch, dev, smi_line, matrix):
+    """B1, B5 and B6 at (ps, F a head) = (1, 2) on MATRIX_CROP of config
+    5's inputs and (1, 16) on that of config 4's, against their plain
+    versions, with their bounds from these inputs (B6 on the per-frame
+    top-2 cotangent); B1 also at the full size, where its launches in the
+    matrix phase ran. Returns {label: {kernel: dict(ms, plain_ms,
+    bound_ms, bound_by)}}."""
+    from stnls_tpu_torch import matrix_steps as ms
+    from stnls_tpu_torch.attn_step import cuda_ms
+    from stnls_tpu_torch.ops import nls_cuda, nls_vol_cuda
+
+    def nb(*xs):
+        return sum(x.numel() * x.element_size() for x in xs)
+
+    out = {}
+    for label, name in (("1,2", "align1080p_fwd"), ("1,16", "gda540p_ws9")):
+        cfg = ms.config(name)
+        c = dict(PS_DEFAULTS, ws=cfg["ws"], wt=cfg["wt"], ps=1, k=cfg["K"],
+                 itype=cfg["itype"])
+        full = matrix[name][1]
+        v, fl = matrix_search_args(torch, cfg, full)
+        b1 = dict({key: c[key] for key in ("ws", "wt", "ps", "stride0",
+                                           "stride1", "itype")}, k=c["k"],
+                  anchor=True)
+        with torch.no_grad():
+            t_full = cuda_ms(lambda: nls_cuda.nls_topk(v, v, fl, **b1), n=5,
+                             warm=1)
+        del v, fl
+        v, fl = matrix_search_args(torch, cfg, crop_inputs(full, *MATRIX_CROP))
+        r = search_kernel_case(torch, dev, v, v, fl, c, f"({label}) "
+                               f"{name} {MATRIX_CROP[0]}x{MATRIX_CROP[1]}")
+        F = v.shape[3]
+        plain = dict(n=3, warm=1)
+        with torch.no_grad():
+            d_k, c_k = nls_cuda.nls_topk(v, v, fl, **b1)
+            t = {"B1": (cuda_ms(lambda: nls_cuda.nls_topk(v, v, fl, **b1)),
+                        cuda_ms(lambda: nls_cuda.nls_topk_plain(
+                            v, v, fl, **b1), **plain)),
+                 "B5": (cuda_ms(lambda: nls_vol_cuda.nls_volume(
+                            *r["b5_args"], **r["kw"])),
+                        cuda_ms(lambda: nls_vol_cuda.nls_volume_plain(
+                            *r["b5_args"], **r["kw"]), **plain))}
+        t["B6"] = (cuda_ms(lambda: nls_vol_cuda.nls_volume_bwd(
+                       *r["b6_args"])),
+                   cuda_ms(lambda: nls_vol_cuda.nls_volume_bwd_plain(
+                       *r["b6_args"]), **plain))
+        valid = int(r["d"].isfinite().sum())
+        g = nls_vol_cuda.nls_volume_bwd(*r["b6_args"])
+        bounds = {
+            "B1": bound_ms(nb(v, v, fl, d_k, c_k),
+                           r["d"].numel() * F * FLOPS_PER_TAP["B1"]),
+            "B5": bound_ms(nb(*r["b5_args"], r["d"]),
+                           valid * F * FLOPS_PER_TAP["B5"]),
+            "B6": bound_ms(nb(*r["b6_args"][:5], *g),
+                           r["active"] * F * FLOPS_PER_TAP["B6"])}
+        out[label] = {key: dict(ms=t[key][0], plain_ms=t[key][1],
+                                bound_ms=bounds[key][0],
+                                bound_by=bounds[key][1]) for key in t}
+        out[label]["B1"]["full_size_ms"] = t_full
+        log(f"[times] {smi_line}: (ps, F) = ({label}) at "
+            f"{MATRIX_CROP[0]}x{MATRIX_CROP[1]} of {name}: " + "; ".join(
+                f"{key} {t[key][0]:.3f} ms (plain {t[key][1]:.3f}, bound "
+                f"{bounds[key][0]:.4f} by {bounds[key][1]})" for key in t)
+            + f"; B1 at {tuple(full[0].shape[-2:])} {t_full:.3f} ms")
+        del r, g, d_k, c_k, v, fl
+    return out
+
+
 def main():
     here = Path(__file__).resolve().parent
     if not (here / "stnls_tpu_torch" / "csrc").is_dir():
@@ -1206,6 +1699,26 @@ def main():
         f"{t_aggs:.3f} ms (plain route {t_aggsp:.3f} ms); search + the four "
         f"{t_twin:.3f} ms")
 
+    # 11. B1, B5 and B6 at other (ps, F a head), and K beyond B1's list
+    err_ps = ps_kernel_phase(torch, dev)
+
+    # 12. benchmarks/matrix.py's configs 1, 4, 5 and 7 at full size, and
+    # config 7's B1 and B2 against their plain versions on its whole frames
+    matrix = matrix_phase(torch, dev)
+    err_full = full_frame_phase(torch, "align1080p_fwd+bwd",
+                                matrix["align1080p_fwd+bwd"][1])
+
+    # 13. times: the matrix steps; B1, B5 and B6 at (1, 2) and (1, 16);
+    # the compiled bodies of B1 and B5 against the run-time one
+    t_matrix = {name: cuda_ms(lambda: step(*inputs), n=5, warm=1)
+                for name, (step, inputs, _, _) in matrix.items()}
+    log(f"[times] {smi_line}: matrix steps " + "; ".join(
+        f"{name} {ms:.3f} ms = "
+        f"{matrix[name][1][0].shape[1] / (ms / 1e3):.2f} frames/s "
+        f"(peak {matrix[name][3]:.3f} GB)" for name, ms in t_matrix.items()))
+    ps1 = ps1_kernel_times(torch, dev, smi_line, matrix)
+    spec = compiled_vs_run_time(torch, dev, smi_line, res, vres)
+
     require("jax" not in sys.modules, "JAX was imported")
     rows = (("B1", "nls_topk_fwd", "nls_pallas.py:761", t_b1, t_b1p),
             ("B2", "nls_topk_bwd", "nls_pallas_bwd.py:675", t_b2, t_b2p),
@@ -1227,6 +1740,8 @@ def main():
     errs = {key: max(r["err"][key], g["err"][key])
             for r, g in ((res, graft), (vres, vgraft), (ares, ares2))
             for key in r["err"]}
+    errs["B6"] = max(errs["B6"], err_ps)
+    errs["B2"] = max(errs["B2"], err_full)
     kernels = []
     for key, name, site, ms, plain_ms in rows:
         b_ms, b_by = bounds[key]
@@ -1252,7 +1767,11 @@ def main():
         "b6_dense_bound_ms": vres["bounds"]["B6 dense"][0],
         "agg_example_aggregators_fwd_bwd_ms": t_aggs,
         "agg_example_aggregators_fwd_bwd_plain_ms": t_aggsp,
-        "agg_example_ms": t_twin}}))
+        "agg_example_ms": t_twin,
+        "matrix": {name: {
+            "ms": ms, "frames_per_s": matrix[name][1][0].shape[1] / (ms / 1e3),
+            "peak_gb": matrix[name][3]} for name, ms in t_matrix.items()},
+        "ps1_kernels": ps1, "compiled_vs_run_time_ms": spec}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

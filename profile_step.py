@@ -25,9 +25,11 @@ volume path (attn_step.VOLUME_SEARCH: anchor_each, per-frame top-2,
 through B5/B6), and for the twin of examples/agg_example.py
 (stnls_tpu_torch/agg_example.py: B=1, T=3, F=16, HD=2, 128^2, K=8; its
 search, then Gather, GatherAdd, ScatterAdd and Pool forward and backward,
-through B1, B3/B4, B7/B8 and B9/B10). Each breakdown lists the device ms
-of the port's ten kernels (B1-B10). The last line is one JSON object of
-these numbers.
+through B1, B3/B4, B7/B8 and B9/B10), and for the steps of
+benchmarks/matrix.py's configs 1, 4, 5 and 7 at their published sizes
+(stnls_tpu_torch/matrix_steps.py, seed 0; 5 is a forward only). Each
+breakdown lists the device ms of the port's ten kernels (B1-B10). The
+last line is one JSON object of these numbers.
 Exits non-zero without a CUDA device. Imports nothing of JAX.
 """
 
@@ -139,7 +141,7 @@ def fwd_bwd_breakdown(torch, dev, fn, T, label, ms, peak):
 
 
 def profile(torch, dev, H=128):
-    from stnls_tpu_torch import agg_example
+    from stnls_tpu_torch import agg_example, matrix_steps
     from stnls_tpu_torch.attn_step import AttnStep, attention_module, \
         smooth_flows, VOLUME_SEARCH
     from stnls_tpu_torch.utils.config import ConfigDict
@@ -180,6 +182,13 @@ def profile(torch, dev, H=128):
              "volume NonLocalAttention fwd+bwd": lambda: attn_fwd_bwd(vattn),
              "agg example fwd+bwd": lambda: agg_example.run(*a_in)}
     frames = {"agg example fwd+bwd": agg_example.CONFIG["T"]}
+    keys = ["attn_fwd_bwd", "volume_attn_fwd_bwd", "agg_example_fwd_bwd"]
+    for name in matrix_steps.CONFIGS:
+        m_step = matrix_steps.make_step(name)
+        m_in = matrix_steps.make_inputs(name, device=dev)
+        paths[f"matrix {name}"] = lambda s=m_step, x=m_in: s(*x)
+        frames[f"matrix {name}"] = matrix_steps.CONFIGS[name]["T"]
+        keys.append(f"matrix_{name}")
     untraced = {label: timed(torch, dev, fn, frames.get(label, T), label)
                 for label, fn in (("forward", fwd), ("fwd+bwd", fwd_bwd),
                                   *paths.items())}
@@ -198,10 +207,7 @@ def profile(torch, dev, H=128):
                                          *untraced["fwd+bwd"]),
             **{key: fwd_bwd_breakdown(torch, dev, fn, frames.get(label, T),
                                       label, *untraced[label])
-               for key, (label, fn) in zip(("attn_fwd_bwd",
-                                            "volume_attn_fwd_bwd",
-                                            "agg_example_fwd_bwd"),
-                                           paths.items())}}
+               for key, (label, fn) in zip(keys, paths.items())}}
 
 
 def main():

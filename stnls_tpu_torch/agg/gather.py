@@ -34,7 +34,8 @@ def non_local_gather(vid, weights, flows, ps=7, stride0=4, pt=1,
     nW = (W - 1) // stride0 + 1
     K = flows.shape[-2]
     weights6 = weights.reshape(B, HD_, T, nH, nW, K).contiguous()
-    flows7 = flows.reshape(B, HD_, T, nH, nW, K, 3).contiguous()
+    # int offsets (an int search's) are read as floats by the kernel
+    flows7 = flows.reshape(B, HD_, T, nH, nW, K, 3).float().contiguous()
     return nl_gather_stack(vid.contiguous(), weights6, flows7, ps=ps,
                            stride0=stride0, pt=pt, dilation=dilation,
                            reflect_bounds=reflect_bounds, use_adj=use_adj,
@@ -67,6 +68,9 @@ class NonLocalGather(torch.nn.Module):
         return non_local_gather(vid, weights, flows, self.ps, self.stride0,
                                 self.pt, self.reflect_bounds, self.dilation,
                                 self.use_adj, self.itype)
+
+    def flops(self, nrefs, chnls_per_head, nheads, k):
+        return nrefs * chnls_per_head * nheads * k * (self.ps ** 2) * self.pt
 
 
 def extract_config(cfg, restrict=True):

@@ -55,7 +55,7 @@ def non_local_gather_add(vid, weights, flows, ps=7, strideIn=4, strideOut=4,
     nH, nW = num_queries(H, W, strideIn)
     K = flows.shape[-2]
     weights6 = weights.reshape(B, HD_, T, nH, nW, K)
-    flows7 = flows.reshape(B, HD_, T, nH, nW, K, 3)
+    flows7 = flows.reshape(B, HD_, T, nH, nW, K, 3).float()
     # the -1e8 "invalid" fill entries are dropped: zero their weights and
     # offsets before the kernel, so its reflections never see them
     finite = finite_entries(flows7)

@@ -32,7 +32,7 @@ def pooled_patch_sum(vid, weights, flows, ps=7, stride0=4, pt=1, dilation=1,
     nH, nW = num_queries(H, W, stride0)
     K = flows.shape[-2]
     weights6 = weights.reshape(B, HD_, T, nH, nW, K).contiguous()
-    flows7 = flows.reshape(B, HD_, T, nH, nW, K, 3).contiguous()
+    flows7 = flows.reshape(B, HD_, T, nH, nW, K, 3).float().contiguous()
     return nl_pool(vid.contiguous(), weights6, flows7, ps=ps,
                    stride0=stride0, pt=pt, dilation=dilation,
                    reflect_bounds=reflect_bounds, use_adj=use_adj)

@@ -34,7 +34,7 @@ def non_local_scatter_add(vid, weights, flows, ps=7, strideIn=4, strideOut=4,
     nH, nW = num_queries(H, W, strideIn)
     K = flows.shape[-2]
     weights6 = weights.reshape(B, HD_, T, nH, nW, K).contiguous()
-    flows7 = flows.reshape(B, HD_, T, nH, nW, K, 3).contiguous()
+    flows7 = flows.reshape(B, HD_, T, nH, nW, K, 3).float().contiguous()
     return nl_scatter_add(vid.contiguous(), weights6, flows7, ps=ps,
                           strideIn=strideIn, strideOut=strideOut, pt=pt,
                           dilation=dilation, reflect_bounds=reflect_bounds,

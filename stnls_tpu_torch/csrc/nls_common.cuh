@@ -5,7 +5,8 @@
 // The functions over an argument struct `A` read these fields of it: H, W,
 // ws, stride1 (float; the int path passes max(1, int(stride1))), s1_half
 // (stride1 * ((ws-1)/2), rounded once on the host, as the reference
-// computes it), full_ws, dilation, use_adj, is_int and l2.
+// computes it), full_ws, dilation, use_adj, is_int and l2; the run-time
+// query form (GlobalQuery) also ps and F (the channels a head).
 //
 // The float path follows stnls_tpu_torch/ops/geometry.py and
 // ops/nls.lattice_search. The _rn intrinsics keep nvcc from contracting
@@ -99,28 +100,95 @@ __device__ __forceinline__ float lattice(float ctr, float off, float s1, int i) 
 }
 
 // The query patch of vid0 (one frame, [F,H,W]) at query pixel (ref_h,
-// ref_w), into registers: qv[tap * FC + f], and whether each tap's
-// reflected pixel lies in the frame.
-template <int PS, int FC, class A>
-__device__ __forceinline__ void load_query_patch(const A& a, const float* v0,
-                                                 int ref_h, int ref_w,
-                                                 float* qv, bool* qok) {
-  const int H = a.H, W = a.W;
-  const long long HW = (long long)H * W;
-  const int po = a.use_adj ? 0 : -(PS / 2);
+// ref_w), in one of two forms with one interface, so that patch_dist sums
+// in the same order for both:
+//   RegQuery<PS, FC>: ps and F known at compile time; the patch is loaded
+//     once into registers, v[tap * FC + f], and reused across the cells;
+//   GlobalQuery: ps and F known at run time; a tap's channels are read
+//     from vid0 at each use, through the read-only data cache (__ldg). The
+//     patch would not fit a thread's registers (ps=7, F=32: 1,568 floats),
+//     and a warp's neighbouring queries read neighbouring pixels of the
+//     same rows, which stay in L1 across the cells.
+// Interface: ps() and nf(); tap(a, pi, pj, &h) says whether the tap's
+// reflected pixel lies in the frame and sets the handle h through which
+// val(h, f, HW) reads its channel f, HW = H * W apart (nothing is read for
+// a tap outside).
+template <int PS, int FC>
+struct RegQuery {
+  using Tap = int;
+  float v[PS * PS * FC];
+  bool ok[PS * PS];
+
+  template <class A>
+  __device__ __forceinline__ void load(const A& a, const float* v0, int ref_h,
+                                       int ref_w) {
+    const int H = a.H, W = a.W;
+    const long long HW = (long long)H * W;
+    const int po = a.use_adj ? 0 : -(PS / 2);
 #pragma unroll
-  for (int pi = 0; pi < PS; ++pi) {
+    for (int pi = 0; pi < PS; ++pi) {
 #pragma unroll
-    for (int pj = 0; pj < PS; ++pj) {
-      const int rh = reflect_i(ref_h + a.dilation * (pi + po), H);
-      const int rw = reflect_i(ref_w + a.dilation * (pj + po), W);
-      qok[pi * PS + pj] = rh >= 0 && rh < H && rw >= 0 && rw < W;
-      const int o = min(max(rh, 0), H - 1) * W + min(max(rw, 0), W - 1);
+      for (int pj = 0; pj < PS; ++pj) {
+        const int rh = reflect_i(ref_h + a.dilation * (pi + po), H);
+        const int rw = reflect_i(ref_w + a.dilation * (pj + po), W);
+        ok[pi * PS + pj] = rh >= 0 && rh < H && rw >= 0 && rw < W;
+        const int o = min(max(rh, 0), H - 1) * W + min(max(rw, 0), W - 1);
 #pragma unroll
-      for (int f = 0; f < FC; ++f) qv[(pi * PS + pj) * FC + f] = v0[f * HW + o];
+        for (int f = 0; f < FC; ++f) v[(pi * PS + pj) * FC + f] = v0[f * HW + o];
+      }
     }
   }
-}
+  __device__ __forceinline__ int ps() const { return PS; }
+  __device__ __forceinline__ int nf() const { return FC; }
+  template <class A>
+  __device__ __forceinline__ bool tap(const A&, int pi, int pj, Tap* h) const {
+    *h = (pi * PS + pj) * FC;
+    return ok[pi * PS + pj];
+  }
+  __device__ __forceinline__ float val(Tap h, int f, long long) const {
+    return v[h + f];
+  }
+};
+
+struct GlobalQuery {
+  using Tap = const float*;
+  const float* v0;
+  int ref_h, ref_w, ps_, nf_, po;
+
+  template <class A>
+  __device__ __forceinline__ void load(const A& a, const float* v0_, int rh,
+                                       int rw) {
+    v0 = v0_;
+    ref_h = rh;
+    ref_w = rw;
+    ps_ = a.ps;
+    nf_ = a.F;
+    po = a.use_adj ? 0 : -(a.ps / 2);
+  }
+  __device__ __forceinline__ int ps() const { return ps_; }
+  __device__ __forceinline__ int nf() const { return nf_; }
+  template <class A>
+  __device__ __forceinline__ bool tap(const A& a, int pi, int pj, Tap* h) const {
+    const int rh = reflect_i(ref_h + a.dilation * (pi + po), a.H);
+    const int rw = reflect_i(ref_w + a.dilation * (pj + po), a.W);
+    *h = v0 + (long long)rh * a.W + rw;
+    return rh >= 0 && rh < a.H && rw >= 0 && rw < a.W;
+  }
+  __device__ __forceinline__ float val(Tap h, int f, long long HW) const {
+    return __ldg(h + f * HW);
+  }
+};
+
+// The query form of a kernel instantiated for (PS, FC); (0, 0) takes ps
+// and F from the arguments at run time.
+template <int PS, int FC>
+struct QueryOf {
+  using type = RegQuery<PS, FC>;
+};
+template <>
+struct QueryOf<0, 0> {
+  using type = GlobalQuery;
+};
 
 // Bilinear corners of a float key position (ph, pw) inside the frame:
 // offsets into one channel plane and weights, with a corner beyond the
@@ -150,34 +218,35 @@ __device__ __forceinline__ Corners corners(float ph, float pw, int H, int W) {
   return c;
 }
 
-// Patch distance between the query patch (qv, qok) and the key patch of
-// vid1 (one frame, [F,H,W]) whose first tap is at lattice position (ph0,
-// pw0): the taps are reflected, and read bilinearly (float) or at one
-// pixel (int).
-template <int PS, int FC, class A>
+// Patch distance between the query patch qp (RegQuery or GlobalQuery) and
+// the key patch of vid1 (one frame, [F,H,W]) whose first tap is at lattice
+// position (ph0, pw0): the taps are reflected, and read bilinearly (float)
+// or at one pixel (int). Taps in order, channels inner, one rounded add at
+// a time, whichever the query's form.
+template <class A, class Q>
 __device__ __forceinline__ float patch_dist(const A& a, const float* v1,
-                                            const float* qv, const bool* qok,
-                                            float ph0, float pw0) {
+                                            const Q& qp, float ph0, float pw0) {
   const int H = a.H, W = a.W;
   const long long HW = (long long)H * W;
-  const int po = a.use_adj ? 0 : -(PS / 2);
+  const int ps = qp.ps(), nf = qp.nf();
+  const int po = a.use_adj ? 0 : -(ps / 2);
   float acc = 0.f;
 #pragma unroll
-  for (int pi = 0; pi < PS; ++pi) {
+  for (int pi = 0; pi < ps; ++pi) {
     const float ph = reflect_f(__fadd_rn(ph0, (float)(a.dilation * (pi + po))), H);
     const bool okh = inb_f(ph, H);
 #pragma unroll
-    for (int pj = 0; pj < PS; ++pj) {
+    for (int pj = 0; pj < ps; ++pj) {
       const float pw = reflect_f(__fadd_rn(pw0, (float)(a.dilation * (pj + po))), W);
-      const int tap = pi * PS + pj;
-      if (!(qok[tap] && okh && inb_f(pw, W))) continue;
+      typename Q::Tap h;
+      if (!(qp.tap(a, pi, pj, &h) && okh && inb_f(pw, W))) continue;
       float s = 0.f;
       if (a.is_int) {
         const float* p = v1 + (int)ph * W + (int)pw;
 #pragma unroll
-        for (int f = 0; f < FC; ++f) {
+        for (int f = 0; f < nf; ++f) {
           const float p1 = p[f * HW];
-          const float q = qv[tap * FC + f];
+          const float q = qp.val(h, f, HW);
           const float df = q - p1;
           s = __fadd_rn(s, a.l2 ? __fmul_rn(df, df) : __fmul_rn(q, p1));
         }
@@ -188,13 +257,13 @@ __device__ __forceinline__ float patch_dist(const A& a, const float* v1,
         const float w10 = c.okh1 ? c.wh1 * c.ww0 : 0.f;
         const float w11 = (c.okh1 && c.okw1) ? c.wh1 * c.ww1 : 0.f;
 #pragma unroll
-        for (int f = 0; f < FC; ++f) {
+        for (int f = 0; f < nf; ++f) {
           const float* p = v1 + f * HW;
           float p1 = __fmul_rn(w00, p[c.o00]);
           p1 = __fadd_rn(p1, __fmul_rn(w01, p[c.o01]));
           p1 = __fadd_rn(p1, __fmul_rn(w10, p[c.o10]));
           p1 = __fadd_rn(p1, __fmul_rn(w11, p[c.o11]));
-          const float q = qv[tap * FC + f];
+          const float q = qp.val(h, f, HW);
           const float df = q - p1;
           s = __fadd_rn(s, a.l2 ? __fmul_rn(df, df) : __fmul_rn(q, p1));
         }

@@ -25,9 +25,16 @@
 // What the design does about it: one thread per query with neighbouring
 // threads on neighbouring qw, so a warp's corner reads of one tap fall on
 // neighbouring addresses of the same rows (coalesced, L1-resident across
-// the 125 cells); the query patch lives in registers (PS and F are
-// template parameters, built for the pairs listed at the dispatch below); the running K-list lives in thread-local memory
-// (L1). No shared memory, no atomics, no allocation; deterministic.
+// the cells). ps and F (channels a head) are run-time arguments: the query
+// patch is read from vid0 at each use through the read-only cache
+// (GlobalQuery of nls_common.cuh). The pair listed at the dispatch below
+// also has a body with ps and F compiled in, whose query patch lives in
+// registers (RegQuery), faster there (PERF.md); the dispatch picks it
+// unless the wrapper asks for the run-time body. Both sum in one order, so
+// both give the plain volume's dists bitwise.
+// The running list of KMAX ranked slots lives in thread-local memory (L1);
+// the search sends more ranked slots to the volume route (B5).
+// No shared memory, no atomics, no allocation; deterministic.
 // Shared-memory query tiles and TMA staging of key rows are later work.
 
 #include <cuda_runtime.h>
@@ -92,6 +99,7 @@ __device__ __forceinline__ bool better(bool l2, float d, int p, float d2, int p2
   return l2 ? (d < d2 || (d == d2 && p < p2)) : (d > d2 || (d == d2 && p < p2));
 }
 
+// PS, FC > 0: ps and F compiled in; (0, 0): taken from the arguments.
 template <int PS, int FC>
 __global__ void __launch_bounds__(128) nls_topk_kernel(NlsArgs a) {
   const long long nq = (long long)a.B * a.HD * a.T * a.nH * a.nW;
@@ -107,17 +115,14 @@ __global__ void __launch_bounds__(128) nls_topk_kernel(NlsArgs a) {
   const int b = (int)(r / a.HD);
 
   const int H = a.H, W = a.W, T = a.T, ws = a.ws;
-  const long long HW = (long long)H * W;
+  const long long FHW = (long long)(FC > 0 ? FC : a.F) * H * W;
   const int ref_h = (qh * a.stride0) % H;
   const int ref_w = (qw * a.stride0) % W;
   const float s1 = a.stride1;
   const int W_t = min(2 * a.wt + 1, T);
 
-  // query patch, in registers
-  float qv[PS * PS * FC];
-  bool qok[PS * PS];
-  load_query_patch<PS, FC>(a, a.vid0 + (((long long)b * a.HD + hd) * T + t) * FC * HW,
-                           ref_h, ref_w, qv, qok);
+  typename QueryOf<PS, FC>::type qp;
+  qp.load(a, a.vid0 + (((long long)b * a.HD + hd) * T + t) * FHW, ref_h, ref_w);
 
   // anchor: lexicographically first argmin of |dt| + |dh| + |dw|
   int self_idx = -1;
@@ -147,7 +152,7 @@ __global__ void __launch_bounds__(128) nls_topk_kernel(NlsArgs a) {
 
   for (int st = 0; st < W_t; ++st) {
     const Slot s = slot_geometry(a, b, hd, t, qh, qw, st, ref_h, ref_w);
-    const float* v1 = a.vid1 + (((long long)b * a.HD + hd) * T + s.tj) * FC * HW;
+    const float* v1 = a.vid1 + (((long long)b * a.HD + hd) * T + s.tj) * FHW;
     for (int wi = 0; wi < ws; ++wi) {
       const float ph0 = lattice(s.ch, s.oh, s1, wi);
       const bool vh = inb_f(ph0, H);
@@ -155,7 +160,7 @@ __global__ void __launch_bounds__(128) nls_topk_kernel(NlsArgs a) {
         const float pw0 = lattice(s.cw, s.ow, s1, wj);
         const int c = (st * ws + wi) * ws + wj;
         float d = init;
-        if (vh && inb_f(pw0, W)) d = patch_dist<PS, FC>(a, v1, qv, qok, ph0, pw0);
+        if (vh && inb_f(pw0, W)) d = patch_dist(a, v1, qp, ph0, pw0);
         if (c == self_idx) { self_d = d; continue; }
         const int pos = (self_idx >= 0 && c == 0) ? self_idx : c;
         if (nslots > 0 && better(a.l2, d, pos, ld[nslots - 1], lp[nslots - 1])) {
@@ -198,29 +203,38 @@ cudaError_t launch(const NlsArgs& a, cudaStream_t stream) {
 
 }  // namespace
 
-// The (ps, F a head) pairs the kernel is built for, as
-// ops/nls_cuda.KERNEL_CONFIGS lists them: ps=3 with 8 channels a head is
-// what bench.py, __graft_entry__ and examples/attn_example.py run; 16 is
-// NonLocalAttention's default one-head width. Each pair is one more
-// instantiation in the build.
-#define STNLS_NLS_CASE(P, FC) \
-  if (a.ps == P && a.F == FC) return (int)launch<P, FC>(a, stream);
+// The (ps, F a head) pairs with ps and F compiled in, the one list of
+// them: ps=3 with 8 channels a head is what bench.py, __graft_entry__ and
+// examples/attn_example.py run (at 16, the compiled body was no faster).
+// Every other pair, and every pair when `compiled` is 0, runs the run-time
+// body <0, 0>.
+#define STNLS_NLS_COMPILED(X) X(3, 8)
 
 // Returns cudaGetLastError() after the launch (0 on success), or
-// cudaErrorInvalidValue for a configuration the kernel was not built for.
+// cudaErrorInvalidValue for more than KMAX ranked slots.
 extern "C" int stnls_nls_topk_fwd(
     const float* vid0, const float* vid1, const float* flows, float* dists,
     int* cells, int B, int HD, int T, int F, int H, int W, int HDf, int St,
     int nH, int nW, int ws, int wt, int ps, int stride0, int dilation,
     float stride1, float s1_half, int K, int anchor, int l2, int full_ws,
-    int use_adj, int is_int, void* stream_ptr) {
+    int use_adj, int is_int, int compiled, void* stream_ptr) {
   NlsArgs a{vid0, vid1, flows, dists, cells, B, HD, T, F, H, W, HDf, St, nH, nW,
             ws, wt, ps, stride0, dilation, stride1, s1_half, K, anchor, l2,
             full_ws, use_adj, is_int};
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int nslots = anchor ? K - 1 : K;
   if (nslots < 0 || nslots > KMAX) return (int)cudaErrorInvalidValue;
-  STNLS_NLS_CASE(3, 8)
-  STNLS_NLS_CASE(3, 16)
-  return (int)cudaErrorInvalidValue;
+#define STNLS_LAUNCH(P, FC) \
+  if (compiled && ps == P && F == FC) return (int)launch<P, FC>(a, stream);
+  STNLS_NLS_COMPILED(STNLS_LAUNCH)
+#undef STNLS_LAUNCH
+  return (int)launch<0, 0>(a, stream);
+}
+
+// 1 when (ps, F) has a body with ps and F compiled in, else 0.
+extern "C" int stnls_nls_topk_compiled(int ps, int F) {
+#define STNLS_HAS(P, FC) if (ps == P && F == FC) return 1;
+  STNLS_NLS_COMPILED(STNLS_HAS)
+#undef STNLS_HAS
+  return 0;
 }

@@ -23,7 +23,7 @@
 // multiplied, so an inf never meets a zero.
 //
 // What bounds it on the H100: global atomic adds into the two videos. Per
-// active (query, cell) pair it adds 9 taps x F channels x 4 corners into
+// active (query, cell) pair it adds ps x ps taps x F channels x 4 corners into
 // g_vid1; under topk_mode="each" with k=2 only 10 of the 125 cells of a
 // query carry a cotangent, under topk_mode="none" all do.
 //
@@ -40,11 +40,14 @@
 // The query patch is the same for every cell, so the
 // vid0 gradient of a tap is summed over the cells in registers,
 // sum_c g_c * pv_c and sum_c g_c, and added with one atomic per (tap,
-// channel) per (query, slot), not one per cell. The centre gradients are
-// summed over cells and taps in registers and written once, without
-// atomics. The video gradients depend on the order of the atomics, so
-// they are not bitwise deterministic (sums agree to float rounding).
-// Shared-memory tiles of the video gradients are later work.
+// channel) per (query, slot), not one per cell. ps and F are run-time
+// arguments: the channels run in chunks of CH = 8 held in registers (the
+// geometry of a cell is recomputed per chunk; a body with ps and F
+// compiled in was no faster at (3, 8) or (3, 16), PERF.md). The centre
+// gradients are summed over cells and taps in registers and written once,
+// without atomics. The video gradients depend on the order of the
+// atomics, so they are not bitwise deterministic (sums agree to float
+// rounding). Shared-memory tiles of the video gradients are later work.
 
 #include <cuda_runtime.h>
 
@@ -69,8 +72,8 @@ struct VolBwdArgs {
   int l2, full_ws, use_adj, is_int;
 };
 
-template <int PS, int FC>
 __global__ void __launch_bounds__(128) nls_vol_bwd_kernel(VolBwdArgs a) {
+  constexpr int CH = 8;     // channels held in registers at a time
   const long long n = (long long)a.B * a.HD * a.T * a.W_t * a.nH * a.nW;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
@@ -83,11 +86,12 @@ __global__ void __launch_bounds__(128) nls_vol_bwd_kernel(VolBwdArgs a) {
   const int t = (int)(bhdt % a.T);
 
   const int H = a.H, W = a.W, ws = a.ws, dil = a.dilation;
+  const int ps = a.ps, F = a.F;
   const long long HW = (long long)H * W;
   const long long plane = (long long)a.nH * a.nW;
   const int ref_h = (qh * a.stride0) % H;
   const int ref_w = (qw * a.stride0) % W;
-  const int po = a.use_adj ? 0 : -(PS / 2);
+  const int po = a.use_adj ? 0 : -(ps / 2);
   const float s1 = a.stride1;
 
   const long long c = (bhdt * a.W_t + st) * plane + (long long)qh * a.nW + qw;
@@ -95,10 +99,10 @@ __global__ void __launch_bounds__(128) nls_vol_bwd_kernel(VolBwdArgs a) {
   float oh, ow;
   window_offsets(a, ch, cw, &oh, &ow);
   const int tj = window_frame(t, st, a.wt, a.T);
-  const float* v0 = a.vid0 + bhdt * FC * HW;
-  float* gv0 = a.g_vid0 + bhdt * FC * HW;
-  const float* v1 = a.vid1 + (bhdt - t + tj) * FC * HW;
-  float* gv1 = a.g_vid1 + (bhdt - t + tj) * FC * HW;
+  const float* v0 = a.vid0 + bhdt * F * HW;
+  float* gv0 = a.g_vid0 + bhdt * F * HW;
+  const float* v1 = a.vid1 + (bhdt - t + tj) * F * HW;
+  float* gv1 = a.g_vid1 + (bhdt - t + tj) * F * HW;
   // cotangent of cell (wi, wj) at g[(wi * ws + wj) * plane]
   const float* g = a.g_d + (bhdt * a.W_t + st) * ws * ws * plane
                    + (long long)qh * a.nW + qw;
@@ -116,85 +120,91 @@ __global__ void __launch_bounds__(128) nls_vol_bwd_kernel(VolBwdArgs a) {
         mask |= 1u << j;
     }
     if (mask == 0u) continue;
-#pragma unroll
-    for (int pi = 0; pi < PS; ++pi) {
+    for (int pi = 0; pi < ps; ++pi) {
       const int dH = dil * (pi + po);
       const int rh = reflect_i(ref_h + dH, H);
-#pragma unroll
-      for (int pj = 0; pj < PS; ++pj) {
+      for (int pj = 0; pj < ps; ++pj) {
         const int dW = dil * (pj + po);
         const int rw = reflect_i(ref_w + dW, W);
         if (rh < 0 || rh >= H || rw < 0 || rw >= W) continue;
         const long long oq = (long long)rh * W + rw;
-        float p0[FC], acc[FC];
+        for (int f0 = 0; f0 < F; f0 += CH) {
+          // channels f0 .. f0 + CH - 1 of the tap (those below F)
+          float p0[CH], acc[CH];
 #pragma unroll
-        for (int f = 0; f < FC; ++f) {
-          p0[f] = v0[f * HW + oq];
-          acc[f] = 0.f;
-        }
-        float gsum = 0.f;
-        bool active = false;
-        for (unsigned m = mask; m != 0u; m &= m - 1u) {
-          const int cell = base + __ffs(m) - 1;
-          const int wi = cell / ws, wj = cell % ws;
-          const float vh = __fadd_rn(lattice(ch, oh, s1, wi), (float)dH);
-          const float ph = reflect_f(vh, H);
-          if (!inb_f(ph, H)) continue;
-          const float vw = __fadd_rn(lattice(cw, ow, s1, wj), (float)dW);
-          const float pw = reflect_f(vw, W);
-          if (!inb_f(pw, W)) continue;
-          const float gc = g[(long long)cell * plane];
-          gsum += gc;
-          active = true;
-          if (a.is_int) {
-            const long long o = (long long)(int)ph * W + (int)pw;
+          for (int j = 0; j < CH; ++j) {
+            p0[j] = f0 + j < F ? v0[(f0 + j) * HW + oq] : 0.f;
+            acc[j] = 0.f;
+          }
+          float gsum = 0.f;
+          bool active = false;
+          for (unsigned m = mask; m != 0u; m &= m - 1u) {
+            const int cell = base + __ffs(m) - 1;
+            const int wi = cell / ws, wj = cell % ws;
+            const float vh = __fadd_rn(lattice(ch, oh, s1, wi), (float)dH);
+            const float ph = reflect_f(vh, H);
+            if (!inb_f(ph, H)) continue;
+            const float vw = __fadd_rn(lattice(cw, ow, s1, wj), (float)dW);
+            const float pw = reflect_f(vw, W);
+            if (!inb_f(pw, W)) continue;
+            const float gc = g[(long long)cell * plane];
+            gsum += gc;
+            active = true;
+            if (a.is_int) {
+              const long long o = (long long)(int)ph * W + (int)pw;
 #pragma unroll
-            for (int f = 0; f < FC; ++f) {
-              const float p1 = v1[f * HW + o];
-              acc[f] += gc * p1;
-              atomicAdd(gv1 + f * HW + o,
-                        a.l2 ? -2.f * gc * (p0[f] - p1) : gc * p0[f]);
+              for (int j = 0; j < CH; ++j) {
+                if (f0 + j < F) {
+                  const long long fo = (f0 + j) * HW + o;
+                  const float p1 = v1[fo];
+                  acc[j] += gc * p1;
+                  atomicAdd(gv1 + fo, a.l2 ? -2.f * gc * (p0[j] - p1) : gc * p0[j]);
+                }
+              }
+              continue;
             }
-            continue;
-          }
-          const Corners k = corners(ph, pw, H, W);
-          const float w00 = k.wh0 * k.ww0;
-          const float w01 = k.okw1 ? k.wh0 * k.ww1 : 0.f;
-          const float w10 = k.okh1 ? k.wh1 * k.ww0 : 0.f;
-          const float w11 = (k.okh1 && k.okw1) ? k.wh1 * k.ww1 : 0.f;
-          // d w / d ph and d w / d pw of each corner (0 beyond the frame)
-          const float gh00 = -k.ww0, gh01 = k.okw1 ? -k.ww1 : 0.f;
-          const float gh10 = k.okh1 ? k.ww0 : 0.f;
-          const float gh11 = (k.okh1 && k.okw1) ? k.ww1 : 0.f;
-          const float gw00 = -k.wh0, gw01 = k.okw1 ? k.wh0 : 0.f;
-          const float gw10 = k.okh1 ? -k.wh1 : 0.f;
-          const float gw11 = (k.okh1 && k.okw1) ? k.wh1 : 0.f;
-          float dh = 0.f, dw = 0.f;
+            const Corners k = corners(ph, pw, H, W);
+            const float w00 = k.wh0 * k.ww0;
+            const float w01 = k.okw1 ? k.wh0 * k.ww1 : 0.f;
+            const float w10 = k.okh1 ? k.wh1 * k.ww0 : 0.f;
+            const float w11 = (k.okh1 && k.okw1) ? k.wh1 * k.ww1 : 0.f;
+            // d w / d ph and d w / d pw of each corner (0 beyond the frame)
+            const float gh00 = -k.ww0, gh01 = k.okw1 ? -k.ww1 : 0.f;
+            const float gh10 = k.okh1 ? k.ww0 : 0.f;
+            const float gh11 = (k.okh1 && k.okw1) ? k.ww1 : 0.f;
+            const float gw00 = -k.wh0, gw01 = k.okw1 ? k.wh0 : 0.f;
+            const float gw10 = k.okh1 ? -k.wh1 : 0.f;
+            const float gw11 = (k.okh1 && k.okw1) ? k.wh1 : 0.f;
+            float dh = 0.f, dw = 0.f;
 #pragma unroll
-          for (int f = 0; f < FC; ++f) {
-            const float* p = v1 + f * HW;
-            const float c00 = p[k.o00], c01 = p[k.o01];
-            const float c10 = p[k.o10], c11 = p[k.o11];
-            const float pv = w00 * c00 + w01 * c01 + w10 * c10 + w11 * c11;
-            acc[f] += gc * pv;
-            const float gpv = a.l2 ? -2.f * gc * (p0[f] - pv) : gc * p0[f];
-            float* gp = gv1 + f * HW;
-            if (w00 != 0.f) atomicAdd(gp + k.o00, gpv * w00);
-            if (w01 != 0.f) atomicAdd(gp + k.o01, gpv * w01);
-            if (w10 != 0.f) atomicAdd(gp + k.o10, gpv * w10);
-            if (w11 != 0.f) atomicAdd(gp + k.o11, gpv * w11);
-            dh += gpv * (gh00 * c00 + gh01 * c01 + gh10 * c10 + gh11 * c11);
-            dw += gpv * (gw00 * c00 + gw01 * c01 + gw10 * c10 + gw11 * c11);
+            for (int j = 0; j < CH; ++j) {
+              if (f0 + j >= F) continue;
+              const float* p = v1 + (f0 + j) * HW;
+              const float c00 = p[k.o00], c01 = p[k.o01];
+              const float c10 = p[k.o10], c11 = p[k.o11];
+              const float pv = w00 * c00 + w01 * c01 + w10 * c10 + w11 * c11;
+              acc[j] += gc * pv;
+              const float gpv = a.l2 ? -2.f * gc * (p0[j] - pv) : gc * p0[j];
+              float* gp = gv1 + (f0 + j) * HW;
+              if (w00 != 0.f) atomicAdd(gp + k.o00, gpv * w00);
+              if (w01 != 0.f) atomicAdd(gp + k.o01, gpv * w01);
+              if (w10 != 0.f) atomicAdd(gp + k.o10, gpv * w10);
+              if (w11 != 0.f) atomicAdd(gp + k.o11, gpv * w11);
+              dh += gpv * (gh00 * c00 + gh01 * c01 + gh10 * c10 + gh11 * c11);
+              dw += gpv * (gw00 * c00 + gw01 * c01 + gw10 * c10 + gw11 * c11);
+            }
+            gch += reflect_sign(vh, H) * dh;
+            gcw += reflect_sign(vw, W) * dw;
           }
-          gch += reflect_sign(vh, H) * dh;
-          gcw += reflect_sign(vw, W) * dw;
+          if (!active) break;     // no cell of this tap: none in any chunk
+          // l2: sum_c 2 g_c (p0 - pv_c) = 2 (p0 sum_c g_c - sum_c g_c pv_c)
+#pragma unroll
+          for (int j = 0; j < CH; ++j) {
+            if (f0 + j < F)
+              atomicAdd(gv0 + (f0 + j) * HW + oq,
+                        a.l2 ? 2.f * (p0[j] * gsum - acc[j]) : acc[j]);
+          }
         }
-        if (!active) continue;
-        // l2: sum_c 2 g_c (p0 - pv_c) = 2 (p0 sum_c g_c - sum_c g_c pv_c)
-#pragma unroll
-        for (int f = 0; f < FC; ++f)
-          atomicAdd(gv0 + f * HW + oq,
-                    a.l2 ? 2.f * (p0[f] * gsum - acc[f]) : acc[f]);
       }
     }
   }
@@ -202,24 +212,9 @@ __global__ void __launch_bounds__(128) nls_vol_bwd_kernel(VolBwdArgs a) {
   a.g_ctr_w[c] = a.is_int ? 0.f : gcw;
 }
 
-template <int PS, int FC>
-cudaError_t launch(const VolBwdArgs& a, cudaStream_t stream) {
-  const long long n = (long long)a.B * a.HD * a.T * a.W_t * a.nH * a.nW;
-  if (n == 0) return cudaSuccess;
-  const int threads = 128;
-  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-  nls_vol_bwd_kernel<PS, FC><<<blocks, threads, 0, stream>>>(a);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
-// The (ps, F a head) pairs of B1 and B5 (ops/nls_cuda.KERNEL_CONFIGS).
-#define STNLS_VOL_BWD_CASE(P, FC) \
-  if (a.ps == P && a.F == FC) return (int)launch<P, FC>(a, stream);
-
-// Returns cudaGetLastError() after the launch (0 on success), or
-// cudaErrorInvalidValue for a configuration the kernel was not built for.
+// Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int stnls_nls_vol_bwd(
     const float* vid0, const float* vid1, const float* ctr_h,
     const float* ctr_w, const float* g_d, float* g_vid0, float* g_vid1,
@@ -230,8 +225,10 @@ extern "C" int stnls_nls_vol_bwd(
   VolBwdArgs a{vid0, vid1, ctr_h, ctr_w, g_d, g_vid0, g_vid1, g_ctr_h,
                g_ctr_w, B, HD, T, F, H, W, nH, nW, W_t, ws, wt, ps, stride0,
                dilation, stride1, s1_half, l2, full_ws, use_adj, is_int};
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  STNLS_VOL_BWD_CASE(3, 8)
-  STNLS_VOL_BWD_CASE(3, 16)
-  return (int)cudaErrorInvalidValue;
+  const long long n = (long long)B * HD * T * W_t * nH * nW;
+  if (n == 0) return 0;
+  const int threads = 128;
+  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
+  nls_vol_bwd_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream_ptr)>>>(a);
+  return (int)cudaGetLastError();
 }

@@ -27,10 +27,11 @@
 // row wi), looping over the ws cells of the row, so the slice launches
 // 4.1M threads; neighbouring threads on neighbouring qw, so each store
 // of one cell into [..,ws,ws,nH,nW] is coalesced and the corner reads of
-// one tap fall on neighbouring addresses. The query patch lives in
-// registers (PS and F are template parameters, the pairs of B1) and is
-// reused across the row's cells. No shared memory, no atomics;
-// deterministic.
+// one tap fall on neighbouring addresses. ps and F are run-time
+// arguments, the query patch read at each use through the read-only cache;
+// (3, 8) and (3, 16) also have a body with the query patch in registers,
+// reused across the row's cells (nls_common.cuh), faster there (PERF.md).
+// No shared memory, no atomics; deterministic.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -52,6 +53,7 @@ struct VolArgs {
   int l2, full_ws, use_adj, is_int;
 };
 
+// PS, FC > 0: ps and F compiled in; (0, 0): taken from the arguments.
 template <int PS, int FC>
 __global__ void __launch_bounds__(128) nls_vol_fwd_kernel(VolArgs a) {
   const long long n = (long long)a.B * a.HD * a.T * a.W_t * a.ws * a.nH * a.nW;
@@ -68,21 +70,20 @@ __global__ void __launch_bounds__(128) nls_vol_fwd_kernel(VolArgs a) {
   const int t = (int)(bhdt % a.T);
 
   const int H = a.H, W = a.W, ws = a.ws;
-  const long long HW = (long long)H * W;
+  const long long FHW = (long long)(FC > 0 ? FC : a.F) * H * W;
   const long long plane = (long long)a.nH * a.nW;
   const int ref_h = (qh * a.stride0) % H;
   const int ref_w = (qw * a.stride0) % W;
 
-  float qv[PS * PS * FC];
-  bool qok[PS * PS];
-  load_query_patch<PS, FC>(a, a.vid0 + bhdt * FC * HW, ref_h, ref_w, qv, qok);
+  typename QueryOf<PS, FC>::type qp;
+  qp.load(a, a.vid0 + bhdt * FHW, ref_h, ref_w);
 
   const long long c = (bhdt * a.W_t + st) * plane + (long long)qh * a.nW + qw;
   const float ch = a.ctr_h[c], cw = a.ctr_w[c];
   float oh, ow;
   window_offsets(a, ch, cw, &oh, &ow);
   const int tj = window_frame(t, st, a.wt, a.T);
-  const float* v1 = a.vid1 + (bhdt - t + tj) * FC * HW;
+  const float* v1 = a.vid1 + (bhdt - t + tj) * FHW;
 
   const float init = a.l2 ? CUDART_INF_F : -CUDART_INF_F;
   const float ph0 = lattice(ch, oh, a.stride1, wi);
@@ -92,7 +93,7 @@ __global__ void __launch_bounds__(128) nls_vol_fwd_kernel(VolArgs a) {
   for (int wj = 0; wj < ws; ++wj) {
     const float pw0 = lattice(cw, ow, a.stride1, wj);
     float d = init;
-    if (vh && inb_f(pw0, W)) d = patch_dist<PS, FC>(a, v1, qv, qok, ph0, pw0);
+    if (vh && inb_f(pw0, W)) d = patch_dist(a, v1, qp, ph0, pw0);
     out[wj * plane] = d;
   }
 }
@@ -109,23 +110,33 @@ cudaError_t launch(const VolArgs& a, cudaStream_t stream) {
 
 }  // namespace
 
-// The (ps, F a head) pairs of B1 (ops/nls_cuda.KERNEL_CONFIGS).
-#define STNLS_VOL_CASE(P, FC) \
-  if (a.ps == P && a.F == FC) return (int)launch<P, FC>(a, stream);
+// The (ps, F a head) pairs with ps and F compiled in, the one list of
+// them. Every other pair, and every pair when `compiled` is 0, runs the
+// run-time body <0, 0>.
+#define STNLS_VOL_COMPILED(X) X(3, 8) X(3, 16)
 
-// Returns cudaGetLastError() after the launch (0 on success), or
-// cudaErrorInvalidValue for a configuration the kernel was not built for.
+// Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int stnls_nls_vol_fwd(
     const float* vid0, const float* vid1, const float* ctr_h,
     const float* ctr_w, float* dists, int B, int HD, int T, int F, int H,
     int W, int nH, int nW, int W_t, int ws, int wt, int ps, int stride0,
     int dilation, float stride1, float s1_half, int l2, int full_ws,
-    int use_adj, int is_int, void* stream_ptr) {
+    int use_adj, int is_int, int compiled, void* stream_ptr) {
   VolArgs a{vid0, vid1, ctr_h, ctr_w, dists, B, HD, T, F, H, W, nH, nW, W_t,
             ws, wt, ps, stride0, dilation, stride1, s1_half, l2, full_ws,
             use_adj, is_int};
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  STNLS_VOL_CASE(3, 8)
-  STNLS_VOL_CASE(3, 16)
-  return (int)cudaErrorInvalidValue;
+#define STNLS_LAUNCH(P, FC) \
+  if (compiled && ps == P && F == FC) return (int)launch<P, FC>(a, stream);
+  STNLS_VOL_COMPILED(STNLS_LAUNCH)
+#undef STNLS_LAUNCH
+  return (int)launch<0, 0>(a, stream);
+}
+
+// 1 when (ps, F) has a body with ps and F compiled in, else 0.
+extern "C" int stnls_nls_vol_compiled(int ps, int F) {
+#define STNLS_HAS(P, FC) if (ps == P && F == FC) return 1;
+  STNLS_VOL_COMPILED(STNLS_HAS)
+#undef STNLS_HAS
+  return 0;
 }

@@ -90,6 +90,8 @@ class NonLocalAttention(torch.nn.Module):
         inner_mult = optional(attn_cfg, "inner_mult", 1)
         embed_dim = attn_cfg.embed_dim * inner_mult
         io_dim = attn_cfg.embed_dim * nheads
+        self.dim = io_dim
+        self.search_cfg = search_cfg
 
         self.search = search_mod.init(search_cfg)
         self.normz = normz_mod.init(normz_cfg)
@@ -117,9 +119,10 @@ class NonLocalAttention(torch.nn.Module):
         q_vid, k_vid, v_vid = self.get_qkv(vid)
         dists, inds = self.run_search(q_vid, k_vid, flows, state)
         state = self._next_state(state, inds, q_vid.shape)
-        weights, inds = self.normz(dists, inds, deterministic=deterministic)
+        # as the JAX module: the attention weights are never dropped
+        weights, inds = self.normz(dists, inds)
         vid = self.run_aggregation(v_vid, weights, inds)
-        vid = self.run_projection(vid)
+        vid = self.run_projection(vid, deterministic)
         return vid, state
 
     def get_qkv(self, vid):
@@ -142,7 +145,9 @@ class NonLocalAttention(torch.nn.Module):
     def run_aggregation(self, v_vid, weights, inds):
         return self.agg(v_vid, weights, inds)
 
-    def run_projection(self, vid):
+    def run_projection(self, vid, deterministic=True):
+        """The output projection; `deterministic` is accepted as in the
+        JAX module, which drops nothing there either."""
         if self.proj is None:
             return vid
         if vid.ndim == 7:  # [B,HD,K,T,F,H,W] stack from gather
@@ -154,6 +159,23 @@ class NonLocalAttention(torch.nn.Module):
             vid = vid.permute(0, 2, 1, 3, 4, 5).reshape(B, T, HD * F, H, W)
         B, T, C, H, W = vid.shape
         return self.proj(vid.reshape(B * T, C, H, W)).reshape(B, T, C, H, W)
+
+    def flops(self, H, W):
+        """qkv + search + normz + agg + projection, as the JAX module
+        counts them (its parts' own flops, where they have them)."""
+        nrefs = ((H - 1) // self.stride0 + 1) * ((W - 1) // self.stride0 + 1)
+        total = 3 * H * W * self.dim * self.dim       # the q, k, v 1x1 convs
+        if hasattr(self.search, "flops"):
+            total += self.search.flops(1, self.dim, H, W)
+        if hasattr(self.normz, "flops"):
+            total += self.normz.flops()
+        k = optional(self.search_cfg, "k", 10)
+        nheads = optional(self.search_cfg, "nheads", 1)
+        if hasattr(self.agg, "flops"):
+            total += self.agg.flops(nrefs, self.dim // max(nheads, 1),
+                                    nheads, max(k, 1))
+        total += nrefs * self.dim * self.dim
+        return total
 
 
 def _inds_rs0(inds, nH, nW):

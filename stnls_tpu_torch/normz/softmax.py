@@ -28,6 +28,9 @@ class SoftmaxNormalize(torch.nn.Module):
                                 torch.zeros_like(dists))
         return dists, inds
 
+    def flops(self, *args):
+        return 0
+
 
 def init(cfg):
     return SoftmaxNormalize(cfg.normz_scale, cfg.normz_drop_rate,

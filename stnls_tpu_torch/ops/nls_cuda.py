@@ -31,10 +31,20 @@ from stnls_tpu_torch.ops.geometry import num_queries
 from stnls_tpu_torch.ops.nls import nls_search_volume
 from stnls_tpu_torch.ops.nls_k import search_aux, dists_at_positions
 
-# (ps, F a head) pairs the kernel is instantiated for (csrc/nls_topk_fwd.cu):
-# those the repo's entry points launch
-KERNEL_CONFIGS = ((3, 8), (3, 16))
+# B1 takes its body with ps and F compiled in (the query patch in
+# registers, csrc/nls_common.cuh) for the pairs csrc/nls_topk_fwd.cu lists,
+# where the card ran it faster (PERF.md); False forces the run-time body.
+COMPILED_BODY = True
+# The ranked slots B1 keeps per query (csrc/nls_topk_fwd.cu); the search
+# sends a config with more to the volume route
 KMAX = 64
+
+
+def ranked_slots(k, anchor, n_cells):
+    """The slots B1 ranks for a top-k over n_cells window cells: K =
+    min(k, n_cells), less the anchored self slot."""
+    K = min(k, n_cells)
+    return K - 1 if anchor else K
 
 
 def nls_topk_plain(vid0, vid1, flows, *, ws, wt, ps, stride0, stride1, k,
@@ -74,10 +84,8 @@ def _check(vid0, vid1, flows, *, ws, wt, ps, stride0, stride1, k, anchor,
             or tuple(flows.shape[5:]) != (nH, nW)):
         raise ValueError(f"nls_topk: flows must be [B,HDf,T,W_t(-1),2,nH,nW],"
                          f" got {tuple(flows.shape)}")
-    if (ps, F) not in KERNEL_CONFIGS:
-        raise NotImplementedError(
-            f"nls_topk: kernel built for (ps, F a head) in {KERNEL_CONFIGS}, "
-            f"got ps={ps}, F={F}; not yet ported, see ROADMAP")
+    if ps < 1 or F < 1:
+        raise ValueError(f"nls_topk: need ps >= 1 and F >= 1, got {ps}, {F}")
     if dist_type not in ("l2", "prod") or itype not in ("float", "int"):
         raise ValueError(f"nls_topk: dist_type={dist_type!r}, itype={itype!r}")
     if ws < 1 or wt < 0 or stride0 < 1 or not stride1 > 0:
@@ -85,8 +93,10 @@ def _check(vid0, vid1, flows, *, ws, wt, ps, stride0, stride1, k, anchor,
                          "stride1 > 0")
     if int(dilation) != dilation or dilation < 1:
         raise NotImplementedError("nls_topk: integer dilation >= 1 only")
-    if k < 1 or (k - 1 if anchor else k) > KMAX:
-        raise NotImplementedError(f"nls_topk: 1 <= ranked slots <= {KMAX}")
+    if k < 1 or ranked_slots(k, anchor, W_t * ws * ws) > KMAX:
+        raise NotImplementedError(
+            f"nls_topk: k >= 1 and at most {KMAX} ranked slots (the search "
+            "takes the volume route for more)")
 
 
 def nls_topk(vid0, vid1, flows, *, ws, wt, ps, stride0, stride1, k, anchor,
@@ -126,7 +136,7 @@ def nls_topk(vid0, vid1, flows, *, ws, wt, ps, stride0, stride1, k, anchor,
             ws, wt, ps, stride0, int(dilation), stride1,
             stride1 * ((ws - 1) // 2), K, int(bool(anchor)),
             int(dist_type == "l2"), int(bool(full_ws)), int(bool(use_adj)),
-            int(itype == "int"), stream)
+            int(itype == "int"), int(COMPILED_BODY), stream)
     cuda_lib.check_launch(err, "nls_topk")
     nls_topk.launches += 1
     return dists, cells

@@ -25,7 +25,12 @@ import torch
 from stnls_tpu_torch.ops import cuda_lib
 from stnls_tpu_torch.ops.geometry import num_queries
 from stnls_tpu_torch.ops.nls import volume_at_centres
-from stnls_tpu_torch.ops.nls_cuda import KERNEL_CONFIGS
+
+
+# B5 takes its body with ps and F compiled in for the pairs
+# csrc/nls_vol_fwd.cu lists (B1's counterpart: ops/nls_cuda.COMPILED_BODY);
+# False forces the run-time body. B6 has only its run-time body.
+COMPILED_BODY = True
 
 
 def _stride1(stride1, itype):
@@ -51,10 +56,8 @@ def _check(name, vid0, vid1, ctr_h, ctr_w, cfg, extra=()):
             ctr_w.shape != ctr_h.shape:
         raise ValueError(f"{name}: vid0/vid1 [B,HD,T,F,H,W] and centres "
                          "[B,HD,T,W_t,nH,nW] expected")
-    if (cfg["ps"], F) not in KERNEL_CONFIGS:
-        raise NotImplementedError(
-            f"{name}: kernel built for (ps, F a head) in {KERNEL_CONFIGS}, "
-            f"got ps={cfg['ps']}, F={F}; not yet ported, see ROADMAP")
+    if cfg["ps"] < 1 or F < 1:
+        raise ValueError(f"{name}: need ps >= 1 and F >= 1")
     if cfg["dist_type"] not in ("l2", "prod") or \
             cfg["itype"] not in ("float", "int"):
         raise ValueError(f"{name}: dist_type={cfg['dist_type']!r}, "
@@ -101,7 +104,8 @@ def nls_volume(vid0, vid1, ctr_h, ctr_w, *, ws, wt, ps, stride0, stride1,
         err = lib.stnls_nls_vol_fwd(
             vid0.data_ptr(), vid1.data_ptr(), ctr_h.data_ptr(),
             ctr_w.data_ptr(), dists.data_ptr(),
-            *_scalars(cfg, F, H, W, nH, nW, W_t, B, HD, T), stream)
+            *_scalars(cfg, F, H, W, nH, nW, W_t, B, HD, T),
+            int(COMPILED_BODY), stream)
     cuda_lib.check_launch(err, "nls_volume")
     nls_volume.launches += 1
     return dists

@@ -2,7 +2,7 @@
 
 from stnls_tpu_torch.search import utils
 from stnls_tpu_torch.search.non_local_search import (
-    NonLocalSearch, nls_pipeline,
+    NonLocalSearch, _apply as nls, nls_pipeline,
 )
 from stnls_tpu_torch.search import non_local_search
 from stnls_tpu_torch.search.api import init, extract_config, MENU

@@ -1,9 +1,11 @@
 """NonLocalSearch: the centrepiece search op (PyTorch port of
 stnls_tpu/search/non_local_search.py).
 
-Two routes, as in the JAX package:
+Two routes, as in the JAX package, chosen by `search_route` from the
+config and the video shape alone:
   * lazy top-K (self_action in {None, "anchor", "anchor_self"},
-    topk_mode="all", k > 0, grad "auto"/"sparse_k"): the fused top-K
+    topk_mode="all", k > 0, grad "auto"/"sparse_k", at most KMAX = 64
+    ranked slots): the fused top-K
     kernel (ops/nls_cuda.nls_topk, B1) selects the K winning window cells
     and their distances under no_grad, as the JAX package's TPU route does
     with `nls_pallas_topk`. The cells' key positions and offsets come from
@@ -11,7 +13,8 @@ Two routes, as in the JAX package:
     flows), and ops/nls_cuda.search_dists returns B1's distances with the
     K-sparse backward kernel (B2) as their gradient;
   * the full volume (every other self_action and topk_mode, k <= 0,
-    grad="dense", and frames too small for the lazy route's reflect pad):
+    grad="dense", more ranked slots than B1 keeps, and frames too small
+    for the lazy route's reflect pad):
     the volume kernel (ops/nls_vol_cuda.search_volume, B5, with B6 as its
     backward) at the flows' reflected centres (ops/nls.search_centres),
     the offsets of every cell (ops/nls_k.aux_to_inds3), then the
@@ -34,7 +37,8 @@ from stnls_tpu_torch.utils.config import extract_pairs
 from stnls_tpu_torch.ops import anchor as anchor_ops
 from stnls_tpu_torch.ops import topk as topk_ops
 from stnls_tpu_torch.ops.nls import dist_type_select
-from stnls_tpu_torch.ops.nls_cuda import nls_topk, search_dists
+from stnls_tpu_torch.ops.nls_cuda import nls_topk, search_dists, KMAX, \
+    ranked_slots
 from stnls_tpu_torch.ops.nls_k import cells_geometry, search_aux, aux_to_inds3
 from stnls_tpu_torch.ops.nls_vol_cuda import search_volume
 from stnls_tpu_torch.search.utils import shape_vids, shape_flows, empty_flows
@@ -185,6 +189,22 @@ def _sparse_k_pad_ok(cfg, vid_shape):
     return int(cfg["dilation"]) * (cfg["ps"] - 1) + 2 <= min(H, W) - 1
 
 
+def search_route(cfg, vid_shape):
+    """The route nls_pipeline takes for `cfg` on videos of vid_shape
+    [B,HD,T,F,H,W], on every device: "topk" (B1 selects, B2 backward) or
+    "volume" (B5/B6 and the menu). A lazy top-K with more ranked slots
+    than B1 keeps takes the volume: both give the exact top-K of the same
+    volume."""
+    T = vid_shape[2]
+    n_cells = min(2 * cfg["wt"] + 1, T) * cfg["ws"] ** 2
+    lazy = (_lazy_topk_ok(cfg)
+            and cfg.get("grad", "auto") in ("auto", "sparse_k")
+            and _sparse_k_pad_ok(cfg, vid_shape)
+            and ranked_slots(cfg["k"], cfg["self_action"] is not None,
+                             n_cells) <= KMAX)
+    return "topk" if lazy else "volume"
+
+
 def _select_cells(vid0, vid1, flows, cfg):
     """Selected dists and flat window-cell ids [B,HD,T,nH,nW,K] (f32,
     int32), from the search kernel. Callers pass detached inputs under
@@ -238,17 +258,15 @@ def _volume_search(vid0, vid1, flows, cfg):
 
 def nls_pipeline(vid0, vid1, flows, cfg):
     """Forward: the lazy top-K route (select the K cells and their dists,
-    then attach the geometry and the backward) where it applies, else the
-    full volume. vid0/vid1 [B,HD,T,F,H,W]; flows
+    then attach the geometry and the backward) where `search_route` takes
+    it, else the full volume. vid0/vid1 [B,HD,T,F,H,W]; flows
     [B,HDf,T,W_t(-1),2,nH,nW] -> (dists [B,HD,T,nH,nW,K],
     inds [B,HD,T,nH,nW,K,3])."""
     why = _not_ported(cfg)
     if why is not None:
         raise NotImplementedError(
             f"NonLocalSearch with {why} is not yet ported, see ROADMAP")
-    if not (_lazy_topk_ok(cfg)
-            and cfg.get("grad", "auto") in ("auto", "sparse_k")
-            and _sparse_k_pad_ok(cfg, vid0.shape)):
+    if search_route(cfg, vid0.shape) == "volume":
         return _volume_search(vid0, vid1, flows, cfg)
     with torch.no_grad():
         d_sel, cells = _select_cells(vid0.detach(), vid1.detach(),
@@ -365,6 +383,42 @@ class NonLocalSearch(torch.nn.Module):
         vid0, vid1 = shape_vids(self.nheads, [vid0, vid1])
         flows = shape_flows(self.nheads, flows)
         return self._fn(vid0, vid1, flows)
+
+    def flops(self, T, F, H, W):
+        """Useful-work flop model of the JAX package's NonLocalSearch: the
+        patch distances (a bilinear read and l2 per tap and channel: 7
+        flops float, 2 int) of every window cell, plus ~S log2(K) compares
+        a query for the top-K."""
+        nrefs = T * ((H - 1) // self.stride0 + 1) \
+            * ((W - 1) // self.stride0 + 1)
+        nsearch = self.ws * self.ws * (2 * self.wt + 1)
+        per_tap = 7 if self.itype == "float" else 2
+        flops_per = per_tap * F * self.ps * self.ps * self.pt
+        total = nrefs * nsearch * flops_per * self.nheads
+        if self.k > 0:
+            total += int(nrefs * self.nheads * nsearch
+                         * np.log2(max(min(self.k, nsearch), 2)))
+        return total
+
+    def radius(self, *args):
+        return self.ws
+
+
+def _apply(vid0, vid1, flows, ws, wt, ps=1, k=-1, nheads=1, stride0=1,
+           stride1=1, dist_type="l2", dilation=1, pt=1, self_action=None,
+           topk_mode="all", ws_interior=0, reflect_bounds=True, full_ws=True,
+           use_adj=False, normalize_bwd=False, k_agg=-1, off_Hq=0, off_Wq=0,
+           strideQ=None, itype="float"):
+    """Functional API: stnls_tpu_torch.search.nls(...)."""
+    search = NonLocalSearch(
+        ws, wt, ps, k, nheads=nheads, stride0=stride0, stride1=stride1,
+        dist_type=dist_type, dilation=dilation, pt=pt,
+        self_action=self_action, topk_mode=topk_mode,
+        ws_interior=ws_interior, reflect_bounds=reflect_bounds,
+        full_ws=full_ws, use_adj=use_adj, normalize_bwd=normalize_bwd,
+        k_agg=k_agg, off_Hq=off_Hq, off_Wq=off_Wq, strideQ=strideQ,
+        itype=itype)
+    return search(vid0, vid1, flows)
 
 
 def extract_config(cfg, restrict=True):

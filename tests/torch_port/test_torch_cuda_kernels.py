@@ -192,8 +192,11 @@ def test_one_backward_launches_each_backward_kernel_once(dev):
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     v0, v1, flows = _inputs(dev)
+    # more ranked slots than B1 keeps (75 cells, k = 70 anchored: 69)
     with pytest.raises(NotImplementedError):
-        nls_cuda.nls_topk(v0, v1, flows, **dict(KW, ps=2))
+        nls_cuda.nls_topk(v0, v1, flows, **dict(KW, k=70))
+    with pytest.raises(ValueError):
+        nls_cuda.nls_topk(v0, v1, flows, **dict(KW, ps=0))
     with pytest.raises(TypeError):
         nls_cuda.nls_topk(v0.double(), v1, flows, **KW)
     with pytest.raises(ValueError):
@@ -307,6 +310,131 @@ def test_volume_search_launches_its_kernels(dev):
             nls_cuda.nls_topk.launches) == (counts[0] + 1, counts[1] + 1,
                                             counts[2], counts[3])
     assert float(flows.grad.abs().max()) > 0
+
+
+# B1, B5 and B6 at (ps, F a head) beside the slice's: the run-time body,
+# with a variant of the search for each
+ANY_PS_CASES = [
+    (1, 2, {}), (1, 4, dict(itype="int", dilation=2)),
+    (1, 16, dict(dist_type="prod", stride0=2)), (1, 32, dict(use_adj=True)),
+    (7, 2, dict(dilation=2)), (7, 4, dict(itype="int", use_adj=True)),
+    (7, 16, dict(stride0=2, stride1=0.5)), (7, 32, dict(dist_type="prod"))]
+
+
+def _any_ps_inputs(dev, F, stride0, seed=5):
+    from stnls_tpu_torch.nn.flow import search_flow
+    rng = np.random.default_rng(seed)
+
+    def t(x):
+        return torch.from_numpy(x.astype(np.float32)).to(dev)
+
+    ff, bf = (t(1.5 * rng.standard_normal((B, T, 2, H, W))) for _ in "fb")
+    return (t(rng.standard_normal((B, 1, T, F, H, W))),
+            t(rng.standard_normal((B, 1, T, F, H, W))),
+            search_flow(ff, bf, 1, stride0)[:, None].contiguous())
+
+
+@pytest.mark.parametrize("ps,F,extra", ANY_PS_CASES)
+def test_search_kernels_take_any_patch_size_and_width(dev, ps, F, extra):
+    """B1's and B5's dists equal the plain volume's bitwise (the same sums
+    in the same order); B6 agrees with the VJP of the plain volume."""
+    from stnls_tpu_torch.ops.nls import search_centres
+    c = dict(dict(ws=5, wt=1, ps=ps, stride0=1, stride1=1, dist_type="l2",
+                  dilation=1, use_adj=False, itype="float"), **extra)
+    v0, v1, flows = _any_ps_inputs(dev, F, c["stride0"])
+    n0 = nls_cuda.nls_topk.launches
+    d, cells = nls_cuda.nls_topk(v0, v1, flows, k=10, anchor=True, **c)
+    torch.cuda.synchronize()
+    assert nls_cuda.nls_topk.launches == n0 + 1
+    d_p, cells_p = nls_cuda.nls_topk_plain(v0, v1, flows, k=10, anchor=True,
+                                           **c)
+    assert torch.equal(d, d_p) and torch.equal(cells, cells_p)
+    ctr_h, ctr_w = (x.contiguous() for x in search_centres(
+        v0.shape, flows, wt=1, stride0=c["stride0"], itype=c["itype"]))
+    vol = nls_vol_cuda.nls_volume(v0, v1, ctr_h, ctr_w, **c)
+    assert torch.equal(vol, nls_vol_cuda.nls_volume_plain(v0, v1, ctr_h,
+                                                          ctr_w, **c))
+    g_d = torch.randn(vol.shape, device=dev,
+                      generator=torch.Generator(dev).manual_seed(2))
+    g_d[~vol.isfinite()] = 0.
+    cfg = dict(c, full_ws=True)
+    g_k = nls_vol_cuda.nls_volume_bwd(v0, v1, ctr_h, ctr_w, g_d, cfg)
+    torch.cuda.synchronize()
+    g_p = nls_vol_cuda.nls_volume_bwd_plain(v0, v1, ctr_h, ctr_w, g_d, cfg)
+    assert_grad_close(g_k[0], g_p[0], "g_vid0")
+    assert_grad_close(g_k[1], g_p[1], "g_vid1")
+
+
+@pytest.mark.parametrize("ps,F", [(1, 2), (1, 4), (1, 16), (5, 8), (7, 32)])
+def test_search_module_runs_at_any_patch_size_and_width(dev, ps, F):
+    """NonLocalSearch through B1 on the card equals its run on CPU copies
+    (the plain versions), forward and video gradients."""
+    from stnls_tpu_torch.search import NonLocalSearch
+    search = NonLocalSearch(5, 1, ps, 6, self_action="anchor")
+    outs = []
+    for device in (dev, torch.device("cpu")):
+        v0, v1, flows = (x.to(device) for x in _any_ps_inputs(dev, F, 1))
+        v0.requires_grad_()
+        n0 = nls_cuda.nls_topk.launches
+        d, inds = search(v0, v1, flows)
+        g, = torch.autograd.grad((d * d).mean(), v0)
+        assert nls_cuda.nls_topk.launches == n0 + (device == dev)
+        outs.append((d, inds, g))
+    (d, inds, g), (d_p, inds_p, g_p) = outs
+    assert d.shape == (B, 1, T, H, W, 6)
+    assert_close(d, d_p, "dists")
+    assert_close(inds, inds_p, "inds")
+    assert_grad_close(g, g_p, "g_vid0")
+
+
+@pytest.mark.parametrize("k,anchor", [(65, True), (64, False)])
+def test_search_kernel_keeps_64_ranked_slots(dev, k, anchor):
+    v0, v1, flows = _inputs(dev)
+    kw = dict(KW, k=k, anchor=anchor)
+    d, cells = nls_cuda.nls_topk(v0, v1, flows, **kw)
+    d_p, cells_p = nls_cuda.nls_topk_plain(v0, v1, flows, **kw)
+    assert d.shape[-1] == k
+    assert torch.equal(d, d_p) and torch.equal(cells, cells_p)
+
+
+def test_more_ranked_slots_take_the_volume_route(dev):
+    from stnls_tpu_torch.search import NonLocalSearch
+    v0, v1, flows = _inputs(dev)
+    search = NonLocalSearch(5, 1, 3, 70, nheads=HD, stride1=0.5,
+                            self_action="anchor")
+    counts = (nls_cuda.nls_topk.launches, nls_vol_cuda.nls_volume.launches)
+    d, _ = search(v0, v1, flows)
+    torch.cuda.synchronize()
+    assert (nls_cuda.nls_topk.launches,
+            nls_vol_cuda.nls_volume.launches) == (counts[0], counts[1] + 1)
+    d_p, _ = nls_cuda.nls_topk_plain(v0, v1, flows, **dict(KW, k=70))
+    assert_close(d, d_p, "dists")
+
+
+def test_int_search_feeds_the_aggregators(dev):
+    """An int search's offsets are int32: each aggregator takes them (the
+    kernels read float offsets) and launches its kernel."""
+    from stnls_tpu_torch.agg import NonLocalGather, NonLocalGatherAdd, \
+        NonLocalScatterAdd, PooledPatchSum
+    from stnls_tpu_torch.search import NonLocalSearch
+    v0, v1, flows = _inputs(dev)
+    d, inds = NonLocalSearch(5, 1, 1, 4, nheads=HD, self_action="anchor",
+                             itype="int")(v0, v1, flows)
+    assert inds.dtype == torch.int32
+    w = torch.softmax(-d, -1)
+    for agg, kernel in ((NonLocalGather(ps=1, stride0=1, itype="int"),
+                         agg_cuda.nl_gather_stack),
+                        (NonLocalGatherAdd(ps=1, strideIn=1, strideOut=1,
+                                           itype="int"),
+                         agg_cuda.nl_gather_stack),
+                        (NonLocalScatterAdd(ps=1, strideIn=1, strideOut=1),
+                         agg_sp_cuda.nl_scatter_add),
+                        (PooledPatchSum(ps=1, stride0=1),
+                         agg_sp_cuda.nl_pool)):
+        n0 = kernel.launches
+        out = agg(v1, w, inds)
+        torch.cuda.synchronize()
+        assert kernel.launches == n0 + 1 and bool(out.isfinite().all())
 
 
 def _sp_inputs(dev, stride, seed=4, K=6):

@@ -189,6 +189,31 @@ def test_volume_backward_plain_matches_pallas_vol_bwd(rng):
         assert_grad_close(a, b, name, tol=PALLAS_TOL)
 
 
+@pytest.mark.slow
+def test_ps1_plain_matches_pallas_topk_and_volume(rng):
+    """At (ps, F a head) = (1, 2), the 1080p alignment search's: B1's plain
+    version against nls_pallas_topk and B5's against nls_pallas_volume."""
+    v0 = rng.standard_normal((B, HD, T, 2, H, W)).astype(np.float32)
+    v1 = rng.standard_normal((B, HD, T, 2, H, W)).astype(np.float32)
+    flows = (1.4 * np.tanh(rng.standard_normal((B, HD, T, 2 * WT, 2, H, W)))
+             ).astype(np.float32)
+    kw = dict(ws=WS, wt=WT, ps=1, stride0=1, stride1=1, itype="float")
+    pallas = dict(flow_budget=4, spread_budget=8, interpret=True)
+    args = (jnp.asarray(v0), jnp.asarray(v1), jnp.asarray(flows))
+    d_p, _, c_p, outl = nls_pallas_topk(*args, k=K, anchor=True, **pallas,
+                                        **kw)
+    assert int(jnp.sum(outl)) == 0
+    targs = (to_torch(v0), to_torch(v1), to_torch(flows))
+    d, cells = nls_topk_plain(*targs, k=K, anchor=True, **kw)
+    assert_cells_match(cells, c_p, d_p)
+    assert_close(d, d_p, "topk dists", atol=PALLAS_TOL, rtol=PALLAS_TOL)
+    dv_p, _, outl = nls_pallas_volume(*args, **pallas, **kw)
+    assert int(jnp.sum(outl)) == 0
+    ctr_h, ctr_w = search_centres(v0.shape, targs[2], wt=WT, stride0=1)
+    dv = search_volume(*targs[:2], ctr_h, ctr_w, **kw)
+    assert_close(dv, dv_p, "volume", atol=PALLAS_TOL, rtol=PALLAS_TOL)
+
+
 def _sp_pallas_inputs(rng, stride0):
     """Integer offsets within the Pallas kernels' budgets (|dh|, |dw| <= 2,
     |dt| <= 1), as the JAX package's own tests of these kernels take."""
