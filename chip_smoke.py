@@ -66,9 +66,29 @@ Phases, in order; any failure raises and exits non-zero:
  13. times: the four matrix steps; B1, B5 and B6 at (ps, F a head) =
      (1, 2) and (1, 16) against their plain versions, with their bounds;
      the bodies of B1 and B5 with (ps, F) compiled in ((3, 8); B5 also
-     (3, 16)) against the run-time body.
-The line before the last is a JSON object of the kernels; the last line
-is {"ok": true, "device": {...}}. The script imports nothing of JAX.
+     (3, 16)) against the run-time body;
+ 14. time sharding (stnls_tpu_torch/parallel), the temporal-chunk mode
+     of B1, B2, B5 and B6: (a) each against its plain chunk version, B1
+     and B5 bitwise (B1's cells too, compiled and run-time bodies), B2
+     and B6 at 1e-4 * max|ref| on seeded cotangents, at the slice's (3, 8)
+     on 128^2 (8 frames in chunks of 4 with halos of 4, t0 = 0 and 4,
+     float and int) and at (1, 2) on the 270x480 crop of config 7's
+     inputs (chunks of 5, halos of 6); (b) the chunks joined over the
+     sequence equal the whole video's B1 and B5 bitwise at the slice
+     shape, and B1's on config 7's whole 1080p frames, head by head;
+     their times against the plain versions with their bounds; (c)
+     time_sharded_search on a one-rank NCCL mesh at config 7's published
+     size, forward and backward into the video, against the config-7
+     step of phase 12 (dists and offsets equal, launch counts, times in
+     turns, peak memory), and on the volume route at the slice's widths
+     (K = 80) against plain_route(); (d) the twin of
+     __graft_entry__.dryrun_multichip (stnls_tpu_torch/multichip_step.py)
+     at the bench slice's widths (B=2, T=4) on that mesh, 3 SGD steps
+     through the kernels (B1-B4) and through plain_route(). A multi-card
+     ring exchange is not run: one card holds one rank.
+The line before the last is a JSON object of the kernels (B1, B2, B5 and
+B6 with a "chunk" entry of their chunk mode); the last line is
+{"ok": true, "device": {...}}. The script imports nothing of JAX.
 """
 
 import contextlib
@@ -1454,6 +1474,466 @@ def ps1_kernel_times(torch, dev, smi_line, matrix):
     return out
 
 
+# 14. time sharding: the temporal-chunk mode of B1, B2, B5 and B6 (B12)
+# the slice's search on a sequence of 8 frames cut in chunks of 4 with
+# halos of 4 (2 * wt), and config 7's 10 frames in chunks of 5 with 6
+CHUNK_SLICE = dict(T=8, T_local=4, halo=4)
+CHUNK_CONFIG7 = dict(T_local=5, halo=6)
+
+
+def halo_chunk(x, t0, T_local, halo):
+    """Frames t0 - halo .. t0 + T_local + halo - 1 of a whole sequence x
+    [B,HD,T,...], zeros beyond its ends: the padded chunk a rank's search
+    runs on, as the ring exchange of a single time shard builds it."""
+    T = x.shape[2]
+    lo, hi = max(0, t0 - halo), min(T, t0 + T_local + halo)
+    out = x.new_zeros(x.shape[:2] + (T_local + 2 * halo,) + x.shape[3:])
+    out[:, :, lo - t0 + halo:hi - t0 + halo] = x[:, :, lo:hi]
+    return out.contiguous()
+
+
+def sharded_config7_step(torch, mesh):
+    """Config 7's step (matrix_steps' "align1080p_fwd+bwd": the search,
+    mean(d^2) and its gradient to the video) with the search through
+    parallel.time_sharded_search on a mesh of one rank, whose one time
+    shard is the whole sequence: step(*matrix_steps.make_inputs(name))
+    -> the dict of matrix_steps.make_step's step."""
+    from stnls_tpu_torch import matrix_steps as ms
+    from stnls_tpu_torch.parallel import time_sharded_search
+    require(mesh.size() == 1, "sharded_config7_step runs on one rank")
+    cfg = ms.config("align1080p_fwd+bwd")
+
+    def step(vid, fflow, bflow):
+        v = vid.detach().requires_grad_()
+        v6, fl = matrix_search_args(torch, cfg, (v, fflow, bflow))
+        dists, inds = time_sharded_search(
+            v6, v6, fl, mesh, ws=cfg["ws"], wt=cfg["wt"], ps=cfg["ps"],
+            k=cfg["K"], self_action="anchor", itype=cfg["itype"])
+        loss = dists.pow(2).mean()
+        g_vid, = torch.autograd.grad(loss, v)
+        return dict(dists=dists.detach(), inds=inds.detach(),
+                    loss=loss.detach(), g_vid=g_vid)
+
+    return step
+
+
+def chunk_kernel_case(torch, dev, v0, v1, flows, c, t0, T_local, halo,
+                      label, backward=True):
+    """B1 and B5 on the chunk of T_local frames from t0 of the whole
+    sequence v0, v1, flows (its halos cut from the sequence, zeros beyond
+    its ends) against their plain chunk versions, bitwise; with
+    `backward`, B6 on the per-frame top-2 cotangent and B2 at B1's cells
+    on a seeded one, at TOL * max|ref| (centre and position gradients off
+    the integer lattice, 0 on the int path). c: PS_DEFAULTS' keys, ps, k.
+    Returns the errors and the kernels' arguments."""
+    from stnls_tpu_torch.ops import nls_cuda, nls_vol_cuda
+    from stnls_tpu_torch.ops.nls import search_centres
+    from stnls_tpu_torch.ops.nls_k import search_aux, aux_to_inds3, \
+        cells_geometry
+    rng = np.random.default_rng(SEED + 14 + t0)
+    T = v0.shape[2]
+    chunk = dict(query_t0=t0, T_global=T)
+    v0p, v1p = (halo_chunk(x, t0, T_local, halo) for x in (v0, v1))
+    fl = flows[:, :, t0:t0 + T_local].contiguous()
+    kw = {key: c[key] for key in ("ws", "wt", "ps", "stride0", "stride1",
+                                  "dist_type", "dilation", "use_adj",
+                                  "itype")}
+    b1 = dict(kw, k=c["k"], anchor=True, **chunk)
+    with torch.no_grad():
+        d_k, c_k = nls_cuda.nls_topk(v0p, v1p, fl, **b1)
+        torch.cuda.synchronize()
+        d_p, c_p = nls_cuda.nls_topk_plain(v0p, v1p, fl, **b1)
+    require(torch.equal(d_k, d_p) and torch.equal(c_k, c_p),
+            f"B1 chunk {label}: dists or cells differ from the plain "
+            f"version's (max {float((d_k - d_p).abs().max()):.3e})")
+    ctr = tuple(x.contiguous() for x in search_centres(
+        v0p.shape, fl, wt=c["wt"], stride0=c["stride0"], itype=c["itype"],
+        T_global=T))
+    with torch.no_grad():
+        d = nls_vol_cuda.nls_volume(v0p, v1p, *ctr, **kw, **chunk)
+        torch.cuda.synchronize()
+        d_vp = nls_vol_cuda.nls_volume_plain(v0p, v1p, *ctr, **kw, **chunk)
+    require(torch.equal(d, d_vp), f"B5 chunk {label}: volume differs from "
+            "the plain version's")
+    out = dict(b1_args=(v0p, v1p, fl), b1_kw=b1, b5_args=(v0p, v1p) + ctr,
+               b5_kw=dict(kw, **chunk), d=d, d_k=d_k, c_k=c_k)
+    if not backward:
+        return out
+    aux = search_aux(v0p.shape, fl, ws=c["ws"], wt=c["wt"],
+                     stride0=c["stride0"], stride1=c["stride1"],
+                     itype=c["itype"], **chunk)
+    g_vol = volume_cotangent(torch, rng, d, aux_to_inds3(aux, d.shape),
+                             "each", c["wt"])
+    b6 = (v0p, v1p) + ctr + (g_vol, dict(kw, full_ws=True, **chunk))
+    off6 = (off_integer(aux["dh"]).all(4), off_integer(aux["dw"]).all(4))
+    geo = cells_geometry(fl, c_k, H=v0.shape[-2], W=v0.shape[-1],
+                         ws=c["ws"], wt=c["wt"], stride0=c["stride0"],
+                         stride1=c["stride1"], itype=c["itype"], halo=halo,
+                         **chunk)
+    g_d = torch.from_numpy(rng.standard_normal(tuple(d_k.shape))
+                           .astype(np.float32)).to(dev)
+    b2 = (v0p, v1p, geo["prop_h"], geo["prop_w"], geo["tj_k"],
+          geo["valid"], g_d, dict(ps=c["ps"], stride0=c["stride0"],
+                                  dist_type=c["dist_type"],
+                                  dilation=c["dilation"],
+                                  use_adj=c["use_adj"], itype=c["itype"]),
+          t0, T)
+    off2 = off_integer(geo["prop_h"]) & off_integer(geo["prop_w"])
+    errs = {}
+    for key, fn, plain, args, off in (
+            ("B6", nls_vol_cuda.nls_volume_bwd,
+             nls_vol_cuda.nls_volume_bwd_plain, b6, off6),
+            ("B2", nls_cuda.nls_topk_bwd, nls_cuda.nls_topk_bwd_plain, b2,
+             (off2, off2))):
+        g_k = fn(*args)
+        torch.cuda.synchronize()
+        g_p = plain(*args)
+        errs[key] = 0.
+        for gk, gp, what, mask in zip(g_k, g_p, ("g_vid0", "g_vid1", "g_h",
+                                                 "g_w"), (None, None) + off):
+            if mask is not None and c["itype"] == "int":
+                require(not gk.any() and not gp.any(),
+                        f"{key} chunk {label}: int-path {what} not 0")
+                continue
+            if mask is not None:
+                gk, gp = gk[mask], gp[mask]
+            err, scale = grad_close(gk, gp, f"{key} chunk {label} {what}")
+            require(scale > 0, f"{key} chunk {label} {what}: the gradient "
+                    "is 0")
+            errs[key] = max(errs[key], err)
+        # the halo frames hold no query: vid0's gradient is 0 there
+        require(not g_k[0][:, :, :halo].any() and
+                not g_k[0][:, :, halo + T_local:].any(),
+                f"{key} chunk {label}: gradient in vid0's halo frames")
+    log(f"[chunk] {label}: B1 dists and cells and B5 volume equal to the "
+        f"plain chunk versions bitwise; B6 (top-2) max|kernel-plain| "
+        f"{errs['B6']:.3e}, B2 {errs['B2']:.3e}")
+    out.update(errs=errs, b6_args=b6, b2_args=b2,
+               active6=int(((g_vol != 0) & d.isfinite()).sum()),
+               active2=int((geo["valid"] & (g_d != 0)).sum()))
+    return out
+
+
+def chunk_kernel_phase(torch, dev, H=128):
+    """(a) B1 and B5 in chunk mode against their plain chunk versions,
+    bitwise, and B2 and B6 at TOL * max|ref|: at the slice's (ps, F) =
+    (3, 8) on 128^2 (CHUNK_SLICE; t0 = 0 and 4; float and int; B1 and B5
+    also in their run-time body), then at (1, 2) on MATRIX_CROP of config
+    7's inputs (CHUNK_CONFIG7; t0 = 0 and 5). (b) The chunks joined over
+    the sequence equal the whole video's B1 and B5 bitwise at the slice
+    shape. Returns the largest errors and the slice's float t0 = 4 case
+    for the timings."""
+    from stnls_tpu_torch import matrix_steps as ms
+    from stnls_tpu_torch.ops import nls_cuda, nls_vol_cuda
+    from stnls_tpu_torch.ops.nls import search_centres
+    rng = np.random.default_rng(SEED + 14)
+    T, Tl, halo = CHUNK_SLICE["T"], CHUNK_SLICE["T_local"], \
+        CHUNK_SLICE["halo"]
+    v0, v1, flows = make_inputs(torch, rng, dev, B=1, HD=2, T=T, F=8,
+                                H=H, W=H, wt=2)
+    errs = {"B2": 0., "B6": 0.}
+    timing = None
+    for itype in ("float", "int"):
+        c = dict(PS_DEFAULTS, wt=2, ps=3, k=10, itype=itype,
+                 stride1=0.5 if itype == "float" else 1)
+        for t0 in range(0, T, Tl):
+            label = f"(3, 8) {H}^2 {itype} t0={t0}"
+            r = chunk_kernel_case(torch, dev, v0, v1, flows, c, t0, Tl,
+                                  halo, label)
+            with run_time_body():
+                chunk_kernel_case(torch, dev, v0, v1, flows, c, t0, Tl,
+                                  halo, label + " run-time body",
+                                  backward=False)
+            for key in errs:
+                errs[key] = max(errs[key], r["errs"][key])
+            if itype == "float" and t0 == Tl:
+                timing = r
+    # (b) the chunks joined against the whole video, float
+    kw = dict(ws=5, wt=2, ps=3, stride0=1, stride1=0.5)
+    ctr = tuple(x.contiguous() for x in search_centres(v0.shape, flows,
+                                                       wt=2, stride0=1))
+    with torch.no_grad():
+        d_all, c_all = nls_cuda.nls_topk(v0, v1, flows, k=10, anchor=True,
+                                         **kw)
+        vol_all = nls_vol_cuda.nls_volume(v0, v1, *ctr, **kw)
+        for t0 in range(0, T, Tl):
+            r = chunk_kernel_case(torch, dev, v0, v1, flows,
+                                  dict(PS_DEFAULTS, wt=2, ps=3, k=10,
+                                       stride1=0.5), t0, Tl, halo,
+                                  f"whole t0={t0}", backward=False)
+            sl = slice(t0, t0 + Tl)
+            require(torch.equal(r["d_k"], d_all[:, :, sl]) and
+                    torch.equal(r["c_k"], c_all[:, :, sl]) and
+                    torch.equal(r["d"], vol_all[:, :, sl]),
+                    f"chunk t0={t0}: B1 or B5 differs from the whole "
+                    "video's")
+    log(f"[chunk] slice {H}^2: B1 and B5 over {T // Tl} chunks of {Tl} "
+        "frames joined equal the whole video's bitwise")
+    # (1, 2) on the crop of config 7's inputs
+    cfg = ms.config("align1080p_fwd+bwd")
+    inputs = crop_inputs(ms.make_inputs("align1080p_fwd+bwd", SEED,
+                                        device=dev), *MATRIX_CROP)
+    v, fl = matrix_search_args(torch, cfg, inputs)
+    c = dict(PS_DEFAULTS, ws=cfg["ws"], wt=cfg["wt"], ps=1, k=cfg["K"])
+    Tl7, halo7 = CHUNK_CONFIG7["T_local"], CHUNK_CONFIG7["halo"]
+    for t0 in range(0, cfg["T"], Tl7):
+        r = chunk_kernel_case(torch, dev, v, v, fl, c, t0, Tl7, halo7,
+                              f"(1, 2) {MATRIX_CROP[0]}x{MATRIX_CROP[1]} "
+                              f"config 7 t0={t0}")
+        for key in errs:
+            errs[key] = max(errs[key], r["errs"][key])
+    return dict(errs=errs, timing=timing)
+
+
+def chunk_whole_1080p(torch, matrix):
+    """(b) at config 7's whole 1080p frames, head by head: B1 over the
+    chunks of CHUNK_CONFIG7, joined, equals B1 on the whole video
+    bitwise (dists and cells)."""
+    from stnls_tpu_torch import matrix_steps as ms
+    from stnls_tpu_torch.ops import nls_cuda
+    name = "align1080p_fwd+bwd"
+    cfg = ms.config(name)
+    v_all, fl = matrix_search_args(torch, cfg, matrix[name][1])
+    T, Tl, halo = cfg["T"], CHUNK_CONFIG7["T_local"], CHUNK_CONFIG7["halo"]
+    b1 = dict(ws=cfg["ws"], wt=cfg["wt"], ps=cfg["ps"], stride0=1,
+              stride1=1, k=cfg["K"], anchor=True)
+    with torch.no_grad():
+        for h in range(cfg["HD"]):
+            v = v_all[:, h:h + 1].contiguous()
+            d_all, c_all = nls_cuda.nls_topk(v, v, fl, **b1)
+            for t0 in range(0, T, Tl):
+                vp = halo_chunk(v, t0, Tl, halo)
+                d, c = nls_cuda.nls_topk(vp, vp,
+                                         fl[:, :, t0:t0 + Tl].contiguous(),
+                                         query_t0=t0, T_global=T, **b1)
+                sl = slice(t0, t0 + Tl)
+                require(torch.equal(d, d_all[:, :, sl]) and
+                        torch.equal(c, c_all[:, :, sl]),
+                        f"B1 {name} head {h} chunk t0={t0}: differs from "
+                        "the whole video's")
+                del vp, d, c
+            del d_all, c_all
+    log(f"[chunk] {name} at the full {tuple(v_all.shape[-2:])}, "
+        f"{cfg['HD']} heads: B1 over {T // Tl} chunks of {Tl} frames "
+        f"(halo {halo}) joined equals the whole video's bitwise")
+
+
+def chunk_frame_bytes(r):
+    """(bytes of vid0's query frames, bytes of vid1's frames that some
+    query's window reaches) of chunk_kernel_case's chunk r: the frames a
+    chunk-mode kernel reads of each video, and writes of its gradient."""
+    from stnls_tpu_torch.ops.nls import window_tables
+    v0p, _, fl = r["b1_args"]
+    kw = r["b1_kw"]
+    T_local = fl.shape[2]
+    halo = (v0p.shape[2] - T_local) // 2
+    tj, _ = window_tables(T_local, kw["wt"], t0=kw["query_t0"],
+                          T_global=kw["T_global"], halo=halo)
+    frame = v0p[:, :, 0].numel() * v0p.element_size()
+    return T_local * frame, int(tj.max() - tj.min() + 1) * frame
+
+
+def chunk_times(torch, smi_line, r):
+    """The chunk-mode kernels at the slice shape (r: chunk_kernel_case's
+    float t0 = 4 case) against their plain chunk versions, with their
+    bounds from these inputs. Returns {kernel: dict(ms, plain_ms,
+    bound_ms, bound_by)}."""
+    from stnls_tpu_torch.attn_step import cuda_ms
+    from stnls_tpu_torch.ops import nls_cuda, nls_vol_cuda
+
+    def nb(*xs):
+        return sum(x.numel() * x.element_size() for x in xs)
+
+    plain = dict(n=3, warm=1)
+    v0p, v1p, fl = r["b1_args"]
+    F, taps = v0p.shape[3], r["b1_kw"]["ps"] ** 2
+    with torch.no_grad():
+        t = {"B1": (cuda_ms(lambda: nls_cuda.nls_topk(*r["b1_args"],
+                                                      **r["b1_kw"])),
+                    cuda_ms(lambda: nls_cuda.nls_topk_plain(
+                        *r["b1_args"], **r["b1_kw"]), **plain)),
+             "B5": (cuda_ms(lambda: nls_vol_cuda.nls_volume(
+                        *r["b5_args"], **r["b5_kw"])),
+                    cuda_ms(lambda: nls_vol_cuda.nls_volume_plain(
+                        *r["b5_args"], **r["b5_kw"]), **plain))}
+    t["B6"] = (cuda_ms(lambda: nls_vol_cuda.nls_volume_bwd(*r["b6_args"])),
+               cuda_ms(lambda: nls_vol_cuda.nls_volume_bwd_plain(
+                   *r["b6_args"]), **plain))
+    t["B2"] = (cuda_ms(lambda: nls_cuda.nls_topk_bwd(*r["b2_args"])),
+               cuda_ms(lambda: nls_cuda.nls_topk_bwd_plain(*r["b2_args"]),
+                       **plain))
+    b2 = r["b2_args"]
+    # vid0 (and its gradient) over the query frames only; vid1 (and its
+    # gradient) over the frames some query's window reaches
+    q, reach = chunk_frame_bytes(r)
+    bounds = {
+        "B1": bound_ms(q + reach + nb(fl, r["d_k"], r["c_k"]),
+                       r["d"].numel() * taps * F * FLOPS_PER_TAP["B1"]),
+        "B5": bound_ms(q + reach + nb(*r["b5_args"][2:], r["d"]),
+                       int(r["d"].isfinite().sum()) * taps * F
+                       * FLOPS_PER_TAP["B5"]),
+        "B6": bound_ms(2 * (q + reach) + nb(*r["b6_args"][2:5])
+                       + nb(*r["b6_args"][2:4]),
+                       r["active6"] * taps * F * FLOPS_PER_TAP["B6"]),
+        "B2": bound_ms(2 * (q + reach) + nb(*b2[2:4], b2[4].int(), b2[6])
+                       + nb(*b2[2:4]),
+                       r["active2"] * taps * F * FLOPS_PER_TAP["B2"])}
+    log(f"[times] {smi_line}: chunk mode at the slice (3, 8), "
+        f"{v0p.shape[-1]}^2, "
+        f"{CHUNK_SLICE['T_local']} query frames of {CHUNK_SLICE['T']} with "
+        f"halos of {CHUNK_SLICE['halo']}: " + "; ".join(
+            f"{key} {ms:.3f} ms (plain {pms:.3f}, bound "
+            f"{bounds[key][0]:.4f} by {bounds[key][1]})"
+            for key, (ms, pms) in t.items()))
+    return {key: dict(ms=t[key][0], plain_ms=t[key][1],
+                      bound_ms=bounds[key][0], bound_by=bounds[key][1])
+            for key in t}
+
+
+def time_sharded_phase(torch, dev, mesh, matrix, smi_line, H=128):
+    """(c) time_sharded_search at config 7's published size on the mesh,
+    forward and backward into the video (mean(d^2), as the config-7 step),
+    against matrix_steps' config-7 step on the same inputs: dists
+    and offsets equal, the loss at TOL, the video gradient at TOL *
+    max|ref|; launch counts (B1, B2; no volume kernel, no plain backward),
+    times in turns and peak memory. Then on the volume route at the
+    slice's widths (K = 80 ranked slots over B1's 64) against
+    plain_route(). Returns the numbers and the launch counts."""
+    from stnls_tpu_torch.attn_step import cuda_ms
+    from stnls_tpu_torch.parallel import time_sharded_search
+    name = "align1080p_fwd+bwd"
+    step, inputs = matrix[name][:2]
+    sharded_step = sharded_config7_step(torch, mesh)
+
+    def sharded():
+        return sharded_step(*inputs)
+
+    ref = step(*inputs)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    reset_counts()
+    mine = sharded()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+    launches, plain_calls = read_counts()
+    require(launches["nls_topk_fwd"] > 0 and launches["nls_topk_bwd"] > 0
+            and launches["nls_vol_fwd"] == 0 and not any(plain_calls.values()),
+            f"time-sharded config 7: launches {launches}, plain calls "
+            f"{plain_calls}")
+    require(torch.equal(mine["dists"], ref["dists"]) and
+            torch.equal(mine["inds"], ref["inds"]),
+            "time-sharded config 7: dists or offsets differ from the "
+            "config-7 step's")
+    close(mine["loss"], ref["loss"], "time-sharded config 7 loss")
+    g_err, g_scale = grad_close(mine["g_vid"], ref["g_vid"],
+                                "time-sharded config 7 g_vid")
+    del mine, ref
+    t = [cuda_ms(lambda: step(*inputs), n=5, warm=1),
+         cuda_ms(sharded, n=5, warm=1), cuda_ms(sharded, n=5, warm=1),
+         cuda_ms(lambda: step(*inputs), n=5, warm=1)]
+    log(f"[sharded] {name} through time_sharded_search on a one-rank NCCL "
+        f"mesh: dists and offsets equal to the config-7 step's, g_vid max|g| "
+        f"{g_scale:.3e} max|err| {g_err:.3e}; launches {launches}; peak "
+        f"{peak:.3f} GB")
+    log(f"[times] {smi_line}: {name} step / time-sharded, in turns: "
+        f"{t[0]:.3f} / {t[1]:.3f} / {t[2]:.3f} / {t[3]:.3f} ms")
+
+    # the volume route at the slice's widths
+    rng = np.random.default_rng(SEED + 15)
+    v0, v1, fl = make_inputs(torch, rng, dev, B=1, HD=2, T=5, F=8, H=H,
+                             W=H, wt=2)
+
+    def volume():
+        a, b = v0.clone().requires_grad_(), v1.clone().requires_grad_()
+        d, i = time_sharded_search(a, b, fl, mesh, ws=5, wt=2, ps=3, k=80,
+                                   stride1=0.5, self_action="anchor")
+        cot = torch.from_numpy(np.random.default_rng(SEED + 16)
+                               .standard_normal(tuple(d.shape))
+                               .astype(np.float32)).to(dev)
+        return (d.detach(), i.detach()) + torch.autograd.grad(
+            (d * cot).sum(), (a, b))
+
+    reset_counts()
+    out = volume()
+    torch.cuda.synchronize()
+    v_launches, plain_calls = read_counts()
+    require(v_launches["nls_vol_fwd"] > 0 and v_launches["nls_vol_bwd"] > 0
+            and v_launches["nls_topk_fwd"] == 0 and
+            not any(plain_calls.values()),
+            f"time-sharded K = 80: launches {v_launches}")
+    with plain_route():
+        ref = volume()
+    require(tuple(out[0].shape[-1:]) == (80,) and
+            torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1]),
+            "time-sharded K = 80: dists or offsets differ from the plain "
+            "route's")
+    v_err = max(grad_close(a, b, f"time-sharded K = 80 {what}")[0]
+                for a, b, what in zip(out[2:], ref[2:], ("g_vid0",
+                                                         "g_vid1")))
+    log(f"[sharded] slice widths, K = 80, volume route: launches "
+        f"{v_launches}; dists and offsets equal to the plain route's, "
+        f"gradients max|kernels-plain| {v_err:.3e}")
+    return dict(ms=t, peak_gb=peak, g_err=g_err, v_err=v_err,
+                launches=launches, v_launches=v_launches)
+
+
+def twin_phase(torch, dev, mesh, smi_line, widths=None):
+    """(d) the twin of dryrun_multichip (stnls_tpu_torch/multichip_step)
+    at the bench slice's widths (multichip_step.BENCH_WIDTHS) on the mesh:
+    SGD_STEPS steps through the kernels (B1, B2, B3, B4 launched, no
+    plain version called) and through plain_route(); the losses at TOL,
+    the first step's gradients and each parameter's change over the
+    steps at TOL * max|ref|, every parameter moved. Returns the launch
+    counts, the errors and the step's time."""
+    from stnls_tpu_torch import multichip_step as ms
+    from stnls_tpu_torch.attn_step import cuda_ms
+    axes = ms.mesh_axes(1)
+    widths = ms.BENCH_WIDTHS if widths is None else widths
+    vid, tgt, flows, params, cfg = ms.make_inputs(axes, SEED, dev, **widths)
+
+    def run(steps=SGD_STEPS):
+        return ms.train(mesh, vid, tgt, flows, params, cfg, steps=steps)
+
+    reset_counts()
+    new, hist = run(1)
+    torch.cuda.synchronize()
+    launches, plain_calls = read_counts()
+    require(all(launches[k] > 0 for k in ("nls_topk_fwd", "nls_topk_bwd",
+                                          "agg_gather_fwd",
+                                          "agg_gather_bwd"))
+            and not any(plain_calls.values()),
+            f"twin: launches {launches}, plain calls {plain_calls}")
+    new, hist = run()
+    with plain_route():
+        ref_new, ref_hist = run()
+    errs = {}
+    for step_i, ((loss, _), (ref_loss, _)) in enumerate(zip(hist,
+                                                            ref_hist)):
+        close(loss, ref_loss, f"twin loss of step {step_i}")
+    for key in params:
+        errs[f"grad {key}"] = grad_close(hist[0][1][key], ref_hist[0][1][key],
+                                         f"twin grad {key}")[0]
+        errs[f"update {key}"] = grad_close(
+            new[key] - params[key], ref_new[key] - params[key],
+            f"twin update of {key}")[0]
+        require(bool((new[key] != params[key]).any()),
+                f"twin: SGD left {key} unchanged")
+    # the dryrun's check: the parameters move (its loss, near 1, moves by
+    # about one float32 ulp a step at lr = 1e-2)
+    losses = [float(x[0]) for x in hist]
+    t = cuda_ms(lambda: run(1), n=5, warm=1)
+    log(f"[twin] dryrun_multichip's step at the widths {widths}, "
+        f"B = {vid.shape[0]}, T = {vid.shape[1]}, one-rank mesh: launches "
+        f"{launches}; losses {losses} (plain route "
+        f"{[float(x[0]) for x in ref_hist]}); max|kernels-plain| "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    log(f"[times] {smi_line}: twin train step {t:.3f} ms")
+    return dict(launches=launches, err=max(errs.values()), ms=t,
+                losses=losses)
+
+
 def main():
     here = Path(__file__).resolve().parent
     if not (here / "stnls_tpu_torch" / "csrc").is_dir():
@@ -1667,7 +2147,7 @@ def main():
         dict(a2, strideIn=2, strideOut=2), dict(a2, stride0=2))
 
     # 9. the agg example's twin at full width
-    twin = agg_example_phase(torch, dev)
+    agg_twin = agg_example_phase(torch, dev)
 
     # 10. times of B7-B10 and of the twin
     with torch.no_grad():
@@ -1685,12 +2165,12 @@ def main():
             args = ares["args"][key]
             t_agg[key] = (cuda_ms(lambda: bwd(*args)),
                           cuda_ms(lambda: plain(*args), n=5, warm=1))
-    v6_t, w_t, o_t = twin["search"]
+    v6_t, w_t, o_t = agg_twin["search"]
     t_aggs = cuda_ms(lambda: agg_example.aggregate(v6_t, w_t, o_t, **a_cfg))
     with plain_route():
         t_aggsp = cuda_ms(lambda: agg_example.aggregate(v6_t, w_t, o_t,
                                                         **a_cfg), n=3, warm=1)
-    t_twin = cuda_ms(lambda: agg_example.run(*twin["inputs"], a_cfg))
+    t_twin = cuda_ms(lambda: agg_example.run(*agg_twin["inputs"], a_cfg))
     log(f"[times] {smi_line}: " + "; ".join(
         f"{key} {t_agg[key][0]:.3f} ms (plain {t_agg[key][1]:.3f}, bound "
         f"{ares['bounds'][key][0]:.4f} by {ares['bounds'][key][1]})"
@@ -1719,6 +2199,19 @@ def main():
     ps1 = ps1_kernel_times(torch, dev, smi_line, matrix)
     spec = compiled_vs_run_time(torch, dev, smi_line, res, vres)
 
+    # 14. time sharding: the chunk mode of B1, B2, B5 and B6 against their
+    # plain versions and against the whole video; time_sharded_search at
+    # config 7's size and the twin of dryrun_multichip on a one-rank mesh
+    chunk = chunk_kernel_phase(torch, dev)
+    chunk_whole_1080p(torch, matrix)
+    t_chunk = chunk_times(torch, smi_line, chunk["timing"])
+    del chunk["timing"]
+    from stnls_tpu_torch.multichip_step import one_rank_mesh
+    torch.cuda.set_device(dev)
+    with one_rank_mesh() as mesh:
+        sharded = time_sharded_phase(torch, dev, mesh, matrix, smi_line)
+        twin = twin_phase(torch, dev, mesh, smi_line)
+
     require("jax" not in sys.modules, "JAX was imported")
     rows = (("B1", "nls_topk_fwd", "nls_pallas.py:761", t_b1, t_b1p),
             ("B2", "nls_topk_bwd", "nls_pallas_bwd.py:675", t_b2, t_b2p),
@@ -1742,19 +2235,36 @@ def main():
             for key in r["err"]}
     errs["B6"] = max(errs["B6"], err_ps)
     errs["B2"] = max(errs["B2"], err_full)
+    # the chunk mode's launches, path by path, each read from its own run:
+    # the time-sharded config 7 (B1, B2), the volume route at K = 80 (B5,
+    # B6) and one train step of the twin (B1, B2)
+    chunk_launches = {
+        name: {"config7_sharded": sharded["launches"][name],
+               "volume_k80": sharded["v_launches"][name],
+               "twin": twin["launches"][name]}
+        for name in ("nls_topk_fwd", "nls_topk_bwd", "nls_vol_fwd",
+                     "nls_vol_bwd")}
+    chunk_errs = dict(chunk["errs"], B1=0., B5=0.)
+    chunk_errs["B6"] = max(chunk_errs["B6"], sharded["v_err"])
     kernels = []
     for key, name, site, ms, plain_ms in rows:
         b_ms, b_by = bounds[key]
         launches = vol_launches if key in ("B5", "B6") else \
-            twin["launches"] if key in ("B7", "B8", "B9", "B10") else \
+            agg_twin["launches"] if key in ("B7", "B8", "B9", "B10") else \
             train_launches
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda",
             "source": f"stnls_tpu_torch/csrc/{name}.cu",
             "replaces": f"stnls_tpu/ops/{site}",
             "launches": launches[name], "max_abs_err": errs[key],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None})
+            "bound_by": b_by, "library_ms": None}
+        if key in t_chunk:
+            entry["chunk"] = dict(t_chunk[key],
+                                  launches=chunk_launches[name],
+                                  max_abs_err=chunk_errs[key],
+                                  library_ms=None)
+        kernels.append(entry)
     print(json.dumps({"steps": {
         "forward_ms": t_step, "forward_plain_ms": t_stepp,
         "forward_frames_per_s": T / (t_step / 1e3),
@@ -1771,7 +2281,13 @@ def main():
         "matrix": {name: {
             "ms": ms, "frames_per_s": matrix[name][1][0].shape[1] / (ms / 1e3),
             "peak_gb": matrix[name][3]} for name, ms in t_matrix.items()},
-        "ps1_kernels": ps1, "compiled_vs_run_time_ms": spec}}))
+        "ps1_kernels": ps1, "compiled_vs_run_time_ms": spec,
+        "time_sharded_config7": {
+            "step_ms_in_turns": sharded["ms"][0::3],
+            "time_sharded_ms_in_turns": sharded["ms"][1:3],
+            "peak_gb": sharded["peak_gb"]},
+        "multichip_twin": {"train_step_ms": twin["ms"],
+                           "losses": twin["losses"]}}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

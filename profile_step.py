@@ -27,7 +27,11 @@ through B5/B6), and for the twin of examples/agg_example.py
 search, then Gather, GatherAdd, ScatterAdd and Pool forward and backward,
 through B1, B3/B4, B7/B8 and B9/B10), and for the steps of
 benchmarks/matrix.py's configs 1, 4, 5 and 7 at their published sizes
-(stnls_tpu_torch/matrix_steps.py, seed 0; 5 is a forward only). Each
+(stnls_tpu_torch/matrix_steps.py, seed 0; 5 is a forward only), for
+config 7 through parallel.time_sharded_search on a one-rank NCCL mesh
+(chip_smoke.sharded_config7_step: B1/B2 in chunk mode), and for one train step of the twin of
+__graft_entry__.dryrun_multichip (stnls_tpu_torch/multichip_step.py) at
+the bench slice's widths on that mesh (B=2, T=4). Each
 breakdown lists the device ms of the port's ten kernels (B1-B10). The
 last line is one JSON object of these numbers.
 Exits non-zero without a CUDA device. Imports nothing of JAX.
@@ -140,11 +144,12 @@ def fwd_bwd_breakdown(torch, dev, fn, T, label, ms, peak):
             "top": top}
 
 
-def profile(torch, dev, H=128):
-    from stnls_tpu_torch import agg_example, matrix_steps
+def profile(torch, dev, mesh, H=128):
+    from stnls_tpu_torch import agg_example, matrix_steps, multichip_step
     from stnls_tpu_torch.attn_step import AttnStep, attention_module, \
         smooth_flows, VOLUME_SEARCH
     from stnls_tpu_torch.utils.config import ConfigDict
+    from chip_smoke import sharded_config7_step
     B, T, F, K = 1, 5, 16, 10
     rng = np.random.default_rng(0)
 
@@ -189,6 +194,19 @@ def profile(torch, dev, H=128):
         paths[f"matrix {name}"] = lambda s=m_step, x=m_in: s(*x)
         frames[f"matrix {name}"] = matrix_steps.CONFIGS[name]["T"]
         keys.append(f"matrix_{name}")
+    name = "align1080p_fwd+bwd"
+    m_step = sharded_config7_step(torch, mesh)
+    m_in = matrix_steps.make_inputs(name, device=dev)
+    paths[f"time-sharded matrix {name}"] = lambda: m_step(*m_in)
+    frames[f"time-sharded matrix {name}"] = matrix_steps.CONFIGS[name]["T"]
+    keys.append(f"time_sharded_matrix_{name}")
+    axes = multichip_step.mesh_axes(1)
+    t_in = multichip_step.make_inputs(axes, device=dev,
+                                      **multichip_step.BENCH_WIDTHS)
+    paths["multichip twin train step"] = lambda: multichip_step.train(
+        mesh, *t_in)
+    frames["multichip twin train step"] = 4 * axes["time"]
+    keys.append("multichip_twin_train_step")
     untraced = {label: timed(torch, dev, fn, frames.get(label, T), label)
                 for label, fn in (("forward", fwd), ("fwd+bwd", fwd_bwd),
                                   *paths.items())}
@@ -226,7 +244,10 @@ def main():
                          text=True, timeout=60)
     smi_line = smi.stdout.strip().splitlines()[0] if smi.stdout else ""
     print(smi_line, flush=True)
-    res = profile(torch, torch.device("cuda", 0))
+    from stnls_tpu_torch.multichip_step import one_rank_mesh
+    torch.cuda.set_device(0)
+    with one_rank_mesh() as mesh:
+        res = profile(torch, torch.device("cuda", 0), mesh)
     print(json.dumps(dict(res, card=smi_line)))
 
 

@@ -2,6 +2,12 @@
 // (nls_topk_fwd.cu), B5 (nls_vol_fwd.cu) and B6 (nls_vol_bwd.cu), so that
 // the three read the same lattice the same way.
 //
+// Temporal chunks (time sharding): B1, B2, B5 and B6 take the query
+// frames of one chunk of a sequence of Tg frames, t0 the global index of
+// its first query frame, from videos of Tv frames that hold the chunk
+// plus `halo` frames on each side (chunk_window_frame). A call on the
+// whole video is the chunk (t0, Tg, halo) = (0, T, 0) with Tv = T.
+//
 // The functions over an argument struct `A` read these fields of it: H, W,
 // ws, stride1 (float; the int path passes max(1, int(stride1))), s1_half
 // (stride1 * ((ws-1)/2), rounded once on the host, as the reference
@@ -48,6 +54,15 @@ __device__ __forceinline__ int window_frame(int t, int st, int wt, int T) {
   const int t_shift = min(0, t - wt) + max(0, t + wt - (T - 1));
   const int t_max = min(T - 1, t + wt - t_shift);
   return (t + st <= t_max) ? t + st : t_max - st;
+}
+
+// Target frame of time slot st for query frame t of a chunk, as an index
+// into the chunk's videos: the window of global frame t0 + t in a sequence
+// of Tg frames, shifted by the frames before the chunk's videos. With
+// halo >= 2*wt it lies inside them; the query itself is frame t + halo.
+__device__ __forceinline__ int chunk_window_frame(int t, int st, int wt, int t0,
+                                                  int Tg, int halo) {
+  return window_frame(t0 + t, st, wt, Tg) - t0 + halo;
 }
 
 // Window offset of one axis (geometry.search_offsets), float path.

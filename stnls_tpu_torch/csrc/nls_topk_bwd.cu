@@ -21,7 +21,9 @@
 // The flows' gradient is chained from the positions in torch
 // (ops/nls_k.cells_geometry), as the JAX package chains g_th/g_tw outside
 // its kernel. Cells outside the frame (tj < 0) and zero cotangents are
-// skipped, so an init-valued (inf) distance never meets a zero.
+// skipped, so an init-valued (inf) distance never meets a zero. In a
+// temporal chunk (time sharding) the videos hold Tv = T + 2*halo frames:
+// the query of frame t reads frame t + halo, tj indexes the videos.
 //
 // What bounds it on the H100: global atomic adds. At the slice config
 // (163,840 queries, K=10, ps=3, F=8) one backward adds 9 taps x 8 channels
@@ -43,17 +45,18 @@
 namespace {
 
 struct NlsBwdArgs {
-  const float* vid0;    // [B,HD,T,F,H,W]
-  const float* vid1;    // [B,HD,T,F,H,W]
+  const float* vid0;    // [B,HD,Tv,F,H,W]
+  const float* vid1;    // [B,HD,Tv,F,H,W]
   const float* prop_h;  // [B,HD,T,nH,nW,K] key positions (integers for int)
   const float* prop_w;
   const int* tj;        // [B,HD,T,nH,nW,K] target frame, -1 for invalid cells
   const float* g_d;     // [B,HD,T,nH,nW,K]
-  float* g_vid0;        // [B,HD,T,F,H,W], zeroed by the caller
-  float* g_vid1;        // [B,HD,T,F,H,W], zeroed by the caller
+  float* g_vid0;        // [B,HD,Tv,F,H,W], zeroed by the caller
+  float* g_vid1;        // [B,HD,Tv,F,H,W], zeroed by the caller
   float* g_prop_h;      // [B,HD,T,nH,nW,K]
   float* g_prop_w;
   int B, HD, T, F, H, W, nH, nW, K;
+  int Tv, halo;         // video frames, and the frames before the queries
   int ps, stride0, dilation, use_adj, l2, is_int;
 };
 
@@ -91,10 +94,10 @@ __global__ void __launch_bounds__(256) nls_topk_bwd_kernel(NlsBwdArgs a) {
   const int H = a.H, W = a.W, dil = a.dilation;
   const long long HW = (long long)H * W;
   const long long F = a.F;
-  const float* v0 = a.vid0 + (bhd * a.T + t) * F * HW;
-  float* gv0 = a.g_vid0 + (bhd * a.T + t) * F * HW;
-  const float* v1 = a.vid1 + (bhd * a.T + tj) * F * HW;
-  float* gv1 = a.g_vid1 + (bhd * a.T + tj) * F * HW;
+  const float* v0 = a.vid0 + (bhd * a.Tv + a.halo + t) * F * HW;
+  float* gv0 = a.g_vid0 + (bhd * a.Tv + a.halo + t) * F * HW;
+  const float* v1 = a.vid1 + (bhd * a.Tv + tj) * F * HW;
+  float* gv1 = a.g_vid1 + (bhd * a.Tv + tj) * F * HW;
   const int po = a.use_adj ? 0 : -(a.ps / 2);
   const int ref_h = qh * a.stride0, ref_w = qw * a.stride0;
   const float o_h = __fadd_rn(a.prop_h[e], (float)(dil * po));
@@ -155,10 +158,11 @@ extern "C" int stnls_nls_topk_bwd(
     const float* vid0, const float* vid1, const float* prop_h,
     const float* prop_w, const int* tj, const float* g_d, float* g_vid0,
     float* g_vid1, float* g_prop_h, float* g_prop_w, int B, int HD, int T,
-    int F, int H, int W, int nH, int nW, int K, int ps, int stride0,
-    int dilation, int use_adj, int l2, int is_int, void* stream_ptr) {
+    int F, int H, int W, int nH, int nW, int K, int Tv, int halo, int ps,
+    int stride0, int dilation, int use_adj, int l2, int is_int,
+    void* stream_ptr) {
   NlsBwdArgs a{vid0, vid1, prop_h, prop_w, tj, g_d, g_vid0, g_vid1,
-               g_prop_h, g_prop_w, B, HD, T, F, H, W, nH, nW, K,
+               g_prop_h, g_prop_w, B, HD, T, F, H, W, nH, nW, K, Tv, halo,
                ps, stride0, dilation, use_adj, l2, is_int};
   const long long n = (long long)B * HD * T * K * nH * nW;
   if (n == 0) return 0;

@@ -14,7 +14,11 @@
 // ranked by value, ties by lower position id; with `anchor` the self cell
 // (lexicographically first argmin of |dt|+|dh|+|dw|) takes slot 0 and
 // cell 0 competes under the self cell's position id, exactly as
-// _pallas_topk_aux ranks them.
+// _pallas_topk_aux ranks them. In a temporal chunk (time sharding,
+// nls_pallas_topk's query_t0 / T_global mode) the T query frames are one
+// chunk of the sequence, the videos hold Tv = T + 2*halo frames
+// (nls_common.cuh, chunk_window_frame), and the anchor's |dt| is the
+// global frame difference.
 //
 // What bounds it on the H100: L1/L2 gather loads. At the slice config
 // (F=8 a head, ps=3, ws=5, W_t=5) one query reads 125 cells x 9 taps x 8
@@ -48,13 +52,14 @@ namespace {
 constexpr int KMAX = 64;   // bound on the ranked slots (k, or k-1 anchored)
 
 struct NlsArgs {
-  const float* vid0;   // [B,HD,T,F,H,W]
-  const float* vid1;   // [B,HD,T,F,H,W]
+  const float* vid0;   // [B,HD,Tv,F,H,W]
+  const float* vid1;   // [B,HD,Tv,F,H,W]
   const float* flows;  // [B,HDf,T,St,2,nH,nW], channel 0 = w, 1 = h
   float* dists;        // [B,HD,T,nH,nW,K]
   int* cells;          // [B,HD,T,nH,nW,K]
   int B, HD, T, F, H, W;
   int HDf, St, nH, nW;
+  int Tv, t0, Tg, halo;  // video frames and the chunk (nls_common.cuh)
   int ws, wt, ps, stride0, dilation;
   float stride1;       // float path; the int path passes max(1, int(stride1))
   float s1_half;       // stride1 * ((ws-1)/2), rounded once on the host
@@ -71,9 +76,9 @@ struct Slot {
 __device__ Slot slot_geometry(const NlsArgs& a, int b, int hd, int t, int qh,
                               int qw, int st, int ref_h, int ref_w) {
   const int T = a.T;
-  const int W_t = min(2 * a.wt + 1, T);
+  const int W_t = min(2 * a.wt + 1, a.Tg);
   Slot s;
-  s.tj = window_frame(t, st, a.wt, T);
+  s.tj = chunk_window_frame(t, st, a.wt, a.t0, a.Tg, a.halo);
   const int st_off = W_t - a.St;
   float fh = 0.f, fw = 0.f;
   if (st >= st_off) {
@@ -114,15 +119,17 @@ __global__ void __launch_bounds__(128) nls_topk_kernel(NlsArgs a) {
   const int hd = (int)(r % a.HD);
   const int b = (int)(r / a.HD);
 
-  const int H = a.H, W = a.W, T = a.T, ws = a.ws;
+  const int H = a.H, W = a.W, ws = a.ws;
   const long long FHW = (long long)(FC > 0 ? FC : a.F) * H * W;
   const int ref_h = (qh * a.stride0) % H;
   const int ref_w = (qw * a.stride0) % W;
   const float s1 = a.stride1;
-  const int W_t = min(2 * a.wt + 1, T);
+  const int W_t = min(2 * a.wt + 1, a.Tg);
+  const long long bhd_v = ((long long)b * a.HD + hd) * a.Tv;  // first frame
+  const int tq = t + a.halo;                                 // query frame
 
   typename QueryOf<PS, FC>::type qp;
-  qp.load(a, a.vid0 + (((long long)b * a.HD + hd) * T + t) * FHW, ref_h, ref_w);
+  qp.load(a, a.vid0 + (bhd_v + tq) * FHW, ref_h, ref_w);
 
   // anchor: lexicographically first argmin of |dt| + |dh| + |dw|
   int self_idx = -1;
@@ -138,7 +145,7 @@ __global__ void __launch_bounds__(128) nls_topk_kernel(NlsArgs a) {
         const float dw = fabsf(__fsub_rn(lattice(s.cw, s.ow, s1, i), (float)ref_w));
         if (dw < mw) { mw = dw; aw = i; }
       }
-      const float tot = __fadd_rn(__fadd_rn(fabsf((float)(s.tj - t)), mh), mw);
+      const float tot = __fadd_rn(__fadd_rn(fabsf((float)(s.tj - tq)), mh), mw);
       if (tot < best) { best = tot; self_idx = (st * ws + ah) * ws + aw; }
     }
   }
@@ -152,7 +159,7 @@ __global__ void __launch_bounds__(128) nls_topk_kernel(NlsArgs a) {
 
   for (int st = 0; st < W_t; ++st) {
     const Slot s = slot_geometry(a, b, hd, t, qh, qw, st, ref_h, ref_w);
-    const float* v1 = a.vid1 + (((long long)b * a.HD + hd) * T + s.tj) * FHW;
+    const float* v1 = a.vid1 + (bhd_v + s.tj) * FHW;
     for (int wi = 0; wi < ws; ++wi) {
       const float ph0 = lattice(s.ch, s.oh, s1, wi);
       const bool vh = inb_f(ph0, H);
@@ -215,12 +222,13 @@ cudaError_t launch(const NlsArgs& a, cudaStream_t stream) {
 extern "C" int stnls_nls_topk_fwd(
     const float* vid0, const float* vid1, const float* flows, float* dists,
     int* cells, int B, int HD, int T, int F, int H, int W, int HDf, int St,
-    int nH, int nW, int ws, int wt, int ps, int stride0, int dilation,
-    float stride1, float s1_half, int K, int anchor, int l2, int full_ws,
-    int use_adj, int is_int, int compiled, void* stream_ptr) {
+    int nH, int nW, int Tv, int t0, int Tg, int halo, int ws, int wt, int ps,
+    int stride0, int dilation, float stride1, float s1_half, int K,
+    int anchor, int l2, int full_ws, int use_adj, int is_int, int compiled,
+    void* stream_ptr) {
   NlsArgs a{vid0, vid1, flows, dists, cells, B, HD, T, F, H, W, HDf, St, nH, nW,
-            ws, wt, ps, stride0, dilation, stride1, s1_half, K, anchor, l2,
-            full_ws, use_adj, is_int};
+            Tv, t0, Tg, halo, ws, wt, ps, stride0, dilation, stride1, s1_half,
+            K, anchor, l2, full_ws, use_adj, is_int};
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int nslots = anchor ? K - 1 : K;
   if (nslots < 0 || nslots > KMAX) return (int)cudaErrorInvalidValue;

@@ -18,7 +18,10 @@
 // derivative times the reflection's sign (-1 for a tap reflected at a
 // border). The window offsets are piecewise constant in the centre (floor,
 // round): their derivative is 0, as in both packages. The centre
-// gradients are 0 in the int path. Cells outside the frame (init-valued)
+// gradients are 0 in the int path. A temporal chunk (time sharding) reads
+// its videos as B5 does (nls_common.cuh, chunk_window_frame), and the
+// gradients of the halo frames are the caller's to send back to their
+// owners. Cells outside the frame (init-valued)
 // and cells with a zero cotangent are skipped before anything is read or
 // multiplied, so an inf never meets a zero.
 //
@@ -56,16 +59,17 @@
 namespace {
 
 struct VolBwdArgs {
-  const float* vid0;   // [B,HD,T,F,H,W]
-  const float* vid1;   // [B,HD,T,F,H,W]
+  const float* vid0;   // [B,HD,Tv,F,H,W]
+  const float* vid1;   // [B,HD,Tv,F,H,W]
   const float* ctr_h;  // [B,HD,T,W_t,nH,nW] reflected centres (integers for int)
   const float* ctr_w;
   const float* g_d;    // [B,HD,T,W_t,ws,ws,nH,nW]
-  float* g_vid0;       // [B,HD,T,F,H,W], zeroed by the caller
-  float* g_vid1;       // [B,HD,T,F,H,W], zeroed by the caller
+  float* g_vid0;       // [B,HD,Tv,F,H,W], zeroed by the caller
+  float* g_vid1;       // [B,HD,Tv,F,H,W], zeroed by the caller
   float* g_ctr_h;      // [B,HD,T,W_t,nH,nW]
   float* g_ctr_w;
   int B, HD, T, F, H, W, nH, nW, W_t;
+  int Tv, t0, Tg, halo;  // video frames and the chunk (nls_common.cuh)
   int ws, wt, ps, stride0, dilation;
   float stride1;       // float path; the int path passes max(1, int(stride1))
   float s1_half;       // stride1 * ((ws-1)/2), rounded once on the host
@@ -84,6 +88,7 @@ __global__ void __launch_bounds__(128) nls_vol_bwd_kernel(VolBwdArgs a) {
   const int st = (int)(r % a.W_t);
   const long long bhdt = r / a.W_t;         // (b * HD + hd) * T + t
   const int t = (int)(bhdt % a.T);
+  const long long bhd = bhdt / a.T;
 
   const int H = a.H, W = a.W, ws = a.ws, dil = a.dilation;
   const int ps = a.ps, F = a.F;
@@ -98,11 +103,12 @@ __global__ void __launch_bounds__(128) nls_vol_bwd_kernel(VolBwdArgs a) {
   const float ch = a.ctr_h[c], cw = a.ctr_w[c];
   float oh, ow;
   window_offsets(a, ch, cw, &oh, &ow);
-  const int tj = window_frame(t, st, a.wt, a.T);
-  const float* v0 = a.vid0 + bhdt * F * HW;
-  float* gv0 = a.g_vid0 + bhdt * F * HW;
-  const float* v1 = a.vid1 + (bhdt - t + tj) * F * HW;
-  float* gv1 = a.g_vid1 + (bhdt - t + tj) * F * HW;
+  const int tj = chunk_window_frame(t, st, a.wt, a.t0, a.Tg, a.halo);
+  const long long f0q = bhd * a.Tv + a.halo + t;   // the query's frame
+  const float* v0 = a.vid0 + f0q * F * HW;
+  float* gv0 = a.g_vid0 + f0q * F * HW;
+  const float* v1 = a.vid1 + (bhd * a.Tv + tj) * F * HW;
+  float* gv1 = a.g_vid1 + (bhd * a.Tv + tj) * F * HW;
   // cotangent of cell (wi, wj) at g[(wi * ws + wj) * plane]
   const float* g = a.g_d + (bhdt * a.W_t + st) * ws * ws * plane
                    + (long long)qh * a.nW + qw;
@@ -219,12 +225,13 @@ extern "C" int stnls_nls_vol_bwd(
     const float* vid0, const float* vid1, const float* ctr_h,
     const float* ctr_w, const float* g_d, float* g_vid0, float* g_vid1,
     float* g_ctr_h, float* g_ctr_w, int B, int HD, int T, int F, int H,
-    int W, int nH, int nW, int W_t, int ws, int wt, int ps, int stride0,
-    int dilation, float stride1, float s1_half, int l2, int full_ws,
-    int use_adj, int is_int, void* stream_ptr) {
+    int W, int nH, int nW, int W_t, int Tv, int t0, int Tg, int halo, int ws,
+    int wt, int ps, int stride0, int dilation, float stride1, float s1_half,
+    int l2, int full_ws, int use_adj, int is_int, void* stream_ptr) {
   VolBwdArgs a{vid0, vid1, ctr_h, ctr_w, g_d, g_vid0, g_vid1, g_ctr_h,
-               g_ctr_w, B, HD, T, F, H, W, nH, nW, W_t, ws, wt, ps, stride0,
-               dilation, stride1, s1_half, l2, full_ws, use_adj, is_int};
+               g_ctr_w, B, HD, T, F, H, W, nH, nW, W_t, Tv, t0, Tg, halo, ws,
+               wt, ps, stride0, dilation, stride1, s1_half, l2, full_ws,
+               use_adj, is_int};
   const long long n = (long long)B * HD * T * W_t * nH * nW;
   if (n == 0) return 0;
   const int threads = 128;

@@ -16,7 +16,10 @@
 // shared code of nls_common.cuh); cells outside the frame hold the init
 // value (+inf for l2, -inf for prod). Output dists
 // [B,HD,T,W_t,ws,ws,nH,nW]: the volume that the self_action and top-K menu
-// of search/non_local_search._self_action_topk then reduces.
+// of search/non_local_search._self_action_topk then reduces. In a temporal
+// chunk (time sharding, nls_pallas_volume's query_t0 / T_global mode) the
+// T query frames are one chunk of the sequence and the videos hold Tv =
+// T + 2*halo frames (nls_common.cuh, chunk_window_frame).
 //
 // What bounds it on the H100: the same load-issue-bound patch reads as B1
 // (at the slice config 125 cells x 9 taps x 8 channels x 4 corners per
@@ -41,12 +44,13 @@
 namespace {
 
 struct VolArgs {
-  const float* vid0;   // [B,HD,T,F,H,W]
-  const float* vid1;   // [B,HD,T,F,H,W]
+  const float* vid0;   // [B,HD,Tv,F,H,W]
+  const float* vid1;   // [B,HD,Tv,F,H,W]
   const float* ctr_h;  // [B,HD,T,W_t,nH,nW] reflected centres (integers for int)
   const float* ctr_w;
   float* dists;        // [B,HD,T,W_t,ws,ws,nH,nW]
   int B, HD, T, F, H, W, nH, nW, W_t;
+  int Tv, t0, Tg, halo;  // video frames and the chunk (nls_common.cuh)
   int ws, wt, ps, stride0, dilation;
   float stride1;       // float path; the int path passes max(1, int(stride1))
   float s1_half;       // stride1 * ((ws-1)/2), rounded once on the host
@@ -68,6 +72,7 @@ __global__ void __launch_bounds__(128) nls_vol_fwd_kernel(VolArgs a) {
   const int st = (int)(r % a.W_t);
   const long long bhdt = r / a.W_t;         // (b * HD + hd) * T + t
   const int t = (int)(bhdt % a.T);
+  const long long bhd = bhdt / a.T;
 
   const int H = a.H, W = a.W, ws = a.ws;
   const long long FHW = (long long)(FC > 0 ? FC : a.F) * H * W;
@@ -76,14 +81,14 @@ __global__ void __launch_bounds__(128) nls_vol_fwd_kernel(VolArgs a) {
   const int ref_w = (qw * a.stride0) % W;
 
   typename QueryOf<PS, FC>::type qp;
-  qp.load(a, a.vid0 + bhdt * FHW, ref_h, ref_w);
+  qp.load(a, a.vid0 + (bhd * a.Tv + a.halo + t) * FHW, ref_h, ref_w);
 
   const long long c = (bhdt * a.W_t + st) * plane + (long long)qh * a.nW + qw;
   const float ch = a.ctr_h[c], cw = a.ctr_w[c];
   float oh, ow;
   window_offsets(a, ch, cw, &oh, &ow);
-  const int tj = window_frame(t, st, a.wt, a.T);
-  const float* v1 = a.vid1 + (bhdt - t + tj) * FHW;
+  const int tj = chunk_window_frame(t, st, a.wt, a.t0, a.Tg, a.halo);
+  const float* v1 = a.vid1 + (bhd * a.Tv + tj) * FHW;
 
   const float init = a.l2 ? CUDART_INF_F : -CUDART_INF_F;
   const float ph0 = lattice(ch, oh, a.stride1, wi);
@@ -119,12 +124,13 @@ cudaError_t launch(const VolArgs& a, cudaStream_t stream) {
 extern "C" int stnls_nls_vol_fwd(
     const float* vid0, const float* vid1, const float* ctr_h,
     const float* ctr_w, float* dists, int B, int HD, int T, int F, int H,
-    int W, int nH, int nW, int W_t, int ws, int wt, int ps, int stride0,
-    int dilation, float stride1, float s1_half, int l2, int full_ws,
-    int use_adj, int is_int, int compiled, void* stream_ptr) {
+    int W, int nH, int nW, int W_t, int Tv, int t0, int Tg, int halo, int ws,
+    int wt, int ps, int stride0, int dilation, float stride1, float s1_half,
+    int l2, int full_ws, int use_adj, int is_int, int compiled,
+    void* stream_ptr) {
   VolArgs a{vid0, vid1, ctr_h, ctr_w, dists, B, HD, T, F, H, W, nH, nW, W_t,
-            ws, wt, ps, stride0, dilation, stride1, s1_half, l2, full_ws,
-            use_adj, is_int};
+            Tv, t0, Tg, halo, ws, wt, ps, stride0, dilation, stride1, s1_half,
+            l2, full_ws, use_adj, is_int};
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
 #define STNLS_LAUNCH(P, FC) \
   if (compiled && ps == P && F == FC) return (int)launch<P, FC>(a, stream);

@@ -29,12 +29,12 @@ NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures: every pointer and the stream as c_void_p
 SIGNATURES = {
-    "stnls_nls_topk_fwd": [_P] * 5 + [_I] * 15 + [_F, _F] + [_I] * 7 + [_P],
+    "stnls_nls_topk_fwd": [_P] * 5 + [_I] * 19 + [_F, _F] + [_I] * 7 + [_P],
     "stnls_agg_gather_fwd": [_P] * 4 + [_I] * 15 + [_P],
-    "stnls_nls_topk_bwd": [_P] * 10 + [_I] * 15 + [_P],
+    "stnls_nls_topk_bwd": [_P] * 10 + [_I] * 17 + [_P],
     "stnls_agg_gather_bwd": [_P] * 7 + [_I] * 15 + [_P],
-    "stnls_nls_vol_fwd": [_P] * 5 + [_I] * 14 + [_F, _F] + [_I] * 5 + [_P],
-    "stnls_nls_vol_bwd": [_P] * 9 + [_I] * 14 + [_F, _F] + [_I] * 4 + [_P],
+    "stnls_nls_vol_fwd": [_P] * 5 + [_I] * 18 + [_F, _F] + [_I] * 5 + [_P],
+    "stnls_nls_vol_bwd": [_P] * 9 + [_I] * 18 + [_F, _F] + [_I] * 4 + [_P],
     "stnls_agg_scatter_add_fwd": [_P] * 4 + [_I] * 18 + [_P],
     "stnls_agg_scatter_add_bwd": [_P] * 6 + [_I] * 20 + [_P],
     "stnls_agg_pool_fwd": [_P] * 4 + [_I] * 15 + [_P],

@@ -12,35 +12,42 @@ search backward kernel (B2, ops/nls_cuda.py), which takes its place on
 the card. `nls_dists_at_cells` is the composition of the two.
 `aux_to_inds3` materializes the offsets of every window cell, which the
 full-volume search path (search.non_local_search) ranks.
+
+All of them take the temporal-chunk mode of time sharding (query_t0,
+T_global; ops/nls.chunk_frames): the window follows the query's global
+frame, the target frames index halo-padded videos, and dt stays the
+global difference, as stnls_tpu/ops/nls_pallas.py::_build_inputs builds
+its tables.
 """
 
-import numpy as np
 import torch
 import torch.nn.functional as F_
 
 from stnls_tpu_torch.ops.geometry import (
-    reflect_bounds, in_bounds, num_queries, time_window_frames,
-    search_offsets,
+    reflect_bounds, in_bounds, num_queries, search_offsets,
 )
 from stnls_tpu_torch.ops.nls import (
     dist_type_select, _expand_flow_heads, _slot_flows, search_centres,
+    window_tables,
 )
 from stnls_tpu_torch.ops.pgather import patch_gather, pad_frames_cf
 
 
 def search_aux(vid_shape, flows, *, ws, wt, stride0, stride1, itype="float",
-               full_ws=True):
+               full_ws=True, query_t0=None, T_global=None):
     """Separable offset factors of the search volume (geometry only, no
     video reads): dict(dt_tab [T,W_t], dh [B,HD,T,W_t,ws,nH,nW], dw
     likewise, and the reflected centres ctr_h, ctr_w [B,HD,T,W_t,nH,nW] of
-    ops/nls.search_centres). Feeds the anchor of the top-K selection rule
-    (search.non_local_search._pallas_topk_aux) and the volume path."""
-    B, HD, T, F, H, W = vid_shape
+    ops/nls.search_centres), T the flows' query frames. Feeds the anchor
+    of the top-K selection rule (search.non_local_search._pallas_topk_aux)
+    and the volume path."""
+    H, W = vid_shape[-2:]
+    T = flows.shape[2]
     dev = flows.device
     is_int = (itype == "int")
     stride1 = float(max(1, int(stride1))) if is_int else float(stride1)
     ctr_h, ctr_w = search_centres(vid_shape, flows, wt=wt, stride0=stride0,
-                                  itype=itype)
+                                  itype=itype, T_global=T_global)
     nH, nW = ctr_h.shape[-2:]
     base_h = (torch.arange(nH, device=dev) * stride0) % H
     base_w = (torch.arange(nW, device=dev) * stride0) % W
@@ -53,10 +60,10 @@ def search_aux(vid_shape, flows, *, ws, wt, stride0, stride1, itype="float",
         cells_w[:, None, None] - off_h[:, :, :, :, None])
     prop_w = ctr_w[:, :, :, :, None] + stride1 * (
         cells_w[:, None, None] - off_w[:, :, :, :, None])
-    tj_tab = time_window_frames(T, wt)
+    _, dt = window_tables(T, wt, t0=query_t0 or 0, T_global=T_global,
+                          device=dev)
     cdtype = torch.int32 if is_int else torch.float32
-    dt = torch.as_tensor(tj_tab - np.arange(T)[:, None],
-                         device=dev).to(cdtype)
+    dt = dt.to(cdtype)
     dh = prop_h - bh[:, :, :, :, None]        # [B,HD,T,W_t,ws,nH,nW]
     dw = prop_w - bw[:, :, :, :, None]
     if is_int:
@@ -66,7 +73,8 @@ def search_aux(vid_shape, flows, *, ws, wt, stride0, stride1, itype="float",
 
 
 def cells_geometry(flows, cells, *, H, W, ws, wt, stride0, stride1,
-                   full_ws=True, itype="float"):
+                   full_ws=True, itype="float", query_t0=None, T_global=None,
+                   halo=0):
     """Geometry of the selected window cells, with no video reads.
 
     flows [B,HD(f),T,W_t(-1),2,nH,nW] (channel 0 = w, 1 = h); cells int
@@ -76,7 +84,8 @@ def cells_geometry(flows, cells, *, H, W, ws, wt, stride0, stride1,
     reflection sign flips and the head broadcast happen here, in torch),
     the target frame tj_k (long), the validity mask `valid` (window
     positions inside the frame) and the offsets dt, dh, dw that the gather
-    reads (int32 in the int path).
+    reads (int32 in the int path). In chunk mode (query_t0, T_global) tj_k
+    indexes videos with `halo` frames before the first query frame.
     """
     HD, T = cells.shape[1], cells.shape[2]
     dev = cells.device
@@ -86,7 +95,8 @@ def cells_geometry(flows, cells, *, H, W, ws, wt, stride0, stride1,
         flows = torch.round(flows)
     else:
         stride1 = float(stride1)
-    W_t = min(2 * wt + 1, T)
+    T_global = T if T_global is None else T_global
+    W_t = min(2 * wt + 1, T_global)
     nH, nW = num_queries(H, W, stride0)
     if cells.shape[-3:-1] != (nH, nW):
         raise ValueError("cells must cover the full query grid")
@@ -118,15 +128,14 @@ def cells_geometry(flows, cells, *, H, W, ws, wt, stride0, stride1,
         prop_h = torch.round(prop_h)
         prop_w = torch.round(prop_w)
 
-    # temporal target frame per (q, k)
-    tj_tab = torch.as_tensor(time_window_frames(T, wt), device=dev)
-    tj_k = tj_tab[torch.arange(T, device=dev)[None, None, :, None, None,
-                                              None], st]
-    t_ids = torch.arange(T, device=dev).reshape(1, 1, T, 1, 1, 1)
+    # temporal target frame per (q, k), and its global difference
+    tj_tab, dt_tab = window_tables(T, wt, t0=query_t0 or 0,
+                                   T_global=T_global, halo=halo, device=dev)
+    t_ids = torch.arange(T, device=dev)[None, None, :, None, None, None]
     odt = torch.int32 if is_int else torch.float32
-    return dict(prop_h=prop_h, prop_w=prop_w, tj_k=tj_k, valid=valid,
-                dt=(tj_k - t_ids).to(odt), dh=(prop_h - bh).to(odt),
-                dw=(prop_w - bw).to(odt))
+    return dict(prop_h=prop_h, prop_w=prop_w, tj_k=tj_tab[t_ids, st],
+                valid=valid, dt=dt_tab[t_ids, st].to(odt),
+                dh=(prop_h - bh).to(odt), dw=(prop_w - bw).to(odt))
 
 
 def dists_at_positions(vid0, vid1, prop_h, prop_w, tj_k, valid, *, ps,
@@ -141,8 +150,12 @@ def dists_at_positions(vid0, vid1, prop_h, prop_w, tj_k, valid, *, ps,
     are read at reflected pixels (bilinear for float, at reflected
     corners). Returns dists [B,HD,T,nH,nW,K], differentiable in vid0, vid1
     and (float path) the positions; invalid cells carry init_val and zero
-    gradients.
+    gradients. In chunk mode the videos hold T + 2*halo frames: the
+    queries are their interior, tj_k indexes them.
     """
+    T = prop_h.shape[2]
+    halo = (vid0.shape[2] - T) // 2
+    vid0 = vid0[:, :, halo:halo + T]
     B, HD, T, F, H, W = vid0.shape
     nH, nW = num_queries(H, W, stride0)
     is_int = (itype == "int")
@@ -213,7 +226,8 @@ def dists_at_positions(vid0, vid1, prop_h, prop_w, tj_k, valid, *, ps,
 
 def nls_dists_at_cells(vid0, vid1, flows, cells, *, ws, wt, ps, stride0,
                        stride1, dist_type="l2", dilation=1, full_ws=True,
-                       use_adj=False, itype="float"):
+                       use_adj=False, itype="float", query_t0=None,
+                       T_global=None):
     """Differentiably recompute search distances at selected window cells:
     `cells_geometry` then `dists_at_positions`.
 
@@ -228,7 +242,8 @@ def nls_dists_at_cells(vid0, vid1, flows, cells, *, ws, wt, ps, stride0,
     H, W = vid0.shape[-2:]
     geo = cells_geometry(flows, cells, H=H, W=W, ws=ws, wt=wt,
                          stride0=stride0, stride1=stride1, full_ws=full_ws,
-                         itype=itype)
+                         itype=itype, query_t0=query_t0, T_global=T_global,
+                         halo=(vid0.shape[2] - cells.shape[2]) // 2)
     dists = dists_at_positions(
         vid0, vid1, geo["prop_h"], geo["prop_w"], geo["tj_k"], geo["valid"],
         ps=ps, stride0=stride0, dist_type=dist_type, dilation=dilation,

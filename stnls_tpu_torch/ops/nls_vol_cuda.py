@@ -18,13 +18,19 @@ the gradients to both videos and to the centres.
 `nls_volume_bwd_plain` (its VJP) are the kernels' plain PyTorch versions.
 The wrappers take them only for tensors on the CPU; for a CUDA tensor they
 launch the kernel or raise.
+
+All of them take the temporal-chunk mode of time sharding, as
+nls_pallas_volume does (B12): with query_t0 and T_global the videos hold
+the T_local query frames plus `halo` frames on each side (halo = (T_v -
+T_local) / 2 >= 2*wt), the centres and the volume the T_local query
+frames, and the windows are the whole sequence's (ops/nls.chunk_frames).
 """
 
 import torch
 
 from stnls_tpu_torch.ops import cuda_lib
 from stnls_tpu_torch.ops.geometry import num_queries
-from stnls_tpu_torch.ops.nls import volume_at_centres
+from stnls_tpu_torch.ops.nls import volume_at_centres, chunk_frames
 
 
 # B5 takes its body with ps and F compiled in for the pairs
@@ -43,13 +49,18 @@ nls_volume_plain = volume_at_centres
 
 
 def _check(name, vid0, vid1, ctr_h, ctr_w, cfg, extra=()):
-    B, HD, T, F, H, W = vid0.shape
+    """Raise on what B5/B6 do not take; returns the shapes and the chunk
+    (t0, T_global, halo)."""
+    B, HD, T_v, F, H, W = vid0.shape
     for what, x in (("vid0", vid0), ("vid1", vid1), ("ctr_h", ctr_h),
                     ("ctr_w", ctr_w)) + tuple(extra):
         if x.device != vid0.device or x.dtype != torch.float32:
             raise TypeError(f"{name}: {what} must be float32 on vid0's CUDA "
                             "device")
-    W_t = min(2 * cfg["wt"] + 1, T)
+    T = ctr_h.shape[2]
+    chunk = chunk_frames(T, T_v, cfg["wt"], cfg.get("query_t0"),
+                         cfg.get("T_global"))
+    W_t = min(2 * cfg["wt"] + 1, chunk[1])
     nH, nW = num_queries(H, W, cfg["stride0"])
     if vid0.ndim != 6 or vid1.shape != vid0.shape or \
             ctr_h.shape != (B, HD, T, W_t, nH, nW) or \
@@ -68,32 +79,37 @@ def _check(name, vid0, vid1, ctr_h, ctr_w, cfg, extra=()):
                          "stride1 > 0")
     if int(cfg["dilation"]) != cfg["dilation"] or cfg["dilation"] < 1:
         raise NotImplementedError(f"{name}: integer dilation >= 1 only")
-    return B, HD, T, F, H, W, W_t, nH, nW
+    return (B, HD, T, F, H, W, W_t, nH, nW), (T_v,) + chunk
 
 
-def _scalars(cfg, F, H, W, nH, nW, W_t, B, HD, T):
-    """The kernels' shared integer and float arguments, in their C order."""
+def _scalars(cfg, shape, frames):
+    """The kernels' shared integer and float arguments, in their C order:
+    the shapes, the video frames T_v and the chunk (t0, T_global, halo),
+    then the search's."""
+    B, HD, T, F, H, W, W_t, nH, nW = shape
     s1 = _stride1(cfg["stride1"], cfg["itype"])
-    return (B, HD, T, F, H, W, nH, nW, W_t, cfg["ws"], cfg["wt"], cfg["ps"],
-            cfg["stride0"], int(cfg["dilation"]), s1,
-            s1 * ((cfg["ws"] - 1) // 2), int(cfg["dist_type"] == "l2"),
-            int(bool(cfg["full_ws"])), int(bool(cfg["use_adj"])),
-            int(cfg["itype"] == "int"))
+    return (B, HD, T, F, H, W, nH, nW, W_t) + frames + (
+        cfg["ws"], cfg["wt"], cfg["ps"], cfg["stride0"],
+        int(cfg["dilation"]), s1, s1 * ((cfg["ws"] - 1) // 2),
+        int(cfg["dist_type"] == "l2"), int(bool(cfg["full_ws"])),
+        int(bool(cfg["use_adj"])), int(cfg["itype"] == "int"))
 
 
 def nls_volume(vid0, vid1, ctr_h, ctr_w, *, ws, wt, ps, stride0, stride1,
                dist_type="l2", dilation=1, full_ws=True, use_adj=False,
-               itype="float"):
+               itype="float", query_t0=None, T_global=None):
     """B5, the search volume. vid0, vid1 [B,HD,T,F,H,W]; ctr_h, ctr_w
     [B,HD,T,W_t,nH,nW] reflected centres (ops/nls.search_centres; integers
-    in the int path). Returns dists [B,HD,T,W_t,ws,ws,nH,nW]."""
+    in the int path). Returns dists [B,HD,T,W_t,ws,ws,nH,nW]. Chunk mode:
+    see the module's docstring."""
     cfg = dict(ws=ws, wt=wt, ps=ps, stride0=stride0, stride1=stride1,
                dist_type=dist_type, dilation=dilation, full_ws=full_ws,
-               use_adj=use_adj, itype=itype)
+               use_adj=use_adj, itype=itype, query_t0=query_t0,
+               T_global=T_global)
     if vid0.device.type == "cpu":
         return nls_volume_plain(vid0, vid1, ctr_h, ctr_w, **cfg)
-    B, HD, T, F, H, W, W_t, nH, nW = _check("nls_volume", vid0, vid1, ctr_h,
-                                            ctr_w, cfg)
+    shape, frames = _check("nls_volume", vid0, vid1, ctr_h, ctr_w, cfg)
+    B, HD, T, F, H, W, W_t, nH, nW = shape
     vid0, vid1 = vid0.contiguous(), vid1.contiguous()
     ctr_h, ctr_w = ctr_h.contiguous(), ctr_w.contiguous()
     dists = torch.empty((B, HD, T, W_t, ws, ws, nH, nW), dtype=torch.float32,
@@ -103,8 +119,7 @@ def nls_volume(vid0, vid1, ctr_h, ctr_w, *, ws, wt, ps, stride0, stride1,
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.stnls_nls_vol_fwd(
             vid0.data_ptr(), vid1.data_ptr(), ctr_h.data_ptr(),
-            ctr_w.data_ptr(), dists.data_ptr(),
-            *_scalars(cfg, F, H, W, nH, nW, W_t, B, HD, T),
+            ctr_w.data_ptr(), dists.data_ptr(), *_scalars(cfg, shape, frames),
             int(COMPILED_BODY), stream)
     cuda_lib.check_launch(err, "nls_volume")
     nls_volume.launches += 1
@@ -154,8 +169,9 @@ def nls_volume_bwd(vid0, vid1, ctr_h, ctr_w, g_d, cfg):
     gradients are 0 in the int path."""
     if vid0.device.type == "cpu":
         return nls_volume_bwd_plain(vid0, vid1, ctr_h, ctr_w, g_d, cfg)
-    B, HD, T, F, H, W, W_t, nH, nW = _check(
-        "nls_volume_bwd", vid0, vid1, ctr_h, ctr_w, cfg, (("g_d", g_d),))
+    shape, frames = _check("nls_volume_bwd", vid0, vid1, ctr_h, ctr_w, cfg,
+                           (("g_d", g_d),))
+    B, HD, T, F, H, W, W_t, nH, nW = shape
     ws = cfg["ws"]
     if g_d.shape != (B, HD, T, W_t, ws, ws, nH, nW):
         raise ValueError("nls_volume_bwd: g_d [B,HD,T,W_t,ws,ws,nH,nW] "
@@ -174,7 +190,7 @@ def nls_volume_bwd(vid0, vid1, ctr_h, ctr_w, g_d, cfg):
             vid0.data_ptr(), vid1.data_ptr(), ctr_h.data_ptr(),
             ctr_w.data_ptr(), g_d.data_ptr(), g_vid0.data_ptr(),
             g_vid1.data_ptr(), g_ctr_h.data_ptr(), g_ctr_w.data_ptr(),
-            *_scalars(cfg, F, H, W, nH, nW, W_t, B, HD, T), stream)
+            *_scalars(cfg, shape, frames), stream)
     cuda_lib.check_launch(err, "nls_volume_bwd")
     nls_volume_bwd.launches += 1
     return g_vid0, g_vid1, g_ctr_h, g_ctr_w
@@ -201,11 +217,14 @@ class _SearchVolume(torch.autograd.Function):
 
 def search_volume(vid0, vid1, ctr_h, ctr_w, *, ws, wt, ps, stride0,
                   stride1, dist_type="l2", dilation=1, full_ws=True,
-                  use_adj=False, itype="float"):
+                  use_adj=False, itype="float", query_t0=None,
+                  T_global=None):
     """The search volume dists [B,HD,T,W_t,ws,ws,nH,nW] at the centres
     ctr_h, ctr_w [B,HD,T,W_t,nH,nW] (ops/nls.search_centres),
-    differentiable in vid0, vid1 and the centres through B6."""
+    differentiable in vid0, vid1 and the centres through B6 (in chunk
+    mode with query_t0, T_global)."""
     cfg = dict(ws=ws, wt=wt, ps=ps, stride0=stride0, stride1=stride1,
                dist_type=dist_type, dilation=dilation, full_ws=full_ws,
-               use_adj=use_adj, itype=itype)
+               use_adj=use_adj, itype=itype, query_t0=query_t0,
+               T_global=T_global)
     return _SearchVolume.apply(vid0, vid1, ctr_h, ctr_w, cfg)

@@ -20,7 +20,9 @@ config and the video shape alone:
     the offsets of every cell (ops/nls_k.aux_to_inds3), then the
     self_action and top-K menu `_self_action_topk`, as `nls_pallas_volume`
     and the lattice engine feed it in the JAX package.
-On CPU tensors every kernel runs its plain version.
+On CPU tensors every kernel runs its plain version. `nls_pipeline` also
+runs one temporal chunk of a time-sharded search (query_t0, T_global:
+ops/nls.chunk_frames), the rank body of stnls_tpu_torch/parallel.
 
 Ported: every self_action and topk_mode, with pt=1, reflect_bounds=True,
 no query offsets (strideQ, off_Hq/off_Wq), no ws_interior, integer
@@ -189,13 +191,13 @@ def _sparse_k_pad_ok(cfg, vid_shape):
     return int(cfg["dilation"]) * (cfg["ps"] - 1) + 2 <= min(H, W) - 1
 
 
-def search_route(cfg, vid_shape):
+def search_route(cfg, vid_shape, T_global=None):
     """The route nls_pipeline takes for `cfg` on videos of vid_shape
-    [B,HD,T,F,H,W], on every device: "topk" (B1 selects, B2 backward) or
-    "volume" (B5/B6 and the menu). A lazy top-K with more ranked slots
-    than B1 keeps takes the volume: both give the exact top-K of the same
-    volume."""
-    T = vid_shape[2]
+    [B,HD,T,F,H,W] (a chunk of a sequence of T_global frames when given),
+    on every device: "topk" (B1 selects, B2 backward) or "volume" (B5/B6
+    and the menu). A lazy top-K with more ranked slots than B1 keeps takes
+    the volume: both give the exact top-K of the same volume."""
+    T = vid_shape[2] if T_global is None else T_global
     n_cells = min(2 * cfg["wt"] + 1, T) * cfg["ws"] ** 2
     lazy = (_lazy_topk_ok(cfg)
             and cfg.get("grad", "auto") in ("auto", "sparse_k")
@@ -205,7 +207,7 @@ def search_route(cfg, vid_shape):
     return "topk" if lazy else "volume"
 
 
-def _select_cells(vid0, vid1, flows, cfg):
+def _select_cells(vid0, vid1, flows, cfg, chunk):
     """Selected dists and flat window-cell ids [B,HD,T,nH,nW,K] (f32,
     int32), from the search kernel. Callers pass detached inputs under
     no_grad: selection is not differentiable."""
@@ -215,21 +217,22 @@ def _select_cells(vid0, vid1, flows, cfg):
         stride1=cfg["stride1"], k=cfg["k"],
         anchor=cfg["self_action"] is not None, dist_type=cfg["dist_type"],
         dilation=int(cfg["dilation"]), full_ws=cfg["full_ws"],
-        use_adj=cfg["use_adj"], itype=cfg["itype"])
+        use_adj=cfg["use_adj"], itype=cfg["itype"], **chunk)
 
 
-def _sparse_assemble(vid0, vid1, flows, d_sel, cells, cfg):
+def _sparse_assemble(vid0, vid1, flows, d_sel, cells, cfg, chunk):
     """The selected dists with their gradient (B2) and the cells'
     offsets, both differentiable in the flows through the geometry."""
     H, W = vid0.shape[-2:]
     geo = cells_geometry(flows, cells, H=H, W=W, ws=cfg["ws"], wt=cfg["wt"],
                          stride0=cfg["stride0"], stride1=cfg["stride1"],
-                         full_ws=cfg["full_ws"], itype=cfg["itype"])
+                         full_ws=cfg["full_ws"], itype=cfg["itype"],
+                         halo=(vid0.shape[2] - cells.shape[2]) // 2, **chunk)
     d = search_dists(vid0, vid1, geo["prop_h"], geo["prop_w"], d_sel,
                      geo["tj_k"], geo["valid"], ps=cfg["ps"],
                      stride0=cfg["stride0"], dist_type=cfg["dist_type"],
                      dilation=int(cfg["dilation"]), use_adj=cfg["use_adj"],
-                     itype=cfg["itype"])
+                     itype=cfg["itype"], **chunk)
     inds = torch.stack([geo["dt"], geo["dh"], geo["dw"]], dim=-1)
     if cfg["self_action"] in ("anchor", "anchor_self"):
         # anchored slot-0 offsets are exact zeros; its dist is the self
@@ -239,12 +242,12 @@ def _sparse_assemble(vid0, vid1, flows, d_sel, cells, cfg):
     return d, inds
 
 
-def _volume_search(vid0, vid1, flows, cfg):
+def _volume_search(vid0, vid1, flows, cfg, chunk):
     """The full volume (B5, backward B6) at the flows' centres, the
     offsets of every cell, then the self_action and top-K menu."""
     kw = dict(ws=cfg["ws"], wt=cfg["wt"], stride0=cfg["stride0"],
               stride1=cfg["stride1"], full_ws=cfg["full_ws"],
-              itype=cfg["itype"])
+              itype=cfg["itype"], **chunk)
     aux = search_aux(vid0.shape, flows, **kw)
     dists = search_volume(
         vid0, vid1, aux["ctr_h"], aux["ctr_w"], ps=cfg["ps"],
@@ -256,22 +259,25 @@ def _volume_search(vid0, vid1, flows, cfg):
         k=cfg["k"], wt=cfg["wt"], dist_type=cfg["dist_type"])
 
 
-def nls_pipeline(vid0, vid1, flows, cfg):
+def nls_pipeline(vid0, vid1, flows, cfg, query_t0=None, T_global=None):
     """Forward: the lazy top-K route (select the K cells and their dists,
     then attach the geometry and the backward) where `search_route` takes
     it, else the full volume. vid0/vid1 [B,HD,T,F,H,W]; flows
     [B,HDf,T,W_t(-1),2,nH,nW] -> (dists [B,HD,T,nH,nW,K],
-    inds [B,HD,T,nH,nW,K,3])."""
+    inds [B,HD,T,nH,nW,K,3]). With query_t0 and T_global, one temporal
+    chunk: the videos hold the flows' T query frames plus a halo on each
+    side, and the outputs cover the query frames."""
     why = _not_ported(cfg)
     if why is not None:
         raise NotImplementedError(
             f"NonLocalSearch with {why} is not yet ported, see ROADMAP")
-    if search_route(cfg, vid0.shape) == "volume":
-        return _volume_search(vid0, vid1, flows, cfg)
+    chunk = dict(query_t0=query_t0, T_global=T_global)
+    if search_route(cfg, vid0.shape, T_global) == "volume":
+        return _volume_search(vid0, vid1, flows, cfg, chunk)
     with torch.no_grad():
         d_sel, cells = _select_cells(vid0.detach(), vid1.detach(),
-                                     flows.detach(), cfg)
-    return _sparse_assemble(vid0, vid1, flows, d_sel, cells, cfg)
+                                     flows.detach(), cfg, chunk)
+    return _sparse_assemble(vid0, vid1, flows, d_sel, cells, cfg, chunk)
 
 
 class _ScaleGrad(torch.autograd.Function):

@@ -13,7 +13,7 @@ from stnls_tpu_torch.ops import agg_cuda, agg_sp_cuda, nls_cuda, nls_vol_cuda
 from stnls_tpu_torch.ops.nls_k import nls_dists_at_cells, cells_geometry
 
 from torch_port_helpers import assert_close, assert_grad_close, \
-    assert_cells_match
+    assert_cells_match, halo_chunk
 
 pytestmark = pytest.mark.cuda
 B, HD, T, F, H, W = 1, 2, 3, 8, 32, 32
@@ -554,3 +554,145 @@ def test_sp_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         agg_sp_cuda.nl_pool(vid, weights, flows, ps=3, stride0=1,
                             dilation=1.5)
+
+
+# -- temporal-chunk mode (time sharding): B1, B2, B5, B6 --
+CHUNK = dict(T=8, T_local=4, wt=2, halo=4)
+
+
+def _chunk_inputs(dev, seed=11, F=8, H=32):
+    """A whole sequence of CHUNK["T"] frames and its search flows."""
+    from stnls_tpu_torch.nn.flow import search_flow
+    rng = np.random.default_rng(seed)
+
+    def t(x):
+        return torch.from_numpy(x.astype(np.float32)).to(dev)
+
+    shape = (1, 2, CHUNK["T"], F, H, H)
+    v0, v1 = t(rng.standard_normal(shape)), t(rng.standard_normal(shape))
+    fflow, bflow = (t(1.5 * rng.standard_normal((1, CHUNK["T"], 2, H, H)))
+                    for _ in range(2))
+    flows = search_flow(fflow, bflow, CHUNK["wt"], 1)[:, None].contiguous()
+    return v0, v1, flows
+
+
+def _chunk(x, t0, halo=CHUNK["halo"], frames=CHUNK["T_local"]):
+    return halo_chunk(x, t0, frames, halo)
+
+
+@pytest.mark.parametrize("itype", ["float", "int"])
+@pytest.mark.parametrize("t0", [0, CHUNK["T_local"]])
+@pytest.mark.parametrize("compiled", [True, False])
+def test_chunk_kernels_match_plain(dev, itype, t0, compiled):
+    """B1 and B5 in chunk mode bitwise equal to their plain chunk
+    versions, in the compiled (3, 8) and the run-time body; B2 and B6 at
+    1e-4 * max|ref| on seeded cotangents."""
+    from stnls_tpu_torch.ops.nls import search_centres
+    from stnls_tpu_torch.ops.nls_k import cells_geometry
+    v0, v1, flows = _chunk_inputs(dev)
+    Tl, T = CHUNK["T_local"], CHUNK["T"]
+    v0p, v1p = _chunk(v0, t0), _chunk(v1, t0)
+    fl = flows[:, :, t0:t0 + Tl].contiguous()
+    stride1 = 0.5 if itype == "float" else 1
+    kw = dict(ws=5, wt=CHUNK["wt"], ps=3, stride0=1, stride1=stride1,
+              itype=itype, query_t0=t0, T_global=T)
+    saved = nls_cuda.COMPILED_BODY, nls_vol_cuda.COMPILED_BODY
+    nls_cuda.COMPILED_BODY = nls_vol_cuda.COMPILED_BODY = compiled
+    try:
+        d, c = nls_cuda.nls_topk(v0p, v1p, fl, k=10, anchor=True, **kw)
+        ctr = [x.contiguous() for x in search_centres(
+            v0p.shape, fl, wt=CHUNK["wt"], stride0=1, itype=itype,
+            T_global=T)]
+        vol = nls_vol_cuda.nls_volume(v0p, v1p, *ctr, **kw)
+    finally:
+        nls_cuda.COMPILED_BODY, nls_vol_cuda.COMPILED_BODY = saved
+    d_p, c_p = nls_cuda.nls_topk_plain(v0p, v1p, fl, k=10, anchor=True, **kw)
+    assert d.shape == (1, 2, Tl, 32, 32, 10)
+    assert torch.equal(d, d_p) and torch.equal(c, c_p)
+    assert torch.equal(vol, nls_vol_cuda.nls_volume_plain(v0p, v1p, *ctr,
+                                                          **kw))
+    gen = torch.Generator(dev).manual_seed(2)
+    cfg = dict(kw, dist_type="l2", dilation=1, full_ws=True, use_adj=False)
+    g_vol = torch.randn(vol.shape, device=dev, generator=gen)
+    g_k = nls_vol_cuda.nls_volume_bwd(v0p, v1p, *ctr, g_vol, cfg)
+    g_p = nls_vol_cuda.nls_volume_bwd_plain(v0p, v1p, *ctr, g_vol, cfg)
+    for a, b, name in zip(g_k[:2], g_p[:2], ("B6 g_vid0", "B6 g_vid1")):
+        assert_grad_close(a, b, name)
+    geo = cells_geometry(fl, c, H=32, W=32, ws=5, wt=CHUNK["wt"], stride0=1,
+                         stride1=stride1, itype=itype, query_t0=t0,
+                         T_global=T, halo=CHUNK["halo"])
+    pos = (geo["prop_h"], geo["prop_w"], geo["tj_k"], geo["valid"])
+    g_d = torch.randn(d.shape, device=dev, generator=gen)
+    bcfg = dict(ps=3, stride0=1, dist_type="l2", dilation=1, use_adj=False,
+                itype=itype)
+    g_k = nls_cuda.nls_topk_bwd(v0p, v1p, *pos, g_d, bcfg, t0, T)
+    g_p = nls_cuda.nls_topk_bwd_plain(v0p, v1p, *pos, g_d, bcfg, t0, T)
+    for a, b, name in zip(g_k[:2], g_p[:2], ("B2 g_vid0", "B2 g_vid1")):
+        assert_grad_close(a, b, name)
+    # the halo frames a window never reads carry no gradient
+    assert not g_k[0][:, :, :CHUNK["halo"]].any()
+
+
+def test_chunks_equal_the_whole_video_on_the_kernels(dev):
+    """B1's and B5's chunks, joined over the sequence, equal the whole
+    video's outputs bitwise."""
+    from stnls_tpu_torch.ops.nls import search_centres
+    v0, v1, flows = _chunk_inputs(dev, seed=12)
+    Tl, T = CHUNK["T_local"], CHUNK["T"]
+    kw = dict(ws=5, wt=CHUNK["wt"], ps=3, stride0=1, stride1=0.5)
+    d_all, c_all = nls_cuda.nls_topk(v0, v1, flows, k=10, anchor=True, **kw)
+    ctr = [x.contiguous() for x in search_centres(v0.shape, flows,
+                                                  wt=CHUNK["wt"], stride0=1)]
+    vol_all = nls_vol_cuda.nls_volume(v0, v1, *ctr, **kw)
+    for t0 in range(0, T, Tl):
+        v0p, v1p = _chunk(v0, t0), _chunk(v1, t0)
+        ck = dict(kw, query_t0=t0, T_global=T)
+        d, c = nls_cuda.nls_topk(v0p, v1p,
+                                 flows[:, :, t0:t0 + Tl].contiguous(), k=10,
+                                 anchor=True, **ck)
+        vol = nls_vol_cuda.nls_volume(
+            v0p, v1p, *(x[:, :, t0:t0 + Tl].contiguous() for x in ctr), **ck)
+        sl = slice(t0, t0 + Tl)
+        assert torch.equal(d, d_all[:, :, sl])
+        assert torch.equal(c, c_all[:, :, sl])
+        assert torch.equal(vol, vol_all[:, :, sl])
+
+
+def test_chunk_wrappers_raise_on_a_short_halo(dev):
+    v0, v1, flows = _chunk_inputs(dev)
+    with pytest.raises(ValueError):
+        nls_cuda.nls_topk(_chunk(v0, 0, halo=2), _chunk(v1, 0, halo=2),
+                          flows[:, :, :4].contiguous(), ws=5, wt=2, ps=3,
+                          stride0=1, stride1=1, k=4, anchor=True,
+                          query_t0=0, T_global=8)
+
+
+def test_time_sharded_search_on_a_world_of_one(dev):
+    """time_sharded_search on a one-rank NCCL mesh equals the search of
+    the whole video, forward and backward into both videos."""
+    import torch.distributed as dist
+    from stnls_tpu_torch.parallel import make_mesh, time_sharded_search
+    from stnls_tpu_torch.search import NonLocalSearch
+    v0, v1, flows = _chunk_inputs(dev, seed=13)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh({"data": 1, "time": 1})
+        outs = []
+        for run in ("whole", "sharded"):
+            a, b = v0.clone().requires_grad_(), v1.clone().requires_grad_()
+            if run == "whole":
+                d, i = NonLocalSearch(5, CHUNK["wt"], 3, 10, stride1=0.5,
+                                      self_action="anchor")(a, b, flows)
+            else:
+                d, i = time_sharded_search(a, b, flows, mesh, ws=5,
+                                           wt=CHUNK["wt"], ps=3, k=10,
+                                           stride1=0.5, self_action="anchor")
+            outs.append((d, i) + torch.autograd.grad(d.pow(2).sum(),
+                                                     (a, b)))
+    finally:
+        dist.destroy_process_group()
+    (d, i, g0, g1), (d_s, i_s, g0_s, g1_s) = outs
+    assert torch.equal(d, d_s) and torch.equal(i, i_s)
+    assert_grad_close(g0_s, g0, "g_vid0")
+    assert_grad_close(g1_s, g1, "g_vid1")
