@@ -65,8 +65,8 @@ Phases, in order; any failure raises and exits non-zero:
      on a 270x480 crop for 5 and 7, under the rules of phase 5;
  13. times: the four matrix steps; B1, B5 and B6 at (ps, F a head) =
      (1, 2) and (1, 16) against their plain versions, with their bounds;
-     the bodies of B1 and B5 with (ps, F) compiled in ((3, 8); B5 also
-     (3, 16)) against the run-time body;
+     the bodies of B1 and B5 with (ps, F) compiled in (B1 (3, 8) and
+     (1, 2); B5 (3, 8) and (3, 16)) against the run-time body;
  14. time sharding (stnls_tpu_torch/parallel), the temporal-chunk mode
      of B1, B2, B5 and B6: (a) each against its plain chunk version, B1
      and B5 bitwise (B1's cells too, compiled and run-time bodies), B2
@@ -208,16 +208,33 @@ def build_phase(cuda_lib):
     secs = time.perf_counter() - t0
     log(f"[build] {'built' if lib.built else 'loaded'} {lib.path.name} "
         f"in {secs:.1f} s")
-    # registers and spills of the kernels the main paths launch
+    # registers and spills of the kernels the main paths launch, and the
+    # stack frame of each B1 body
     func = None
+    b1_frames = {}
     for line in lib.log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             func = m.group(1)
-        elif func and ("ILi3ELi8E" in func or "ILi0ELi0E" in func
-                       or "agg_" in func or "nls_topk_bwd" in func) and \
+            continue
+        if not func:
+            continue
+        b1 = re.search(r"nls_topk_kernelILi(\d+)ELi(\d+)E", func)
+        if b1 and "stack frame" in line:
+            frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                              r"stores, (\d+) bytes spill loads", line)
+            b1_frames[tuple(int(x) for x in b1.groups())] = frame.groups()
+        if (b1 or "agg_" in func or "nls_topk_bwd" in func or
+                "ILi3ELi8E" in func or "ILi0ELi0E" in func) and \
                 ("registers" in line or "spill" in line):
-            log(f"[build] {func[:48]}: {line.strip()}")
+            log(f"[build] {func[:56]}: {line.strip()}")
+    log("[build] B1 bodies ((ps, F); (0, 0) the run-time one): stack frame "
+        "/ spill stores / spill loads bytes: " + "; ".join(
+            f"{body}: {'/'.join(fr)}"
+            for body, fr in sorted(b1_frames.items())))
+    log("[build] B1 reads the key patches through L1/L2 (no shared key "
+        "tile): every (block, time slot) pair reads vid1 from global "
+        "memory, share 1.0")
     return secs
 
 
@@ -437,6 +454,22 @@ def kernel_phase(torch, dev, name, cfg):
             f"max|kernel-plain| {err:.3e}")
     log(f"[kernels] B4 {name}: offset gradients compared at "
         f"{int(off.sum())} of {off.numel()} (q, k) off integer coordinates")
+    # B4's global atomics: the flush of the shared boxes and the entries
+    # whose frame got no box, against the first version's one per (query,
+    # slot, in-frame tap, channel, bilinear corner)
+    stats = torch.zeros(4, dtype=torch.int64, device=dev)
+    agg_cuda.nl_gather_stack_bwd(*b4_args, stats=stats)
+    flush, direct, n_global, n_all = stats.tolist()
+    first = taps_in_frame(H, H, 3) ** 2 * B * HD * T * c_k.shape[-1] * F * 4
+    b4_atomics = dict(global_atomics=flush + direct, flush=flush,
+                      direct=direct, first_version=first,
+                      entries_global_share=n_global / max(n_all, 1))
+    log(f"[kernels] B4 {name}: global atomics per backward {flush + direct} "
+        f"({flush} flushed from shared boxes, {direct} of entries with no "
+        f"box); the first version's {first} ("
+        f"{first / max(flush + direct, 1):.1f}x more); entries sent to "
+        f"global memory {n_global} of {n_all} (share "
+        f"{n_global / max(n_all, 1):.4f})")
 
     # bounds at this config, from these inputs
     def nb(*xs):
@@ -463,6 +496,7 @@ def kernel_phase(torch, dev, name, cfg):
     }
     return dict(err={"B1": err_b1, "B2": max(errs_b2), "B3": err_b3,
                      "B4": max(errs_b4)}, share=share, bounds=bounds,
+                b4_atomics=b4_atomics,
                 inputs=(vid0, vid1, flows, weights, inds), kw=kw,
                 b2_args=b2_args, b4_args=b4_args)
 
@@ -1146,7 +1180,8 @@ def run_time_body():
 
 def compiled_vs_run_time(torch, dev, smi_line, res, vres):
     """At the slice config, (ps, F a head) = (3, 8) (its kernel checks'
-    inputs) and (3, 16) (the same shape with one head of 16): each body
+    inputs), (3, 16) (the same shape with one head of 16) and (1, 2) (the
+    1080p alignment search's pair, on two heads of 2 at 256^2): each body
     with ps and F compiled in (the pairs B1's and B5's sources list) against
     the run-time body, first for bitwise equal outputs, then timed in turns
     (compiled, run-time, run-time, compiled). Returns {pair: {kernel:
@@ -1161,13 +1196,17 @@ def compiled_vs_run_time(torch, dev, smi_line, res, vres):
                                  H=128, W=128, wt=2)
     uc = tuple(x.contiguous() for x in search_centres(
         u0.shape, uflows, wt=2, stride0=1))
+    p12 = make_inputs(torch, rng, dev, B=1, HD=2, T=5, F=2, H=256, W=256,
+                      wt=2)
     cases = {(3, 8): (res["inputs"][:3], vres["b5_args"]),
-             (3, 16): ((u0, u1, uflows), (u0, u1) + uc)}
+             (3, 16): ((u0, u1, uflows), (u0, u1) + uc),
+             (1, 2): (p12, None)}
     out = {}
     for pair, (b1_args, b5_args) in cases.items():
         calls = {}      # each returns a tuple of tensors
+        b1_kw = dict(kw, ps=pair[0])
         if lib.stnls_nls_topk_compiled(*pair):
-            calls["B1"] = lambda: nls_cuda.nls_topk(*b1_args, **kw)
+            calls["B1"] = lambda: nls_cuda.nls_topk(*b1_args, **b1_kw)
         if lib.stnls_nls_vol_compiled(*pair):
             calls["B5"] = lambda: (nls_vol_cuda.nls_volume(*b5_args,
                                                            **vkw),)
@@ -1330,7 +1369,8 @@ def full_frame_phase(torch, name, inputs, rows=FULL_BAND_ROWS,
     cotangent against its plain version, run over chunks of `frames` query
     frames (each against all key frames, g_vid1 summed over the chunks):
     1e-4 * max|ref|, position gradients off the integer lattice. A float
-    search (configs 5 and 7). Returns B2's largest error."""
+    search (configs 5 and 7). Returns B2's largest error and its bound on
+    these frames (bound_ms, summed over the heads)."""
     from stnls_tpu_torch import matrix_steps as ms
     from stnls_tpu_torch.ops import nls_cuda
     from stnls_tpu_torch.ops.geometry import time_window_frames
@@ -1349,6 +1389,7 @@ def full_frame_phase(torch, name, inputs, rows=FULL_BAND_ROWS,
     tj = torch.as_tensor(time_window_frames(T, wt), device=dev)
     gen = torch.Generator(device=dev).manual_seed(SEED + 12)
     err2, n_off = 0., 0
+    b2_bytes, b2_flops = 0, 0     # B2's bound, summed over the heads
     for h in range(HD):
         v = v_all[:, h:h + 1].contiguous()
         with torch.no_grad():
@@ -1377,6 +1418,10 @@ def full_frame_phase(torch, name, inputs, rows=FULL_BAND_ROWS,
         pos = (geo["prop_h"], geo["prop_w"], geo["tj_k"], geo["valid"])
         g_d = torch.randn(d_k.shape, generator=gen, device=dev)
         g_k = nls_cuda.nls_topk_bwd(v, v, *pos, g_d, bwd_cfg)
+        b2_bytes += sum(x.numel() * x.element_size() for x in (
+            v, v, geo["prop_h"], geo["prop_w"], g_d, *g_k)) + 4 * g_d.numel()
+        b2_flops += int((geo["valid"] & (g_d != 0)).sum()) * ps * ps * F \
+            * FLOPS_PER_TAP["B2"]
         g_p = [torch.zeros_like(v), torch.zeros_like(v),
                torch.empty_like(pos[0]), torch.empty_like(pos[1])]
         for t0 in range(0, T, frames):
@@ -1398,12 +1443,14 @@ def full_frame_phase(torch, name, inputs, rows=FULL_BAND_ROWS,
             err2 = max(err2, grad_close(gk, gp, f"B2 {name} head {h} "
                                                 f"{what}")[0])
         del d_k, c_k, geo, pos, g_d, g_k, g_p, off
+    b2_bound = bound_ms(b2_bytes, b2_flops)
     log(f"[matrix] {name} at the full {H}x{W}, {HD} heads: B1 dists and "
         f"cells equal to the plain volume's bitwise ({rows}-row bands); B2 "
         f"on a seeded cotangent max|kernel-plain| {err2:.3e} (plain over "
         f"{frames}-frame chunks; position gradients compared at {n_off} of "
-        f"{B * HD * T * H * W * K} (query, slot))")
-    return err2
+        f"{B * HD * T * H * W * K} (query, slot)); B2's bound on these "
+        f"frames {b2_bound[0]:.4f} ms by {b2_bound[1]}")
+    return err2, b2_bound
 
 
 def ps1_kernel_times(torch, dev, smi_line, matrix):
@@ -1433,6 +1480,13 @@ def ps1_kernel_times(torch, dev, smi_line, matrix):
         with torch.no_grad():
             t_full = cuda_ms(lambda: nls_cuda.nls_topk(v, v, fl, **b1), n=5,
                              warm=1)
+        # B1's bound at the full size: every cell of every window (full_ws
+        # keeps the windows in the frame), outputs of K slots
+        Bf, HDf, Tf, Ff, Hf, Wf = v.shape
+        nq, W_t = Bf * HDf * Tf * Hf * Wf, min(2 * cfg["wt"] + 1, Tf)
+        full_bound = bound_ms(nb(v, v, fl) + 2 * 4 * nq * cfg["K"],
+                              nq * W_t * cfg["ws"] ** 2 * Ff
+                              * FLOPS_PER_TAP["B1"])
         del v, fl
         v, fl = matrix_search_args(torch, cfg, crop_inputs(full, *MATRIX_CROP))
         r = search_kernel_case(torch, dev, v, v, fl, c, f"({label}) "
@@ -1465,11 +1519,14 @@ def ps1_kernel_times(torch, dev, smi_line, matrix):
                                 bound_ms=bounds[key][0],
                                 bound_by=bounds[key][1]) for key in t}
         out[label]["B1"]["full_size_ms"] = t_full
+        out[label]["B1"]["full_size_bound_ms"] = full_bound[0]
+        out[label]["B1"]["full_size_bound_by"] = full_bound[1]
         log(f"[times] {smi_line}: (ps, F) = ({label}) at "
             f"{MATRIX_CROP[0]}x{MATRIX_CROP[1]} of {name}: " + "; ".join(
                 f"{key} {t[key][0]:.3f} ms (plain {t[key][1]:.3f}, bound "
                 f"{bounds[key][0]:.4f} by {bounds[key][1]})" for key in t)
-            + f"; B1 at {tuple(full[0].shape[-2:])} {t_full:.3f} ms")
+            + f"; B1 at {tuple(full[0].shape[-2:])} {t_full:.3f} ms (bound "
+            f"{full_bound[0]:.4f} by {full_bound[1]})")
         del r, g, d_k, c_k, v, fl
     return out
 
@@ -1960,6 +2017,10 @@ def main():
     # 3. each kernel against its plain version
     res = kernel_phase(torch, dev, "slice 128^2", dict(H=128, wt=2, k=10,
                                                        stride1=0.5))
+    atom = res["b4_atomics"]
+    require(atom["first_version"] >= 10 * atom["global_atomics"],
+            f"B4: {atom['global_atomics']} global atomics at the slice, not "
+            f"10x below the first version's {atom['first_version']}")
     graft = kernel_phase(torch, dev, "graft 64^2", dict(H=64, wt=1, k=8,
                                                         stride1=1))
     vres = volume_kernel_phase(torch, dev, "slice 128^2",
@@ -2185,8 +2246,8 @@ def main():
     # 12. benchmarks/matrix.py's configs 1, 4, 5 and 7 at full size, and
     # config 7's B1 and B2 against their plain versions on its whole frames
     matrix = matrix_phase(torch, dev)
-    err_full = full_frame_phase(torch, "align1080p_fwd+bwd",
-                                matrix["align1080p_fwd+bwd"][1])
+    err_full, b2_full_bound = full_frame_phase(
+        torch, "align1080p_fwd+bwd", matrix["align1080p_fwd+bwd"][1])
 
     # 13. times: the matrix steps; B1, B5 and B6 at (1, 2) and (1, 16);
     # the compiled bodies of B1 and B5 against the run-time one
@@ -2282,6 +2343,8 @@ def main():
             "ms": ms, "frames_per_s": matrix[name][1][0].shape[1] / (ms / 1e3),
             "peak_gb": matrix[name][3]} for name, ms in t_matrix.items()},
         "ps1_kernels": ps1, "compiled_vs_run_time_ms": spec,
+        "b4_slice_atomics": res["b4_atomics"],
+        "b2_config7_full_frames_bound_ms": b2_full_bound[0],
         "time_sharded_config7": {
             "step_ms_in_turns": sharded["ms"][0::3],
             "time_sharded_ms_in_turns": sharded["ms"][1:3],

@@ -50,13 +50,16 @@ TOP = 8
 # the port's kernels (stnls_tpu_torch/csrc), by their device names
 PORT_KERNELS = {"B1": ("nls_topk_kernel",), "B2": ("nls_topk_bwd_kernel",),
                 "B3": ("agg_gather_kernel",),
-                "B4": ("agg_gather_bwd_kernel",),
+                "B4": ("agg_gather_bwd_tile_kernel",),
                 "B5": ("nls_vol_fwd_kernel",), "B6": ("nls_vol_bwd_kernel",),
                 "B7": ("agg_scatter_add_fwd_kernel",),
                 "B8": ("agg_scatter_add_bwd_vid_kernel",
                        "agg_scatter_add_bwd_w_kernel"),
                 "B9": ("agg_pool_fwd_kernel",),
                 "B10": ("agg_pool_bwd_kernel",)}
+# the kernels' device names in traces before their redesign, where they
+# changed
+EARLIER_NAMES = {"B4": "agg_gather_bwd_kernel"}
 
 
 def device_us(evt):
@@ -244,6 +247,9 @@ def main():
                          text=True, timeout=60)
     smi_line = smi.stdout.strip().splitlines()[0] if smi.stdout else ""
     print(smi_line, flush=True)
+    for key, old in EARLIER_NAMES.items():
+        print(f"[kernels] {key}: traced as {', '.join(PORT_KERNELS[key])} "
+              f"(before its redesign: {old})", flush=True)
     from stnls_tpu_torch.multichip_step import one_rank_mesh
     torch.cuda.set_device(0)
     with one_rank_mesh() as mesh:

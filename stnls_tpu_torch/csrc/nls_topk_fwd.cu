@@ -20,26 +20,36 @@
 // (nls_common.cuh, chunk_window_frame), and the anchor's |dt| is the
 // global frame difference.
 //
-// What bounds it on the H100: L1/L2 gather loads. At the slice config
-// (F=8 a head, ps=3, ws=5, W_t=5) one query reads 125 cells x 9 taps x 8
-// channels x 4 bilinear corners, about 36k floats, against ~72k flops:
-// the kernel is load-issue bound, not flop bound; the video (2.6 MB a
-// head at 128^2, T=5) stays resident in the 50 MB L2.
+// What bounds it on the H100: the dependent chain of each cell (geometry,
+// gather loads through L1/L2, a sum rounded one add at a time, the rank
+// test), hidden only by the warps an SM holds. At the slice config (F=8 a
+// head, ps=3, ws=5, W_t=5) one query reads 125 cells x 9 taps x 8 channels
+// x 4 bilinear corners, about 36k floats; at 1080p ((ps, F) = (1, 2),
+// W_t=7) a cell is 8 reads and ~90 instructions, 7.3e9 cells a step.
 //
-// What the design does about it: one thread per query with neighbouring
+// What the design does about it: one thread per query, neighbouring
 // threads on neighbouring qw, so a warp's corner reads of one tap fall on
 // neighbouring addresses of the same rows (coalesced, L1-resident across
-// the cells). ps and F (channels a head) are run-time arguments: the query
-// patch is read from vid0 at each use through the read-only cache
-// (GlobalQuery of nls_common.cuh). The pair listed at the dispatch below
-// also has a body with ps and F compiled in, whose query patch lives in
-// registers (RegQuery), faster there (PERF.md); the dispatch picks it
-// unless the wrapper asks for the run-time body. Both sum in one order, so
-// both give the plain volume's dists bitwise.
-// The running list of KMAX ranked slots lives in thread-local memory (L1);
-// the search sends more ranked slots to the volume route (B5).
-// No shared memory, no atomics, no allocation; deterministic.
-// Shared-memory query tiles and TMA staging of key rows are later work.
+// the cells), and few registers, so that many warps hide the chain.
+//   - Each slot's geometry (centre, window offsets, its anchor candidate)
+//     is computed once: the anchor and the cells run in one pass. The
+//     list keeps one entry more than it returns; at the end the self cell
+//     leaves it and cell 0 enters under the self cell's id, which ranks
+//     exactly as skipping the self cell during the scan.
+//   - The ranked list lives in shared memory, one column a thread (no
+//     bank conflicts), not in local memory, and not in registers: a list
+//     of NS registers (buckets of 4, 8, 16, insertion unrolled with
+//     `i < n` as a predicate) took registers from the warps that hide the
+//     chain and ran slower at every case measured (b1_variants.py in
+//     this package builds and times that variant).
+//   - The bodies with ps and F compiled in (STNLS_NLS_COMPILED) hold the
+//     query patch in registers (RegQuery); (1, 2) is the 1080p search's.
+//   - Key regions are read through L1/L2, not staged in shared memory: a
+//     block-tiled version that staged each slot's region with cp.async
+//     measured no faster on the card (PERF.md).
+// Sums run in the plain version's order without FMAs (nls_common.cuh), so
+// the dists are the plain volume's bitwise; no tensor cores, since wgmma
+// would reassociate the sums. No atomics, no allocation; deterministic.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -49,7 +59,10 @@
 
 namespace {
 
+extern __shared__ float smem_dyn[];   // the ranked lists
+
 constexpr int KMAX = 64;   // bound on the ranked slots (k, or k-1 anchored)
+constexpr int THREADS = 128;
 
 struct NlsArgs {
   const float* vid0;   // [B,HD,Tv,F,H,W]
@@ -64,6 +77,7 @@ struct NlsArgs {
   float stride1;       // float path; the int path passes max(1, int(stride1))
   float s1_half;       // stride1 * ((ws-1)/2), rounded once on the host
   int K, anchor, l2, full_ws, use_adj, is_int;
+  int nkeep;           // list entries: the ranked slots, +1 anchored
 };
 
 // Centre and window offset of time slot st along both axes. Int-path
@@ -104,9 +118,58 @@ __device__ __forceinline__ bool better(bool l2, float d, int p, float d2, int p2
   return l2 ? (d < d2 || (d == d2 && p < p2)) : (d > d2 || (d == d2 && p < p2));
 }
 
+// The ranked list of one query in shared memory: entry i of thread tid at
+// i * stride + tid, sorted by value, ties by lower position id; the last
+// entry is the reject threshold.
+struct RankList {
+  float* ld;
+  int* lp;
+  int stride, n;
+  float init;
+
+  __device__ __forceinline__ void bind(float* d, int* p, int s) {
+    ld = d;
+    lp = p;
+    stride = s;
+  }
+  __device__ __forceinline__ void start(int nkeep, float init_d) {
+    n = nkeep;
+    init = init_d;
+    for (int i = 0; i < n; ++i) { ld[i * stride] = init_d; lp[i * stride] = INT_MAX; }
+  }
+  __device__ __forceinline__ void insert(bool l2, float d, int pos) {
+    if (n == 0 || !better(l2, d, pos, ld[(n - 1) * stride], lp[(n - 1) * stride])) return;
+    int i = n - 1;
+    while (i > 0 && better(l2, d, pos, ld[(i - 1) * stride], lp[(i - 1) * stride])) {
+      ld[i * stride] = ld[(i - 1) * stride];
+      lp[i * stride] = lp[(i - 1) * stride];
+      --i;
+    }
+    ld[i * stride] = d;
+    lp[i * stride] = pos;
+  }
+  __device__ __forceinline__ void remove(int pos) {
+    int i = 0;
+    while (i < n && lp[i * stride] != pos) ++i;
+    if (i == n) return;
+    for (; i + 1 < n; ++i) {
+      ld[i * stride] = ld[(i + 1) * stride];
+      lp[i * stride] = lp[(i + 1) * stride];
+    }
+    ld[(n - 1) * stride] = init;
+    lp[(n - 1) * stride] = INT_MAX;
+  }
+  __device__ __forceinline__ void write(float* od, int* oc, int count, int self_idx) const {
+    for (int i = 0; i < count; ++i) {
+      od[i] = ld[i * stride];
+      oc[i] = (lp[i * stride] == self_idx) ? 0 : lp[i * stride];
+    }
+  }
+};
+
 // PS, FC > 0: ps and F compiled in; (0, 0): taken from the arguments.
 template <int PS, int FC>
-__global__ void __launch_bounds__(128) nls_topk_kernel(NlsArgs a) {
+__global__ void __launch_bounds__(THREADS) nls_topk_kernel(NlsArgs a) {
   const long long nq = (long long)a.B * a.HD * a.T * a.nH * a.nW;
   const long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (q >= nq) return;
@@ -131,12 +194,21 @@ __global__ void __launch_bounds__(128) nls_topk_kernel(NlsArgs a) {
   typename QueryOf<PS, FC>::type qp;
   qp.load(a, a.vid0 + (bhd_v + tq) * FHW, ref_h, ref_w);
 
-  // anchor: lexicographically first argmin of |dt| + |dh| + |dw|
+  const int nslots = a.anchor ? a.K - 1 : a.K;
+  const float init = a.l2 ? CUDART_INF_F : -CUDART_INF_F;
+  RankList list;
+  list.bind(smem_dyn + threadIdx.x,
+            reinterpret_cast<int*>(smem_dyn + a.nkeep * blockDim.x) + threadIdx.x, blockDim.x);
+  list.start(a.nkeep, init);
+  float self_d = init, d0 = init, best = CUDART_INF_F;
   int self_idx = -1;
-  if (a.anchor) {
-    float best = CUDART_INF_F;
-    for (int st = 0; st < W_t; ++st) {
-      const Slot s = slot_geometry(a, b, hd, t, qh, qw, st, ref_h, ref_w);
+
+  for (int st = 0; st < W_t; ++st) {
+    const Slot s = slot_geometry(a, b, hd, t, qh, qw, st, ref_h, ref_w);
+    // the anchor: lexicographically first argmin of |dt| + |dh| + |dw|;
+    // cand is this slot's candidate where it is the best so far
+    int cand = -1;
+    if (a.anchor) {
       float mh = CUDART_INF_F, mw = CUDART_INF_F;
       int ah = 0, aw = 0;
       for (int i = 0; i < ws; ++i) {
@@ -146,19 +218,11 @@ __global__ void __launch_bounds__(128) nls_topk_kernel(NlsArgs a) {
         if (dw < mw) { mw = dw; aw = i; }
       }
       const float tot = __fadd_rn(__fadd_rn(fabsf((float)(s.tj - tq)), mh), mw);
-      if (tot < best) { best = tot; self_idx = (st * ws + ah) * ws + aw; }
+      if (tot < best) {
+        best = tot;
+        self_idx = cand = (st * ws + ah) * ws + aw;
+      }
     }
-  }
-
-  const int nslots = a.anchor ? a.K - 1 : a.K;
-  const float init = a.l2 ? CUDART_INF_F : -CUDART_INF_F;
-  float ld[KMAX];
-  int lp[KMAX];
-  for (int i = 0; i < nslots; ++i) { ld[i] = init; lp[i] = INT_MAX; }
-  float self_d = init;
-
-  for (int st = 0; st < W_t; ++st) {
-    const Slot s = slot_geometry(a, b, hd, t, qh, qw, st, ref_h, ref_w);
     const float* v1 = a.vid1 + (bhd_v + s.tj) * FHW;
     for (int wi = 0; wi < ws; ++wi) {
       const float ph0 = lattice(s.ch, s.oh, s1, wi);
@@ -168,43 +232,41 @@ __global__ void __launch_bounds__(128) nls_topk_kernel(NlsArgs a) {
         const int c = (st * ws + wi) * ws + wj;
         float d = init;
         if (vh && inb_f(pw0, W)) d = patch_dist(a, v1, qp, ph0, pw0);
-        if (c == self_idx) { self_d = d; continue; }
-        const int pos = (self_idx >= 0 && c == 0) ? self_idx : c;
-        if (nslots > 0 && better(a.l2, d, pos, ld[nslots - 1], lp[nslots - 1])) {
-          int i = nslots - 1;
-          while (i > 0 && better(a.l2, d, pos, ld[i - 1], lp[i - 1])) {
-            ld[i] = ld[i - 1];
-            lp[i] = lp[i - 1];
-            --i;
-          }
-          ld[i] = d;
-          lp[i] = pos;
+        if (c == cand) self_d = d;
+        if (a.anchor && c == 0) {   // competes at the end, under self_idx
+          d0 = d;
+          continue;
         }
+        list.insert(a.l2, d, c);
       }
     }
   }
 
   float* od = a.dists + q * a.K;
   int* oc = a.cells + q * a.K;
-  int o = 0;
   if (a.anchor) {
+    if (self_idx != 0) {
+      list.remove(self_idx);
+      list.insert(a.l2, d0, self_idx);
+    }
     od[0] = self_d;
     oc[0] = self_idx;
-    o = 1;
+    ++od;
+    ++oc;
   }
-  for (int i = 0; i < nslots; ++i) {
-    od[o + i] = ld[i];
-    oc[o + i] = (lp[i] == self_idx) ? 0 : lp[i];
-  }
+  list.write(od, oc, nslots, self_idx);
 }
 
 template <int PS, int FC>
 cudaError_t launch(const NlsArgs& a, cudaStream_t stream) {
   const long long nq = (long long)a.B * a.HD * a.T * a.nH * a.nW;
   if (nq == 0) return cudaSuccess;
-  const int threads = 128;
-  const unsigned blocks = (unsigned)((nq + threads - 1) / threads);
-  nls_topk_kernel<PS, FC><<<blocks, threads, 0, stream>>>(a);
+  const unsigned blocks = (unsigned)((nq + THREADS - 1) / THREADS);
+  const size_t smem = 2 * sizeof(float) * a.nkeep * THREADS;
+  const cudaError_t err = cudaFuncSetAttribute(
+      nls_topk_kernel<PS, FC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  nls_topk_kernel<PS, FC><<<blocks, THREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -212,10 +274,11 @@ cudaError_t launch(const NlsArgs& a, cudaStream_t stream) {
 
 // The (ps, F a head) pairs with ps and F compiled in, the one list of
 // them: ps=3 with 8 channels a head is what bench.py, __graft_entry__ and
-// examples/attn_example.py run (at 16, the compiled body was no faster).
-// Every other pair, and every pair when `compiled` is 0, runs the run-time
-// body <0, 0>.
-#define STNLS_NLS_COMPILED(X) X(3, 8)
+// examples/attn_example.py run (at 16, the compiled body was no faster);
+// ps=1 with 2 is the 1080p alignment search of benchmarks/matrix.py
+// configs 5 and 7. Every other pair, and every pair when `compiled` is 0,
+// runs the run-time body <0, 0>.
+#define STNLS_NLS_COMPILED(X) X(3, 8) X(1, 2)
 
 // Returns cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for more than KMAX ranked slots.
@@ -232,6 +295,7 @@ extern "C" int stnls_nls_topk_fwd(
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int nslots = anchor ? K - 1 : K;
   if (nslots < 0 || nslots > KMAX) return (int)cudaErrorInvalidValue;
+  a.nkeep = anchor ? nslots + 1 : nslots;
 #define STNLS_LAUNCH(P, FC) \
   if (compiled && ps == P && F == FC) return (int)launch<P, FC>(a, stream);
   STNLS_NLS_COMPILED(STNLS_LAUNCH)

@@ -114,11 +114,15 @@ class _GatherStack(torch.autograd.Function):
         return grads + (None,)
 
 
-def nl_gather_stack_bwd(vid, weights, flows, g_stack, cfg, needs):
+def nl_gather_stack_bwd(vid, weights, flows, g_stack, cfg, needs,
+                        stats=None):
     """B4. The gradients of `nl_gather_stack` (cfg: its keywords) from the
     stack cotangent g_stack [B,HD,K,T,F,H,W]: (g_vid, g_weights, g_flows),
     each None where `needs` says so; g_flows has 0 in dt and in the int
-    path."""
+    path. `stats`, an int64 CUDA tensor of 4 elements, gets the kernel's
+    counts added (csrc/agg_gather_bwd.cu: the flush's global atomics, the
+    global atomics of the entries whose frame got no shared-memory box,
+    those (query, slot) entries, and all of them)."""
     if vid.device.type == "cpu":
         return _gather_bwd_plain(vid, weights, flows, g_stack, cfg, needs)
     _check(vid, weights, flows, ps=cfg["ps"], stride0=cfg["stride0"],
@@ -142,9 +146,10 @@ def nl_gather_stack_bwd(vid, weights, flows, g_stack, cfg, needs):
         err = lib.stnls_agg_gather_bwd(
             vid.data_ptr(), weights.data_ptr(), flows.data_ptr(),
             g_stack.data_ptr(), g_vid.data_ptr(), g_weights.data_ptr(),
-            g_flows.data_ptr(), B, HD, K, T, F, H, W, nH, nW, cfg["ps"],
-            cfg["stride0"], cfg["pt"], int(cfg["dilation"]),
-            int(bool(cfg["use_adj"])), int(cfg["itype"] == "int"), stream)
+            g_flows.data_ptr(), _stats_ptr(stats, vid.device),
+            B, HD, K, T, F, H, W, nH, nW, cfg["ps"], cfg["stride0"],
+            cfg["pt"], int(cfg["dilation"]), int(bool(cfg["use_adj"])),
+            int(cfg["itype"] == "int"), stream)
     cuda_lib.check_launch(err, "nl_gather_stack_bwd")
     nl_gather_stack_bwd.launches += 1
     return tuple(g if n else None
@@ -152,6 +157,17 @@ def nl_gather_stack_bwd(vid, weights, flows, g_stack, cfg, needs):
 
 
 nl_gather_stack_bwd.launches = 0
+
+
+def _stats_ptr(stats, device):
+    """The pointer B4 adds its counts to: None, or the data of `stats`."""
+    if stats is None:
+        return None
+    if stats.device != device or stats.dtype != torch.int64 or \
+            stats.numel() != 4 or not stats.is_contiguous():
+        raise ValueError("nl_gather_stack_bwd: stats must be a contiguous "
+                         "int64 tensor of 4 elements on vid's device")
+    return stats.data_ptr()
 
 
 def nl_gather_stack(vid, weights, flows, *, ps, stride0, pt=1, dilation=1,

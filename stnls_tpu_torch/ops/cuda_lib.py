@@ -32,7 +32,7 @@ SIGNATURES = {
     "stnls_nls_topk_fwd": [_P] * 5 + [_I] * 19 + [_F, _F] + [_I] * 7 + [_P],
     "stnls_agg_gather_fwd": [_P] * 4 + [_I] * 15 + [_P],
     "stnls_nls_topk_bwd": [_P] * 10 + [_I] * 17 + [_P],
-    "stnls_agg_gather_bwd": [_P] * 7 + [_I] * 15 + [_P],
+    "stnls_agg_gather_bwd": [_P] * 8 + [_I] * 15 + [_P],
     "stnls_nls_vol_fwd": [_P] * 5 + [_I] * 18 + [_F, _F] + [_I] * 5 + [_P],
     "stnls_nls_vol_bwd": [_P] * 9 + [_I] * 18 + [_F, _F] + [_I] * 4 + [_P],
     "stnls_agg_scatter_add_fwd": [_P] * 4 + [_I] * 18 + [_P],

@@ -167,6 +167,96 @@ def test_gather_backward_kernel_matches_plain(dev, itype, extra):
         assert_grad_close(g_k[2][off], g_p[2][off], "g_flows")
 
 
+def _gather_bwd_case(dev, itype, cfg, F_head, offsets, seed=5, K=6, H=H,
+                     W=W):
+    """Video, weights, offsets and a cotangent for B4 on H x W frames:
+    offsets of `offsets` std, or ones to centres drawn anywhere in the
+    frame ("scatter": on large frames a tile's slots spread over boxes that
+    do not fit the shared pool, the global path), or ones that push every
+    patch over the frame's borders ("border": reflections)."""
+    nH, nW = (H - 1) // cfg["stride0"] + 1, (W - 1) // cfg["stride0"] + 1
+    rng = np.random.default_rng(seed)
+
+    def t(x):
+        return torch.from_numpy(np.asarray(x, np.float32)).to(dev)
+
+    q_h = np.arange(nH)[:, None, None] * cfg["stride0"]
+    q_w = np.arange(nW)[None, :, None] * cfg["stride0"]
+    if offsets == "scatter":
+        dh = rng.uniform(0, H - 1, (B, HD, T, nH, nW, K)) - q_h
+        dw = rng.uniform(0, W - 1, (B, HD, T, nH, nW, K)) - q_w
+    elif offsets == "border":
+        dh = np.where(q_h < H / 2, -q_h - 2.3, H - q_h + 1.7)
+        dw = np.where(q_w < W / 2, -q_w - 1.6, W - q_w + 2.4)
+        dh = np.broadcast_to(dh, (B, HD, T, nH, nW, K))
+        dw = np.broadcast_to(dw, (B, HD, T, nH, nW, K))
+        dh = dh + 0.25 * rng.standard_normal(dh.shape)
+        dw = dw + 0.25 * rng.standard_normal(dw.shape)
+    else:
+        dh = offsets * rng.standard_normal((B, HD, T, nH, nW, K))
+        dw = offsets * rng.standard_normal((B, HD, T, nH, nW, K))
+    flows = np.stack([rng.integers(-1, 2, (B, HD, T, nH, nW, K)), dh, dw], -1)
+    flows = t(np.round(flows) if itype == "int" else flows)
+    vid = t(rng.standard_normal((B, HD, T, F_head, H, W)))
+    weights = rng.random((B, HD, T, nH, nW, K))
+    weights[..., ::3] = 0.    # zero weights add nothing to g_vid
+    g = t(rng.standard_normal((B, HD, K, T, F_head, H, W)))
+    return vid, t(weights), flows, g
+
+
+# (itype, cfg beside the defaults, F a head, offsets): "scatter" (on
+# 128^2 frames, whose boxes outgrow the shared pool) forces the global
+# path, "border" the reflections, F = 32 the channel groups
+B4_CASES = [("float", {}, 8, "scatter"), ("float", {}, 8, "border"),
+            ("int", {}, 8, "border"), ("int", {"pt": 2}, 8, 3.),
+            ("float", {"pt": 2}, 8, 3.), ("float", {"dilation": 2}, 8, 3.),
+            ("float", {"stride0": 2}, 8, 3.), ("float", {}, 32, 3.),
+            ("float", {"use_adj": True, "dilation": 2, "stride0": 2}, 32,
+             "border")]
+
+
+@pytest.mark.parametrize("itype,extra,F_head,offsets", B4_CASES)
+def test_gather_backward_kernel_paths(dev, itype, extra, F_head, offsets):
+    """B4 against its plain version through the shared boxes, the global
+    path, the reflections at the borders, pt, dilation, stride0 and the
+    channel groups; its counts say which path the entries took."""
+    cfg = dict(dict(ps=3, stride0=1, pt=1, dilation=1, reflect_bounds=True,
+                    use_adj=False, itype=itype), **extra)
+    size = 128 if offsets == "scatter" else H
+    vid, weights, flows, g = _gather_bwd_case(dev, itype, cfg, F_head,
+                                              offsets, H=size, W=size)
+    stats = torch.zeros(4, dtype=torch.int64, device=dev)
+    g_k = agg_cuda.nl_gather_stack_bwd(vid, weights, flows, g, cfg,
+                                       (True, True, True), stats=stats)
+    torch.cuda.synchronize()
+    g_p = agg_cuda._gather_bwd_plain(vid, weights, flows, g, cfg,
+                                     (True, True, True))
+    assert_grad_close(g_k[0], g_p[0], "g_vid")
+    assert_grad_close(g_k[1], g_p[1], "g_weights")
+    if itype == "int":
+        assert not g_k[2].any() and not g_p[2].any()
+    else:
+        off = _off_integer(flows[..., 1]) & _off_integer(flows[..., 2])
+        assert_grad_close(g_k[2][off], g_p[2][off], "g_flows")
+    flush, direct, n_global, n_all = stats.tolist()
+    assert n_all == weights.numel()
+    if offsets == "scatter":
+        assert n_global > 0 and direct > 0     # the global path ran
+    else:
+        assert flush > 0
+
+
+def test_gather_backward_weights_and_offsets_are_deterministic(dev):
+    """B4's g_weights and g_flows are summed by one thread each, in a fixed
+    order: two calls agree bitwise (g_vid's atomics need not)."""
+    cfg = dict(ps=3, stride0=1, pt=1, dilation=1, reflect_bounds=True,
+               use_adj=False, itype="float")
+    args = _gather_bwd_case(dev, "float", cfg, 8, 3.)
+    g1 = agg_cuda.nl_gather_stack_bwd(*args, cfg, (True, True, True))
+    g2 = agg_cuda.nl_gather_stack_bwd(*args, cfg, (True, True, True))
+    assert torch.equal(g1[1], g2[1]) and torch.equal(g1[2], g2[2])
+
+
 def test_one_backward_launches_each_backward_kernel_once(dev):
     from stnls_tpu_torch.agg import NonLocalGather
     from stnls_tpu_torch.search import NonLocalSearch
@@ -387,11 +477,23 @@ def test_search_module_runs_at_any_patch_size_and_width(dev, ps, F):
     assert_grad_close(g, g_p, "g_vid0")
 
 
-@pytest.mark.parametrize("k,anchor", [(65, True), (64, False)])
-def test_search_kernel_keeps_64_ranked_slots(dev, k, anchor):
+@pytest.mark.parametrize("compiled", [True, False])
+@pytest.mark.parametrize("anchor", [True, False])
+@pytest.mark.parametrize("nslots", [1, 4, 5, 8, 9, 16, 17, 32, 33, 64])
+def test_search_kernel_keeps_64_ranked_slots(dev, nslots, anchor, compiled):
+    """B1 bitwise against its plain version at list sizes on both sides of
+    4, 8, 16, 32 and 64 ranked slots (anchored, the list keeps nslots + 1
+    and swaps the self cell for cell 0 at the end), on the body with
+    (ps, F) = (3, 8) compiled in and on the run-time body, up to the 64
+    ranked slots it keeps."""
     v0, v1, flows = _inputs(dev)
+    k = nslots + bool(anchor)
     kw = dict(KW, k=k, anchor=anchor)
-    d, cells = nls_cuda.nls_topk(v0, v1, flows, **kw)
+    nls_cuda.COMPILED_BODY = compiled
+    try:
+        d, cells = nls_cuda.nls_topk(v0, v1, flows, **kw)
+    finally:
+        nls_cuda.COMPILED_BODY = True
     d_p, cells_p = nls_cuda.nls_topk_plain(v0, v1, flows, **kw)
     assert d.shape[-1] == k
     assert torch.equal(d, d_p) and torch.equal(cells, cells_p)
