@@ -8,7 +8,10 @@ Phases, in order; any failure raises and exits non-zero:
   3. each kernel against its plain PyTorch version on the card, at the
      slice config (128^2, wt=2, K=10, stride1=0.5) and the
      __graft_entry__ config (64^2, wt=1, K=8, stride1=1): B1 search
-     top-K, B2 search backward, B3 gather, B4 gather backward, B5 search
+     top-K, B2 search backward (with its global atomic instructions a
+     backward, against the first version's ps^2 * F * 5 per active
+     (q, k): at least 4x fewer at the slice), B3 gather, B4 gather
+     backward, B5 search
      volume and B6 its backward (on a dense cotangent, as
      topk_mode="none" gives, and on the sparse one of anchor_each with
      per-frame top-2; at 64^2 also remove_ref_frame's, the int path and
@@ -62,7 +65,10 @@ Phases, in order; any failure raises and exits non-zero:
      the kernels: shapes, finite values, launch counts, no plain backward,
      peak memory, and (q = k) dist 0 in the anchored slot 0 with the other
      slots ascending; against the plain route at full size for 1 and 4 and
-     on a 270x480 crop for 5 and 7, under the rules of phase 5;
+     on a 270x480 crop for 5 and 7, under the rules of phase 5; B2 on
+     config 7's whole frames (its time, bound and global atomics, at
+     least 2x fewer than the first version's) and on config 4's, each on
+     a seeded cotangent at B1's cells;
  13. times: the four matrix steps; B1, B5 and B6 at (ps, F a head) =
      (1, 2) and (1, 16) against their plain versions, with their bounds;
      the bodies of B1 and B5 with (ps, F) compiled in (B1 (3, 8) and
@@ -84,8 +90,11 @@ Phases, in order; any failure raises and exits non-zero:
      (K = 80) against plain_route(); (d) the twin of
      __graft_entry__.dryrun_multichip (stnls_tpu_torch/multichip_step.py)
      at the bench slice's widths (B=2, T=4) on that mesh, 3 SGD steps
-     through the kernels (B1-B4) and through plain_route(). A multi-card
-     ring exchange is not run: one card holds one rank.
+     through the kernels (B1-B4) and through plain_route(), and B3's time
+     and bound at the arguments of the twin's gather. A multi-card ring
+     exchange is not run: one card holds one rank.
+B2's and B3's times are printed with those of their previous design in
+parentheses (EARLIER_MS).
 The line before the last is a JSON object of the kernels (B1, B2, B5 and
 B6 with a "chunk" entry of their chunk mode); the last line is
 {"ok": true, "device": {...}}. The script imports nothing of JAX.
@@ -142,6 +151,13 @@ HBM_BYTES_S, F32_FLOP_S = 3.35e12, 67e12
 # for those terms, plus the cotangent's division once per element.
 FLOPS_PER_TAP = {"B1": 10, "B2": 26, "B3": 9, "B4": 17, "B5": 10, "B6": 26,
                  "B7": 2, "B8": 2, "B9": 2, "B10": 4}
+# B2's and B3's times before their redesign, as PERF.md section 6 records
+# them (chip_smoke.py's CUDA events and, "device", profile_step.py's traces;
+# NVIDIA H100 80GB HBM3, 700.00 W), printed in parentheses beside this
+# run's
+EARLIER_MS = {"B2 slice": 5.437, "B2 config 7 device": 90.965,
+              "B2 config 4 device": 9.029, "B3 slice": 1.448,
+              "B3 multichip twin device": 6.123}
 # The search of the volume path (attn_step.VOLUME_SEARCH) and the
 # configurations of the B5/B6 checks: (label, itype, dist_type, the
 # cotangents B6 is checked on)
@@ -344,6 +360,51 @@ def taps_in_frame(n, L, ps, stride0=1):
     return int(((pos >= 0) & (pos < L)).sum())
 
 
+def b2_work(args):
+    """The bytes and float operations of B2 on its arguments (vid0, vid1,
+    prop_h, prop_w, tj_k, valid, g_d, cfg): the inputs read once (the
+    target frames as int32), the four gradients written once, and
+    FLOPS_PER_TAP per (active (q, k), tap, channel)."""
+    vid0, vid1, prop_h, prop_w, _, valid, g_d, cfg = args[:8]
+    nbytes = sum(x.numel() * x.element_size() for x in (
+        vid0, vid1, prop_h, prop_w, g_d)) + 4 * g_d.numel()
+    nbytes += sum(x.numel() * x.element_size() for x in (
+        vid0, vid1, prop_h, prop_w))
+    active = int((valid & (g_d != 0)).sum())
+    return nbytes, active * cfg["ps"] ** 2 * vid0.shape[3] \
+        * FLOPS_PER_TAP["B2"]
+
+
+def b2_atomics(torch, args):
+    """B2's global atomic instructions a backward on `args` (the kernel's
+    counts: into g_vid1, into g_vid0, plain stores into g_vid0, active
+    (q, k)) and the first version's: ps^2 * F * 5 per active (q, k)."""
+    from stnls_tpu_torch.ops import nls_cuda
+    stats = torch.zeros(4, dtype=torch.int64, device=args[0].device)
+    nls_cuda.nls_topk_bwd(*args, stats=stats)
+    into1, into0, stores, active = stats.tolist()
+    require(active == int((args[5] & (args[6] != 0)).sum()),
+            "B2: the kernel's count of active (q, k) is wrong")
+    first = active * args[7]["ps"] ** 2 * args[0].shape[3] * 5
+    return dict(global_atomics=into1 + into0, into_g_vid1=into1,
+                into_g_vid0=into0, g_vid0_stores=stores,
+                active_pairs=active, first_version=first,
+                fewer=first / max(into1 + into0, 1))
+
+
+def b3_work(vid, weights, inds, ps, stride0=1):
+    """The bytes and float operations of B3: video, weights and offsets
+    read once, the stack written once; FLOPS_PER_TAP per (output pixel,
+    slot, in-frame tap, channel) and the division once per output."""
+    B, HD, T, F, H, W = vid.shape
+    nH, nW, K = inds.shape[-4:-1]
+    out = B * HD * K * T * F * H * W
+    taps = taps_in_frame(nH, H, ps, stride0) * taps_in_frame(
+        nW, W, ps, stride0) * B * HD * T * K
+    return (sum(x.numel() * x.element_size() for x in (vid, weights, inds))
+            + 4 * out, taps * F * FLOPS_PER_TAP["B3"] + out)
+
+
 def bound_ms(nbytes, flops):
     """The least time the card could take: the larger of the bytes over
     the memory rate and the operations over the float32 peak."""
@@ -417,6 +478,15 @@ def kernel_phase(torch, dev, name, cfg):
             f"max|kernel-plain| {err:.3e}")
     log(f"[kernels] B2 {name}: position gradients compared at "
         f"{int(off.sum())} of {off.numel()} (q, k) off integer coordinates")
+    b2_at = b2_atomics(torch, b2_args)
+    log(f"[kernels] B2 {name}: global atomics per backward "
+        f"{b2_at['global_atomics']} ({b2_at['into_g_vid1']} into g_vid1, "
+        f"{b2_at['into_g_vid0']} into g_vid0; {b2_at['g_vid0_stores']} "
+        f"plain stores into g_vid0) for {b2_at['active_pairs']} active "
+        f"(q, k); the first version's {b2_at['first_version']} "
+        f"({b2_at['fewer']:.2f}x more)")
+    require(b2_at["fewer"] >= 4, f"B2 {name}: fewer than 4x fewer global "
+            "atomics than the first version")
 
     # B3 and B4 on the search's own weights and offsets
     with torch.no_grad():
@@ -480,23 +550,18 @@ def kernel_phase(torch, dev, name, cfg):
     ps = kw["ps"]
     cells_all = (min(2 * cfg["wt"] + 1, T)) * 25      # full_ws: all valid
     taps = taps_in_frame(H, H, ps) ** 2 * B * HD * T * K   # (q, k, tap)
-    active = int((geo["valid"] & (g_d != 0)).sum())
     bounds = {
         "B1": bound_ms(nb(vid0, vid1, flows, d_k, c_k),
                        nq * cells_all * ps * ps * F * FLOPS_PER_TAP["B1"]),
-        "B2": bound_ms(nb(vid0, vid1, geo["prop_h"], geo["prop_w"],
-                          geo["tj_k"].int(), g_d)
-                       + nb(vid0, vid1, geo["prop_h"], geo["prop_w"]),
-                       active * ps * ps * F * FLOPS_PER_TAP["B2"]),
-        "B3": bound_ms(nb(vid1, weights, inds, s_k),
-                       taps * F * FLOPS_PER_TAP["B3"] + s_k.numel()),
+        "B2": bound_ms(*b2_work(b2_args)),
+        "B3": bound_ms(*b3_work(vid1, weights, inds, ps)),
         "B4": bound_ms(nb(vid1, weights, inds, g_stack) + nb(vid1, weights,
                                                              inds),
                        taps * F * FLOPS_PER_TAP["B4"] + g_stack.numel()),
     }
     return dict(err={"B1": err_b1, "B2": max(errs_b2), "B3": err_b3,
                      "B4": max(errs_b4)}, share=share, bounds=bounds,
-                b4_atomics=b4_atomics,
+                b4_atomics=b4_atomics, b2_atomics=b2_at,
                 inputs=(vid0, vid1, flows, weights, inds), kw=kw,
                 b2_args=b2_args, b4_args=b4_args)
 
@@ -1368,9 +1433,12 @@ def full_frame_phase(torch, name, inputs, rows=FULL_BAND_ROWS,
     against the whole frames: bitwise. B2 at B1's cells on a seeded
     cotangent against its plain version, run over chunks of `frames` query
     frames (each against all key frames, g_vid1 summed over the chunks):
-    1e-4 * max|ref|, position gradients off the integer lattice. A float
-    search (configs 5 and 7). Returns B2's largest error and its bound on
-    these frames (bound_ms, summed over the heads)."""
+    1e-4 * max|ref|, position gradients off the integer lattice; B2's
+    time (CUDA events, wrapper included) and global atomics, summed over
+    the heads, at least 2x fewer than the first version's. A float search
+    (configs 5 and 7). Returns B2's largest error, its bound on these
+    frames (bound_ms, summed over the heads) and dict(ms, atomics)."""
+    from stnls_tpu_torch.attn_step import cuda_ms
     from stnls_tpu_torch import matrix_steps as ms
     from stnls_tpu_torch.ops import nls_cuda
     from stnls_tpu_torch.ops.geometry import time_window_frames
@@ -1388,8 +1456,9 @@ def full_frame_phase(torch, name, inputs, rows=FULL_BAND_ROWS,
                    use_adj=False, itype="float")
     tj = torch.as_tensor(time_window_frames(T, wt), device=dev)
     gen = torch.Generator(device=dev).manual_seed(SEED + 12)
-    err2, n_off = 0., 0
+    err2, n_off, b2_ms = 0., 0, 0.
     b2_bytes, b2_flops = 0, 0     # B2's bound, summed over the heads
+    b2_at = dict(global_atomics=0, first_version=0, active_pairs=0)
     for h in range(HD):
         v = v_all[:, h:h + 1].contiguous()
         with torch.no_grad():
@@ -1417,11 +1486,15 @@ def full_frame_phase(torch, name, inputs, rows=FULL_BAND_ROWS,
                              stride1=1)
         pos = (geo["prop_h"], geo["prop_w"], geo["tj_k"], geo["valid"])
         g_d = torch.randn(d_k.shape, generator=gen, device=dev)
-        g_k = nls_cuda.nls_topk_bwd(v, v, *pos, g_d, bwd_cfg)
-        b2_bytes += sum(x.numel() * x.element_size() for x in (
-            v, v, geo["prop_h"], geo["prop_w"], g_d, *g_k)) + 4 * g_d.numel()
-        b2_flops += int((geo["valid"] & (g_d != 0)).sum()) * ps * ps * F \
-            * FLOPS_PER_TAP["B2"]
+        b2_args = (v, v, *pos, g_d, bwd_cfg)
+        g_k = nls_cuda.nls_topk_bwd(*b2_args)
+        nbytes, flops = b2_work(b2_args)
+        b2_bytes, b2_flops = b2_bytes + nbytes, b2_flops + flops
+        b2_ms += cuda_ms(lambda: nls_cuda.nls_topk_bwd(*b2_args), n=3,
+                         warm=1)
+        at = b2_atomics(torch, b2_args)
+        for key in b2_at:
+            b2_at[key] += at[key]
         g_p = [torch.zeros_like(v), torch.zeros_like(v),
                torch.empty_like(pos[0]), torch.empty_like(pos[1])]
         for t0 in range(0, T, frames):
@@ -1442,15 +1515,78 @@ def full_frame_phase(torch, name, inputs, rows=FULL_BAND_ROWS,
                 gk, gp = gk[mask], gp[mask]
             err2 = max(err2, grad_close(gk, gp, f"B2 {name} head {h} "
                                                 f"{what}")[0])
-        del d_k, c_k, geo, pos, g_d, g_k, g_p, off
+        del d_k, c_k, geo, pos, g_d, g_k, g_p, off, b2_args
     b2_bound = bound_ms(b2_bytes, b2_flops)
+    b2_at["fewer"] = b2_at["first_version"] / max(b2_at["global_atomics"], 1)
+    require(b2_at["fewer"] >= 2, f"B2 {name}: fewer than 2x fewer global "
+            "atomics than the first version")
     log(f"[matrix] {name} at the full {H}x{W}, {HD} heads: B1 dists and "
         f"cells equal to the plain volume's bitwise ({rows}-row bands); B2 "
         f"on a seeded cotangent max|kernel-plain| {err2:.3e} (plain over "
         f"{frames}-frame chunks; position gradients compared at {n_off} of "
         f"{B * HD * T * H * W * K} (query, slot)); B2's bound on these "
         f"frames {b2_bound[0]:.4f} ms by {b2_bound[1]}")
-    return err2, b2_bound
+    log(f"[matrix] {name} at the full {H}x{W}: B2 {b2_ms:.3f} ms over the "
+        f"{HD} heads (previous design {EARLIER_MS['B2 config 7 device']} "
+        f"device ms in the step's trace; bound {b2_bound[0]:.4f}); global "
+        f"atomics per backward {b2_at['global_atomics']} for "
+        f"{b2_at['active_pairs']} active (q, k), the first version's "
+        f"{b2_at['first_version']} ({b2_at['fewer']:.2f}x more)")
+    return err2, b2_bound, dict(ms=b2_ms, atomics=b2_at)
+
+
+def b2_config4_phase(torch, smi_line, matrix, name="gda540p_ws9"):
+    """B2 on config 4's whole frames (540x960, (ps, F) = (1, 16), no
+    flows) on a seeded cotangent at B1's cells: against its plain
+    version at 1e-4 * max|ref| (position gradients off the integer
+    lattice), its time (CUDA events, wrapper included), bound and global
+    atomics, and its launches a step (the matrix phase's run). Returns
+    dict(ms, bound_ms, bound_by, launches, atomics, err)."""
+    from stnls_tpu_torch import matrix_steps as ms
+    from stnls_tpu_torch.attn_step import cuda_ms
+    from stnls_tpu_torch.ops import nls_cuda
+    from stnls_tpu_torch.ops.nls_k import cells_geometry
+    cfg = ms.config(name)
+    v, fl = matrix_search_args(torch, cfg, matrix[name][1])
+    H, W = v.shape[-2:]
+    with torch.no_grad():
+        _, cells = nls_cuda.nls_topk(v, v, fl, ws=cfg["ws"], wt=cfg["wt"],
+                                     ps=cfg["ps"], stride0=1, stride1=1,
+                                     k=cfg["K"], anchor=True)
+    geo = cells_geometry(fl, cells, H=H, W=W, ws=cfg["ws"], wt=cfg["wt"],
+                         stride0=1, stride1=1)
+    gen = torch.Generator(device=v.device).manual_seed(SEED + 4)
+    g_d = torch.randn(tuple(cells.shape), generator=gen, device=v.device)
+    args = (v, v, geo["prop_h"], geo["prop_w"], geo["tj_k"], geo["valid"],
+            g_d, dict(ps=cfg["ps"], stride0=1, dist_type="l2", dilation=1,
+                      use_adj=False, itype=cfg["itype"]))
+    g_k = nls_cuda.nls_topk_bwd(*args)
+    g_p = nls_cuda.nls_topk_bwd_plain(*args)
+    # without flows every position lies on the integer lattice, where the
+    # position gradients jump: they are compared off it only, if anywhere
+    off = off_integer(geo["prop_h"]) & off_integer(geo["prop_w"])
+    err = max(grad_close(gk if m is None else gk[m],
+                         gp if m is None else gp[m],
+                         f"B2 {name} {what}")[0]
+              for gk, gp, what, m in zip(g_k, g_p, ("g_vid0", "g_vid1",
+                                                    "g_prop_h", "g_prop_w"),
+                                         (None, None, off, off))
+              if m is None or bool(m.any()))
+    del g_k, g_p
+    t = cuda_ms(lambda: nls_cuda.nls_topk_bwd(*args), n=5, warm=1)
+    bound = bound_ms(*b2_work(args))
+    at = b2_atomics(torch, args)
+    launches = matrix[name][2]["nls_topk_bwd"]
+    log(f"[times] {smi_line}: B2 on config 4's {H}x{W} frames (1, "
+        f"{v.shape[3]}) {t:.3f} ms (previous design "
+        f"{EARLIER_MS['B2 config 4 device']} device ms in the step's "
+        f"trace), bound {bound[0]:.4f} by {bound[1]}, {launches} launch(es) "
+        f"a step; max|kernel-plain| {err:.3e}; global atomics per backward "
+        f"{at['global_atomics']} for {at['active_pairs']} active (q, k), "
+        f"the first version's {at['first_version']} ({at['fewer']:.2f}x "
+        "more)")
+    return dict(ms=t, bound_ms=bound[0], bound_by=bound[1],
+                launches=launches, atomics=at, err=err)
 
 
 def ps1_kernel_times(torch, dev, smi_line, matrix):
@@ -1981,6 +2117,25 @@ def twin_phase(torch, dev, mesh, smi_line, widths=None):
     # about one float32 ulp a step at lr = 1e-2)
     losses = [float(x[0]) for x in hist]
     t = cuda_ms(lambda: run(1), n=5, warm=1)
+    # B3 at the arguments of the step's gather (halo frames included)
+    from stnls_tpu_torch.ops import agg_cuda
+    calls = []
+    apply = agg_cuda._GatherStack.apply
+    agg_cuda._GatherStack.apply = lambda *a: (calls.append(a), apply(*a))[1]
+    try:
+        run(1)
+    finally:
+        del agg_cuda._GatherStack.apply
+    vid_g, w_g, fl_g, cfg_g = calls[0]
+    with torch.no_grad():
+        t_b3 = cuda_ms(lambda: agg_cuda.nl_gather_stack(vid_g, w_g, fl_g,
+                                                        **cfg_g))
+    b3 = bound_ms(*b3_work(vid_g, w_g, fl_g, cfg_g["ps"], cfg_g["stride0"]))
+    log(f"[times] {smi_line}: B3 at the twin's gather, video "
+        f"{tuple(vid_g.shape)}, {len(calls)} launch(es) a step: {t_b3:.3f} "
+        f"ms (previous design {EARLIER_MS['B3 multichip twin device']} "
+        f"device ms a step in its trace), bound {b3[0]:.4f} by {b3[1]}")
+    del calls, vid_g, w_g, fl_g
     log(f"[twin] dryrun_multichip's step at the widths {widths}, "
         f"B = {vid.shape[0]}, T = {vid.shape[1]}, one-rank mesh: launches "
         f"{launches}; losses {losses} (plain route "
@@ -1988,7 +2143,8 @@ def twin_phase(torch, dev, mesh, smi_line, widths=None):
         + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
     log(f"[times] {smi_line}: twin train step {t:.3f} ms")
     return dict(launches=launches, err=max(errs.values()), ms=t,
-                losses=losses)
+                losses=losses, b3=dict(ms=t_b3, bound_ms=b3[0],
+                                       bound_by=b3[1]))
 
 
 def main():
@@ -2182,8 +2338,11 @@ def main():
         f"fwd+bwd {t_vol_train:.3f} ms = {T / (t_vol_train / 1e3):.2f} "
         f"frames/s (plain {t_vol_trainp:.3f} ms)")
     log(f"[times] {smi_line}: B1 {t_b1:.3f} ms (plain {t_b1p:.3f}); "
-        f"B2 {t_b2:.3f} ms (plain {t_b2p:.3f}); B3 {t_b3:.3f} ms (plain "
-        f"{t_b3p:.3f}); B4 {t_b4:.3f} ms (plain {t_b4p:.3f})")
+        f"B2 {t_b2:.3f} ms (previous design {EARLIER_MS['B2 slice']}; plain "
+        f"{t_b2p:.3f}; bound {res['bounds']['B2'][0]:.4f}); B3 {t_b3:.3f} ms "
+        f"(previous design {EARLIER_MS['B3 slice']}; plain {t_b3p:.3f}; "
+        f"bound {res['bounds']['B3'][0]:.4f}); B4 {t_b4:.3f} ms (plain "
+        f"{t_b4p:.3f})")
     log(f"[times] {smi_line}: forward step {t_step:.3f} ms = "
         f"{T / (t_step / 1e3):.1f} frames/s (plain {t_stepp:.3f} ms); "
         f"fwd+bwd step {t_train:.3f} ms = {T / (t_train / 1e3):.2f} "
@@ -2236,9 +2395,12 @@ def main():
         f"{key} {t_agg[key][0]:.3f} ms (plain {t_agg[key][1]:.3f}, bound "
         f"{ares['bounds'][key][0]:.4f} by {ares['bounds'][key][1]})"
         for key in ("B7", "B8", "B9", "B10")))
+    # B3 runs twice a step of the twin (Gather, GatherAdd), on its search
+    b3_agg = bound_ms(*b3_work(v6_t, w_t, o_t, a1["ps"]))
     log(f"[times] {smi_line}: agg example, the four aggregators fwd+bwd "
         f"{t_aggs:.3f} ms (plain route {t_aggsp:.3f} ms); search + the four "
-        f"{t_twin:.3f} ms")
+        f"{t_twin:.3f} ms; B3's bound there {b3_agg[0]:.4f} ms by "
+        f"{b3_agg[1]}")
 
     # 11. B1, B5 and B6 at other (ps, F a head), and K beyond B1's list
     err_ps = ps_kernel_phase(torch, dev)
@@ -2246,8 +2408,9 @@ def main():
     # 12. benchmarks/matrix.py's configs 1, 4, 5 and 7 at full size, and
     # config 7's B1 and B2 against their plain versions on its whole frames
     matrix = matrix_phase(torch, dev)
-    err_full, b2_full_bound = full_frame_phase(
+    err_full, b2_full_bound, b2_full = full_frame_phase(
         torch, "align1080p_fwd+bwd", matrix["align1080p_fwd+bwd"][1])
+    b2_c4 = b2_config4_phase(torch, smi_line, matrix)
 
     # 13. times: the matrix steps; B1, B5 and B6 at (1, 2) and (1, 16);
     # the compiled bodies of B1 and B5 against the run-time one
@@ -2295,7 +2458,7 @@ def main():
             for r, g in ((res, graft), (vres, vgraft), (ares, ares2))
             for key in r["err"]}
     errs["B6"] = max(errs["B6"], err_ps)
-    errs["B2"] = max(errs["B2"], err_full)
+    errs["B2"] = max(errs["B2"], err_full, b2_c4["err"])
     # the chunk mode's launches, path by path, each read from its own run:
     # the time-sharded config 7 (B1, B2), the volume route at K = 80 (B5,
     # B6) and one train step of the twin (B1, B2)
@@ -2344,7 +2507,14 @@ def main():
             "peak_gb": matrix[name][3]} for name, ms in t_matrix.items()},
         "ps1_kernels": ps1, "compiled_vs_run_time_ms": spec,
         "b4_slice_atomics": res["b4_atomics"],
-        "b2_config7_full_frames_bound_ms": b2_full_bound[0],
+        "b2_slice_atomics": res["b2_atomics"],
+        "b2_config7_full_frames": dict(
+            ms=b2_full["ms"], bound_ms=b2_full_bound[0],
+            bound_by=b2_full_bound[1], atomics=b2_full["atomics"]),
+        "b2_config4": b2_c4,
+        "b3_multichip_twin": twin["b3"],
+        "b3_agg_example_bound_ms": b3_agg[0],
+        "earlier_ms": EARLIER_MS,
         "time_sharded_config7": {
             "step_ms_in_turns": sharded["ms"][0::3],
             "time_sharded_ms_in_turns": sharded["ms"][1:3],

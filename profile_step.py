@@ -48,8 +48,9 @@ import numpy as np
 STEPS = 5
 TOP = 8
 # the port's kernels (stnls_tpu_torch/csrc), by their device names
-PORT_KERNELS = {"B1": ("nls_topk_kernel",), "B2": ("nls_topk_bwd_kernel",),
-                "B3": ("agg_gather_kernel",),
+PORT_KERNELS = {"B1": ("nls_topk_kernel",),
+                "B2": ("nls_topk_bwd_query_kernel",),
+                "B3": ("agg_gather_fwd_pixel_kernel",),
                 "B4": ("agg_gather_bwd_tile_kernel",),
                 "B5": ("nls_vol_fwd_kernel",), "B6": ("nls_vol_bwd_kernel",),
                 "B7": ("agg_scatter_add_fwd_kernel",),
@@ -59,7 +60,8 @@ PORT_KERNELS = {"B1": ("nls_topk_kernel",), "B2": ("nls_topk_bwd_kernel",),
                 "B10": ("agg_pool_bwd_kernel",)}
 # the kernels' device names in traces before their redesign, where they
 # changed
-EARLIER_NAMES = {"B4": "agg_gather_bwd_kernel"}
+EARLIER_NAMES = {"B2": "nls_topk_bwd_kernel", "B3": "agg_gather_kernel",
+                 "B4": "agg_gather_bwd_kernel"}
 
 
 def device_us(evt):

@@ -83,7 +83,25 @@ def _check(vid, weights, flows, *, ps, stride0, pt, reflect_bounds, dilation,
                          "itype in ('float', 'int')")
 
 
+# B3 reads a channels-last copy of the video, one vector load for a
+# corner's channels, when its stack holds at least this many elements, and
+# the planar video itself below: there the copy's launch costs more host
+# time than the vector loads save (stnls_tpu_torch/b2_b3_variants.py times
+# both layouts, PERF.md)
+CHANNELS_LAST_MIN = 1 << 21
+
+
+def _b3_channels(F):
+    """The channels of B3's channels-last video for F channels a head: F
+    up to 2, 4 up to 4, else a multiple of 8 (the kernel's channel group
+    is min(Fp, 8))."""
+    return F if F <= 2 else 4 if F <= 4 else -(-F // 8) * 8
+
+
 class _GatherStack(torch.autograd.Function):
+    """Forward: B3, on a channels-last copy of the video for a large
+    stack (CHANNELS_LAST_MIN). Backward: B4."""
+
     @staticmethod
     def forward(ctx, vid, weights, flows, cfg):
         B, HD, T, F, H, W = vid.shape
@@ -91,15 +109,21 @@ class _GatherStack(torch.autograd.Function):
         K = flows.shape[-2]
         out = torch.empty((B, HD, K, T, F, H, W), dtype=torch.float32,
                           device=vid.device)
+        channels_last = out.numel() >= CHANNELS_LAST_MIN
+        if channels_last:
+            Fp = _b3_channels(F)
+            vid_k = cuda_lib.channels_last(vid, Fp)
+        else:
+            Fp, vid_k = F, vid
         lib = cuda_lib.load()
         with torch.cuda.device(vid.device):
             stream = torch.cuda.current_stream().cuda_stream
             err = lib.stnls_agg_gather_fwd(
-                vid.data_ptr(), weights.data_ptr(), flows.data_ptr(),
-                out.data_ptr(), B, HD, K, T, F, H, W, nH, nW, cfg["ps"],
+                vid_k.data_ptr(), weights.data_ptr(), flows.data_ptr(),
+                out.data_ptr(), B, HD, K, T, F, Fp, H, W, nH, nW, cfg["ps"],
                 cfg["stride0"], cfg["pt"], int(cfg["dilation"]),
                 int(bool(cfg["use_adj"])), int(cfg["itype"] == "int"),
-                stream)
+                int(channels_last), stream)
         cuda_lib.check_launch(err, "nl_gather_stack")
         nl_gather_stack.launches += 1
         ctx.save_for_backward(vid, weights, flows)
@@ -146,7 +170,8 @@ def nl_gather_stack_bwd(vid, weights, flows, g_stack, cfg, needs,
         err = lib.stnls_agg_gather_bwd(
             vid.data_ptr(), weights.data_ptr(), flows.data_ptr(),
             g_stack.data_ptr(), g_vid.data_ptr(), g_weights.data_ptr(),
-            g_flows.data_ptr(), _stats_ptr(stats, vid.device),
+            g_flows.data_ptr(), cuda_lib.stats_ptr(stats, vid.device,
+                                              "nl_gather_stack_bwd"),
             B, HD, K, T, F, H, W, nH, nW, cfg["ps"], cfg["stride0"],
             cfg["pt"], int(cfg["dilation"]), int(bool(cfg["use_adj"])),
             int(cfg["itype"] == "int"), stream)
@@ -157,17 +182,6 @@ def nl_gather_stack_bwd(vid, weights, flows, g_stack, cfg, needs,
 
 
 nl_gather_stack_bwd.launches = 0
-
-
-def _stats_ptr(stats, device):
-    """The pointer B4 adds its counts to: None, or the data of `stats`."""
-    if stats is None:
-        return None
-    if stats.device != device or stats.dtype != torch.int64 or \
-            stats.numel() != 4 or not stats.is_contiguous():
-        raise ValueError("nl_gather_stack_bwd: stats must be a contiguous "
-                         "int64 tensor of 4 elements on vid's device")
-    return stats.data_ptr()
 
 
 def nl_gather_stack(vid, weights, flows, *, ps, stride0, pt=1, dilation=1,

@@ -19,6 +19,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "stnls_tpu_torch"
@@ -30,8 +32,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures: every pointer and the stream as c_void_p
 SIGNATURES = {
     "stnls_nls_topk_fwd": [_P] * 5 + [_I] * 19 + [_F, _F] + [_I] * 7 + [_P],
-    "stnls_agg_gather_fwd": [_P] * 4 + [_I] * 15 + [_P],
-    "stnls_nls_topk_bwd": [_P] * 10 + [_I] * 17 + [_P],
+    "stnls_agg_gather_fwd": [_P] * 4 + [_I] * 17 + [_P],
+    "stnls_nls_topk_bwd": [_P] * 11 + [_I] * 20 + [_P],
     "stnls_agg_gather_bwd": [_P] * 8 + [_I] * 15 + [_P],
     "stnls_nls_vol_fwd": [_P] * 5 + [_I] * 18 + [_F, _F] + [_I] * 5 + [_P],
     "stnls_nls_vol_bwd": [_P] * 9 + [_I] * 18 + [_F, _F] + [_I] * 4 + [_P],
@@ -129,6 +131,36 @@ def load():
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return KernelLibrary(path, cdll, built, log)
+
+
+def channels_last(x, Fp):
+    """[..., F, H, W] -> a new contiguous [..., H, W, Fp] tensor, the
+    channels Fp - F >= 0 beyond F zero: the layout in which a pixel's
+    channels are one vector load for B2 and B3."""
+    F = x.shape[-3]
+    moved = x.movedim(-3, -1)
+    if Fp == F:
+        return moved.contiguous()
+    out = x.new_zeros(moved.shape[:-1] + (Fp,))
+    out[..., :F] = moved
+    return out
+
+
+def channels_first(x, F):
+    """The inverse of `channels_last`: [..., H, W, Fp] -> [..., F, H, W]."""
+    return x[..., :F].movedim(-1, -3).contiguous()
+
+
+def stats_ptr(stats, device, name):
+    """The pointer a kernel adds its 4 counts to: None, or the data of
+    `stats`, a contiguous int64 tensor of 4 elements on `device`."""
+    if stats is None:
+        return None
+    if stats.device != device or stats.dtype != torch.int64 or \
+            stats.numel() != 4 or not stats.is_contiguous():
+        raise ValueError(f"{name}: stats must be a contiguous int64 tensor "
+                         "of 4 elements on the inputs' device")
+    return stats.data_ptr()
 
 
 def check_launch(err, name):

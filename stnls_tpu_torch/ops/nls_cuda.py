@@ -185,15 +185,30 @@ def nls_topk_bwd_plain(vid0, vid1, prop_h, prop_w, tj_k, valid, g_d, cfg,
 nls_topk_bwd_plain.calls = 0
 
 
+def _b2_channels(F):
+    """B2's channel layout for F channels a head: (vw, ng, np, Fp), vw
+    channels a vector (1, 2 or 4), ng lanes a query (a power of two up to
+    32), np passes of each lane, Fp = vw * ng * np >= F padded channels."""
+    vw = 1 if F == 1 else 2 if F == 2 else 4
+    nvec = -(-F // vw)
+    ng = min(1 << (nvec - 1).bit_length(), 32)
+    npass = -(-nvec // ng)
+    return vw, ng, npass, vw * ng * npass
+
+
 def nls_topk_bwd(vid0, vid1, prop_h, prop_w, tj_k, valid, g_d, cfg,
-                 query_t0=None, T_global=None):
+                 query_t0=None, T_global=None, stats=None):
     """B2. vid0, vid1 [B,HD,T,F,H,W]; prop_h, prop_w, tj_k, valid and the
     cotangent g_d [B,HD,T,nH,nW,K]; cfg holds dists_at_positions' keywords
     (ps, stride0, dist_type, dilation, use_adj, itype). Returns (g_vid0,
     g_vid1, g_prop_h, g_prop_w); the position gradients are 0 in the int
     path and for invalid cells. In chunk mode (query_t0, T_global) the
     videos hold the T query frames plus a halo on each side, and tj_k
-    indexes them."""
+    indexes them. The kernel reads channels-last copies of the videos and
+    adds into channels-last accumulators, transposed back here. `stats`,
+    an int64 CUDA tensor of 4 elements, gets the kernel's counts added
+    (csrc/nls_topk_bwd.cu: the global atomic instructions into g_vid1 and
+    into g_vid0, the plain stores into g_vid0, the active (q, k) pairs)."""
     if vid0.device.type == "cpu":
         return nls_topk_bwd_plain(vid0, vid1, prop_h, prop_w, tj_k, valid,
                                   g_d, cfg, query_t0, T_global)
@@ -219,29 +234,35 @@ def nls_topk_bwd(vid0, vid1, prop_h, prop_w, tj_k, valid, g_d, cfg,
             cfg["itype"] not in ("float", "int"):
         raise ValueError(f"nls_topk_bwd: dist_type={cfg['dist_type']!r}, "
                          f"itype={cfg['itype']!r}")
-    vid0, vid1 = vid0.contiguous(), vid1.contiguous()
+    vw, ng, npass, Fp = _b2_channels(F)
+    v0c = cuda_lib.channels_last(vid0, Fp)
+    same = vid1.data_ptr() == vid0.data_ptr() and \
+        vid1.stride() == vid0.stride()          # q = k: one copy
+    v1c = v0c if same else cuda_lib.channels_last(vid1, Fp)
     prop_h, prop_w = prop_h.contiguous(), prop_w.contiguous()
     g_d = g_d.contiguous()
     tj = torch.where(valid, tj_k, -1).to(torch.int32).contiguous()
-    g_vid0 = torch.zeros_like(vid0)
-    g_vid1 = torch.zeros_like(vid1)
+    g0c = torch.zeros_like(v0c)
+    g1c = torch.zeros_like(v0c)
     g_prop_h = torch.empty_like(prop_h)
     g_prop_w = torch.empty_like(prop_w)
     lib = cuda_lib.load()
     with torch.cuda.device(vid0.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.stnls_nls_topk_bwd(
-            vid0.data_ptr(), vid1.data_ptr(), prop_h.data_ptr(),
+            v0c.data_ptr(), v1c.data_ptr(), prop_h.data_ptr(),
             prop_w.data_ptr(), tj.data_ptr(), g_d.data_ptr(),
-            g_vid0.data_ptr(), g_vid1.data_ptr(), g_prop_h.data_ptr(),
-            g_prop_w.data_ptr(), B, HD, T, F, H, W, nH, nW, K, T_v, halo,
-            cfg["ps"],
+            g0c.data_ptr(), g1c.data_ptr(), g_prop_h.data_ptr(),
+            g_prop_w.data_ptr(),
+            cuda_lib.stats_ptr(stats, vid0.device, "nls_topk_bwd"),
+            B, HD, T, Fp, H, W, nH, nW, K, T_v, halo, cfg["ps"],
             cfg["stride0"], int(cfg["dilation"]), int(bool(cfg["use_adj"])),
             int(cfg["dist_type"] == "l2"), int(cfg["itype"] == "int"),
-            stream)
+            vw, ng, npass, stream)
     cuda_lib.check_launch(err, "nls_topk_bwd")
     nls_topk_bwd.launches += 1
-    return g_vid0, g_vid1, g_prop_h, g_prop_w
+    return (cuda_lib.channels_first(g0c, F), cuda_lib.channels_first(g1c, F),
+            g_prop_h, g_prop_w)
 
 
 nls_topk_bwd.launches = 0

@@ -5,6 +5,8 @@ imports no JAX, so it runs on a machine without it:
     python -m pytest --noconftest -m cuda tests/torch_port/test_torch_cuda_kernels.py
 """
 
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -55,25 +57,82 @@ def test_search_kernel_matches_plain(dev, anchor, itype):
     assert_close(d, d_p, "dists")
 
 
-def test_gather_kernel_forward_and_backward(dev):
-    v0, v1, flows = _inputs(dev, 1)
-    d, cells = nls_cuda.nls_topk(v0, v1, flows, **KW)
-    d, (dt, dh, dw) = nls_dists_at_cells(v0, v1, flows, cells,
-                                         **{k: KW[k] for k in
-                                            ("ws", "wt", "ps", "stride0",
-                                             "stride1")})
-    weights = torch.softmax(-d, -1).contiguous()
-    inds = torch.stack([dt, dh, dw], -1).contiguous()
-    outs, grads = [], []
-    for fn in (agg_cuda.nl_gather_stack, agg_cuda.nl_gather_stack_plain):
-        args = [x.clone().requires_grad_() for x in (v1, weights, inds)]
-        out = fn(*args, ps=3, stride0=1)
-        g = torch.autograd.grad(out.pow(2).sum(), args)
-        outs.append(out)
-        grads.append(g)
-    assert_close(outs[0], outs[1], "stack")
-    for a, b in zip(*grads):
-        assert_grad_close(a, b)
+# B3's cases beyond the search's own weights and offsets (None): F a head,
+# ps, and the modes; "intpos" puts every float offset on an integer (zero
+# corner weights), "zero_w" zeroes a third of the weights
+B3_CASES = [None, dict(F=1, ps=1), dict(F=2, ps=3), dict(F=3, ps=3),
+            dict(F=16, ps=1), dict(F=32, ps=5), dict(F=12, ps=3, stride0=2),
+            dict(F=8, ps=3, dilation=2), dict(F=8, ps=3, use_adj=True, pt=2),
+            dict(F=8, ps=3, itype="int"), dict(F=8, ps=5, intpos=True),
+            dict(F=5, ps=4, stride0=2, use_adj=True, zero_w=True)]
+
+
+def _gather_case(dev, F, ps, stride0=1, dilation=1, use_adj=False, pt=1,
+                 itype="float", intpos=False, zero_w=False, K=4, seed=6):
+    """Seeded video, weights and offsets for B3 on 24^2 frames."""
+    Hc = 24
+    nH = (Hc - 1) // stride0 + 1
+    rng = np.random.default_rng(seed)
+
+    def t(x):
+        return torch.from_numpy(np.asarray(x, np.float32)).to(dev)
+
+    shape = (B, HD, T, nH, nH, K)
+    vid = t(rng.standard_normal((B, HD, T, F, Hc, Hc)))
+    w = rng.random(shape) * (rng.random(shape) > (0.3 if zero_w else 0))
+    flows = np.stack([rng.integers(-1, 2, shape),
+                      3 * rng.standard_normal(shape),
+                      3 * rng.standard_normal(shape)], -1)
+    if itype == "int" or intpos:
+        flows = np.round(flows)
+    cfg = dict(ps=ps, stride0=stride0, dilation=dilation, use_adj=use_adj,
+               pt=pt, itype=itype)
+    return vid, t(w), t(flows), cfg
+
+
+@pytest.mark.parametrize("case", B3_CASES)
+def test_gather_kernel_forward_and_backward(dev, case, monkeypatch):
+    if case is None:
+        v0, v1, flows = _inputs(dev, 1)
+        d, cells = nls_cuda.nls_topk(v0, v1, flows, **KW)
+        d, (dt, dh, dw) = nls_dists_at_cells(v0, v1, flows, cells,
+                                             **{k: KW[k] for k in
+                                                ("ws", "wt", "ps", "stride0",
+                                                 "stride1")})
+        vid = v1
+        weights = torch.softmax(-d, -1).contiguous()
+        inds = torch.stack([dt, dh, dw], -1).contiguous()
+        cfg = dict(ps=3, stride0=1)
+    else:
+        vid, weights, inds, cfg = _gather_case(dev, **case)
+    def run(fn):
+        args = [x.clone().requires_grad_(x is not inds or
+                                         cfg.get("itype") != "int")
+                for x in (vid, weights, inds)]
+        out = fn(*args, **cfg)
+        wanted = [x for x in args if x.requires_grad]
+        return out, torch.autograd.grad(out.pow(2).sum(), wanted)
+
+    ref, g_ref = run(agg_cuda.nl_gather_stack_plain)
+    # the kernel on a channels-last copy of the video and on the planar
+    # video (the wrapper picks by the stack's size)
+    for cl_min in (0, sys.maxsize):
+        monkeypatch.setattr(agg_cuda, "CHANNELS_LAST_MIN", cl_min)
+        n0 = agg_cuda.nl_gather_stack.launches
+        out, grads = run(agg_cuda.nl_gather_stack)
+        assert agg_cuda.nl_gather_stack.launches == n0 + 1
+        assert_close(out, ref, "stack")
+        assert_grad_close(out, ref, "stack")
+        if case is None:
+            for a, b in zip(grads, g_ref):
+                assert_grad_close(a, b)
+            continue
+        assert_grad_close(grads[0], g_ref[0], "g_vid")
+        assert_grad_close(grads[1], g_ref[1], "g_weights")
+        if len(grads) == 3 and not case.get("intpos"):
+            off = _off_integer(inds[..., 1]) & _off_integer(inds[..., 2])
+            assert_grad_close(grads[2][..., 1:][off],
+                              g_ref[2][..., 1:][off], "g_flows")
 
 
 @pytest.mark.parametrize("search_impl,agg_impl", [("auto", "auto"),
@@ -99,35 +158,101 @@ def _off_integer(x, eps=1e-3):
     return (frac > eps) & (frac < 1 - eps)
 
 
-@pytest.mark.parametrize("anchor,itype", [(True, "float"), (False, "float"),
-                                          (True, "int")])
-def test_search_backward_kernel_matches_plain(dev, anchor, itype):
-    v0, v1, flows = _inputs(dev)
-    stride1 = 0.5 if itype == "float" else 1
-    kw = dict(KW, anchor=anchor, itype=itype, stride1=stride1)
-    _, cells = nls_cuda.nls_topk(v0, v1, flows, **kw)
-    geo = cells_geometry(flows, cells, H=H, W=W, ws=5, wt=1, stride0=1,
-                         stride1=stride1, itype=itype)
-    cfg = dict(ps=3, stride0=1, dist_type="l2", dilation=1, use_adj=False,
-               itype=itype)
-    g_d = torch.randn(cells.shape, device=dev,
-                      generator=torch.Generator(dev).manual_seed(0))
-    args = (v0, v1, geo["prop_h"], geo["prop_w"], geo["tj_k"], geo["valid"],
-            g_d, cfg)
+# B2's cases beyond the search's own cells (anchor given): F a head (also
+# not a multiple of the vector width), ps, the modes, chunk mode with
+# t0 > 0 (halo frames of g_vid0 exactly 0), and on every case zero
+# cotangents and invalid cells (tj = -1); "intpos" puts every position on
+# integer coordinates (zero corner weights)
+B2_CASES = [(True, "float", None), (False, "float", None), (True, "int", None)]
+B2_CASES += [(None, "float", c) for c in (
+    dict(F=1, ps=1), dict(F=2, ps=1), dict(F=3, ps=3), dict(F=8, ps=3),
+    dict(F=16, ps=1), dict(F=32, ps=5), dict(F=5, ps=3, stride0=2),
+    dict(F=8, ps=3, dilation=2), dict(F=8, ps=3, use_adj=True),
+    dict(F=8, ps=3, dist_type="prod"), dict(F=2, ps=1, stride0=2),
+    dict(F=12, ps=3, T_v=6, T_q=2, t0=3), dict(F=2, ps=1, T_v=6, T_q=2, t0=3),
+    dict(F=8, ps=3, intpos=True), dict(F=200, ps=1, H=8, K=2))]
+B2_CASES += [(None, "int", dict(F=8, ps=3)), (None, "int", dict(F=2, ps=1))]
+
+
+def _b2_case(dev, itype, F, ps, stride0=1, dilation=1, use_adj=False,
+             dist_type="l2", T_v=T, T_q=None, t0=None, intpos=False, H=20,
+             K=5, seed=7):
+    """B2's arguments on seeded positions around each query, target
+    frames with a share of -1 (invalid) and a cotangent with a share of
+    zeros, on H x H frames of T_v video frames (chunk mode: T_q query
+    frames at global t0 with halos of (T_v - T_q) / 2)."""
+    rng = np.random.default_rng(seed)
+    T_q = T_v if T_q is None else T_q
+    nH = (H - 1) // stride0 + 1
+    shape = (B, HD, T_q, nH, nH, K)
+
+    def t(x):
+        return torch.from_numpy(np.asarray(x, np.float32)).to(dev)
+
+    q = np.arange(nH) * stride0
+    ph = q[:, None, None] + 3 * rng.standard_normal(shape)
+    pw = q[None, :, None] + 3 * rng.standard_normal(shape)
+    if itype == "int" or intpos:
+        ph, pw = np.round(ph), np.round(pw)
+    ph, pw = np.clip(ph, -2, H + 1), np.clip(pw, -2, H + 1)
+    tj = rng.integers(-1, T_v, shape)
+    g_d = rng.standard_normal(shape) * (rng.random(shape) > 0.3)
+    cfg = dict(ps=ps, stride0=stride0, dist_type=dist_type,
+               dilation=dilation, use_adj=use_adj, itype=itype)
+    chunk = () if T_q == T_v else (t0, t0 + T_q + 3)
+    return (t(rng.standard_normal((B, HD, T_v, F, H, H))),
+            t(rng.standard_normal((B, HD, T_v, F, H, H))), t(ph), t(pw),
+            torch.from_numpy(np.maximum(tj, 0)).to(dev),
+            torch.from_numpy(tj >= 0).to(dev), t(g_d), cfg) + chunk
+
+
+@pytest.mark.parametrize("anchor,itype,case", B2_CASES)
+def test_search_backward_kernel_matches_plain(dev, anchor, itype, case):
+    if case is None:
+        v0, v1, flows = _inputs(dev)
+        stride1 = 0.5 if itype == "float" else 1
+        kw = dict(KW, anchor=anchor, itype=itype, stride1=stride1)
+        _, cells = nls_cuda.nls_topk(v0, v1, flows, **kw)
+        geo = cells_geometry(flows, cells, H=H, W=W, ws=5, wt=1, stride0=1,
+                             stride1=stride1, itype=itype)
+        cfg = dict(ps=3, stride0=1, dist_type="l2", dilation=1,
+                   use_adj=False, itype=itype)
+        g_d = torch.randn(cells.shape, device=dev,
+                          generator=torch.Generator(dev).manual_seed(0))
+        args = (v0, v1, geo["prop_h"], geo["prop_w"], geo["tj_k"],
+                geo["valid"], g_d, cfg)
+    else:
+        args = _b2_case(dev, itype, **case)
     n0 = nls_cuda.nls_topk_bwd.launches
-    g_k = nls_cuda.nls_topk_bwd(*args)
+    stats = torch.zeros(4, dtype=torch.int64, device=dev)
+    g_k = nls_cuda.nls_topk_bwd(*args, stats=stats)
     torch.cuda.synchronize()
     assert nls_cuda.nls_topk_bwd.launches == n0 + 1
     g_p = nls_cuda.nls_topk_bwd_plain(*args)
     assert_grad_close(g_k[0], g_p[0], "g_vid0")
     assert_grad_close(g_k[1], g_p[1], "g_vid1")
+    # the kernel counts the active (q, k) pairs
+    assert int(stats[3]) == int((args[5] & (args[6] != 0)).sum())
+    if case is not None and "t0" in case:
+        halo = (args[0].shape[2] - case["T_q"]) // 2
+        assert not g_k[0][:, :, :halo].any()
+        assert not g_k[0][:, :, halo + case["T_q"]:].any()
     # position gradients jump at integer coordinates: compare away from them
-    off = _off_integer(geo["prop_h"]) & _off_integer(geo["prop_w"])
+    off = _off_integer(args[2]) & _off_integer(args[3])
     for a, b, name in zip(g_k[2:], g_p[2:], ("g_prop_h", "g_prop_w")):
         if itype == "int":
             assert not a.any() and not b.any()
-        else:
+        elif case is None or not case.get("intpos"):
             assert_grad_close(a[off], b[off], name)
+
+
+def test_search_backward_query_gradient_is_deterministic(dev):
+    """At ps = 1 each pixel of g_vid0 belongs to one query: B2 stores it
+    once, so two calls agree bitwise (g_vid1 sums atomics in any order)."""
+    args = _b2_case(dev, "float", F=2, ps=1, H=64, K=10)
+    first = nls_cuda.nls_topk_bwd(*args)[0]
+    for _ in range(2):
+        assert torch.equal(nls_cuda.nls_topk_bwd(*args)[0], first)
 
 
 @pytest.mark.parametrize("itype,extra", [("float", {}), ("float",
