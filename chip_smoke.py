@@ -16,7 +16,9 @@ Phases, in order; any failure raises and exits non-zero:
      topk_mode="none" gives, and on the sparse one of anchor_each with
      per-frame top-2; at 64^2 also remove_ref_frame's, the int path and
      prod distances; centre gradients compared off integer lattice
-     positions);
+     positions), with B6's global atomic instructions a backward against
+     the first design's a scalar one per (active cell, tap, channel,
+     corner): at least 8x fewer on the slice's dense cotangent;
   4. the forward path at full width (B=1, T=5, F=16, 128^2):
      NonLocalAttention and the bench attention step, through the kernels
      and through the plain versions (`plain_route`), with launch counts;
@@ -93,10 +95,11 @@ Phases, in order; any failure raises and exits non-zero:
      through the kernels (B1-B4) and through plain_route(), and B3's time
      and bound at the arguments of the twin's gather. A multi-card ring
      exchange is not run: one card holds one rank.
-B2's and B3's times are printed with those of their previous design in
-parentheses (EARLIER_MS).
+B2's, B3's, B5's and B6's times are printed with those of their
+previous design in parentheses (EARLIER_MS).
 The line before the last is a JSON object of the kernels (B1, B2, B5 and
-B6 with a "chunk" entry of their chunk mode); the last line is
+B6 with a "chunk" entry of their chunk mode, B6 with a "stats" entry of
+its global atomics at the slice); the last line is
 {"ok": true, "device": {...}}. The script imports nothing of JAX.
 """
 
@@ -151,13 +154,17 @@ HBM_BYTES_S, F32_FLOP_S = 3.35e12, 67e12
 # for those terms, plus the cotangent's division once per element.
 FLOPS_PER_TAP = {"B1": 10, "B2": 26, "B3": 9, "B4": 17, "B5": 10, "B6": 26,
                  "B7": 2, "B8": 2, "B9": 2, "B10": 4}
-# B2's and B3's times before their redesign, as PERF.md section 6 records
-# them (chip_smoke.py's CUDA events and, "device", profile_step.py's traces;
-# NVIDIA H100 80GB HBM3, 700.00 W), printed in parentheses beside this
-# run's
+# B2's, B3's, B5's and B6's times before their redesign, as PERF.md
+# section 6 records them (chip_smoke.py's CUDA events and, "device",
+# profile_step.py's traces; NVIDIA H100 80GB HBM3, 700.00 W), printed in
+# parentheses beside this run's
 EARLIER_MS = {"B2 slice": 5.437, "B2 config 7 device": 90.965,
               "B2 config 4 device": 9.029, "B3 slice": 1.448,
-              "B3 multichip twin device": 6.123}
+              "B3 multichip twin device": 6.123,
+              "B5 slice": 2.119, "B5 1,2": 6.399, "B5 1,16": 1.003,
+              "B5 chunk": 1.776, "B6 slice each": 2.442,
+              "B6 slice dense": 18.249, "B6 1,2": 7.437, "B6 1,16": 0.624,
+              "B6 chunk": 1.966}
 # The search of the volume path (attn_step.VOLUME_SEARCH) and the
 # configurations of the B5/B6 checks: (label, itype, dist_type, the
 # cotangents B6 is checked on)
@@ -241,9 +248,9 @@ def build_phase(cuda_lib):
                               r"stores, (\d+) bytes spill loads", line)
             b1_frames[tuple(int(x) for x in b1.groups())] = frame.groups()
         if (b1 or "agg_" in func or "nls_topk_bwd" in func or
-                "ILi3ELi8E" in func or "ILi0ELi0E" in func) and \
+                "nls_vol" in func) and \
                 ("registers" in line or "spill" in line):
-            log(f"[build] {func[:56]}: {line.strip()}")
+            log(f"[build] ...{func[-44:]}: {line.strip()}")
     log("[build] B1 bodies ((ps, F); (0, 0) the run-time one): stack frame "
         "/ spill stores / spill loads bytes: " + "; ".join(
             f"{body}: {'/'.join(fr)}"
@@ -390,6 +397,28 @@ def b2_atomics(torch, args):
                 into_g_vid0=into0, g_vid0_stores=stores,
                 active_pairs=active, first_version=first,
                 fewer=first / max(into1 + into0, 1))
+
+
+def b6_atomics(torch, args, d):
+    """B6's global atomic instructions a backward on args (its wrapper's
+    arguments; d the volume): the kernel's counts (into g_vid1, into
+    g_vid0, active cells) and the first design's from the shapes, a
+    scalar atomic per (active cell, tap, channel, bilinear corner) and
+    per (active (query, slot), tap, channel)."""
+    from stnls_tpu_torch.ops import nls_vol_cuda
+    stats = torch.zeros(4, dtype=torch.int64, device=args[0].device)
+    nls_vol_cuda.nls_volume_bwd(*args, stats=stats)
+    into1, into0, _, cells = stats.tolist()
+    live = (args[4] != 0) & d.isfinite()
+    require(cells == int(live.sum()), f"B6 counted {cells} active cells, "
+            f"not {int(live.sum())}")
+    slots = int(live.flatten(4, 5).any(4).sum())
+    taps_f = args[5]["ps"] ** 2 * args[0].shape[3]
+    corners = 1 if args[5]["itype"] == "int" else 4
+    return dict(into_vid1=into1, into_vid0=into0,
+                global_atomics=into1 + into0, active_cells=cells,
+                active_slots=slots,
+                first_design=cells * taps_f * corners + slots * taps_f)
 
 
 def b3_work(vid, weights, inds, ps, stride0=1):
@@ -654,8 +683,15 @@ def volume_kernel_phase(torch, dev, name, cfg):
                 f"compared at {int(off[0].sum())} (h) and {int(off[1].sum())}"
                 f" (w) of {off[0].numel()} (query, slot) off integer "
                 f"lattice positions; plain B6 peak {peak:.3f} GB")
+            at = b6_atomics(torch, args, d)
+            log(f"[kernels] B6 {name} {label} {kind}: global atomic "
+                f"instructions a backward {at['global_atomics']} (into "
+                f"g_vid1 {at['into_vid1']}, into g_vid0 {at['into_vid0']}) "
+                f"against the first "
+                f"design's {at['first_design']} "
+                f"({at['first_design'] / max(at['global_atomics'], 1):.1f}x)")
             res.setdefault(kind, dict(args=args, active=active,
-                                      kw=kw, g=(g_k, g_d)))
+                                      kw=kw, g=(g_k, g_d), atomics=at))
 
     def nb(*xs):
         return sum(x.numel() * x.element_size() for x in xs)
@@ -674,7 +710,8 @@ def volume_kernel_phase(torch, dev, name, cfg):
             r["active"] * taps * F * FLOPS_PER_TAP["B6"])
     return dict(err=errs, bounds=bounds, b5_args=(vid0, vid1, ctr_h, ctr_w),
                 b5_kw=first["kw"],
-                b6_args={kind: r["args"] for kind, r in res.items()})
+                b6_args={kind: r["args"] for kind, r in res.items()},
+                b6_atomics={kind: r["atomics"] for kind, r in res.items()})
 
 
 def train_path(torch, attn, step, data):
@@ -1263,9 +1300,11 @@ def compiled_vs_run_time(torch, dev, smi_line, res, vres):
         u0.shape, uflows, wt=2, stride0=1))
     p12 = make_inputs(torch, rng, dev, B=1, HD=2, T=5, F=2, H=256, W=256,
                       wt=2)
+    pc = tuple(x.contiguous() for x in search_centres(
+        p12[0].shape, p12[2], wt=2, stride0=1))
     cases = {(3, 8): (res["inputs"][:3], vres["b5_args"]),
              (3, 16): ((u0, u1, uflows), (u0, u1) + uc),
-             (1, 2): (p12, None)}
+             (1, 2): (p12, p12[:2] + pc)}
     out = {}
     for pair, (b1_args, b5_args) in cases.items():
         calls = {}      # each returns a tuple of tensors
@@ -1273,8 +1312,8 @@ def compiled_vs_run_time(torch, dev, smi_line, res, vres):
         if lib.stnls_nls_topk_compiled(*pair):
             calls["B1"] = lambda: nls_cuda.nls_topk(*b1_args, **b1_kw)
         if lib.stnls_nls_vol_compiled(*pair):
-            calls["B5"] = lambda: (nls_vol_cuda.nls_volume(*b5_args,
-                                                           **vkw),)
+            calls["B5"] = lambda: (nls_vol_cuda.nls_volume(
+                *b5_args, **dict(vkw, ps=pair[0])),)
         times = {}
         with torch.no_grad():
             for key, fn in calls.items():
@@ -1657,10 +1696,17 @@ def ps1_kernel_times(torch, dev, smi_line, matrix):
         out[label]["B1"]["full_size_ms"] = t_full
         out[label]["B1"]["full_size_bound_ms"] = full_bound[0]
         out[label]["B1"]["full_size_bound_by"] = full_bound[1]
+        # W_t = 1 at (1, 16): every centre is its query's pixel, where B5
+        # and B6 run slower than their previous design (PERF.md section 7)
         log(f"[times] {smi_line}: (ps, F) = ({label}) at "
-            f"{MATRIX_CROP[0]}x{MATRIX_CROP[1]} of {name}: " + "; ".join(
-                f"{key} {t[key][0]:.3f} ms (plain {t[key][1]:.3f}, bound "
-                f"{bounds[key][0]:.4f} by {bounds[key][1]})" for key in t)
+            f"{MATRIX_CROP[0]}x{MATRIX_CROP[1]} of {name}, W_t = "
+            f"{min(2 * cfg['wt'] + 1, cfg['T'])}: " + "; ".join(
+                f"{key} {t[key][0]:.3f} ms ("
+                + (f"previous design {EARLIER_MS[f'{key} {label}']}, this "
+                   f"run {t[key][0] / EARLIER_MS[f'{key} {label}']:.2f}x it; "
+                   if f"{key} {label}" in EARLIER_MS else "")
+                + f"plain {t[key][1]:.3f}, bound {bounds[key][0]:.4f} by "
+                f"{bounds[key][1]})" for key in t)
             + f"; B1 at {tuple(full[0].shape[-2:])} {t_full:.3f} ms (bound "
             f"{full_bound[0]:.4f} by {full_bound[1]})")
         del r, g, d_k, c_k, v, fl
@@ -1975,9 +2021,11 @@ def chunk_times(torch, smi_line, r):
         f"{v0p.shape[-1]}^2, "
         f"{CHUNK_SLICE['T_local']} query frames of {CHUNK_SLICE['T']} with "
         f"halos of {CHUNK_SLICE['halo']}: " + "; ".join(
-            f"{key} {ms:.3f} ms (plain {pms:.3f}, bound "
-            f"{bounds[key][0]:.4f} by {bounds[key][1]})"
-            for key, (ms, pms) in t.items()))
+            f"{key} {ms:.3f} ms ("
+            + (f"previous design {EARLIER_MS[f'{key} chunk']}; "
+               if f"{key} chunk" in EARLIER_MS else "")
+            + f"plain {pms:.3f}, bound {bounds[key][0]:.4f} by "
+            f"{bounds[key][1]})" for key, (ms, pms) in t.items()))
     return {key: dict(ms=t[key][0], plain_ms=t[key][1],
                       bound_ms=bounds[key][0], bound_by=bounds[key][1])
             for key in t}
@@ -2183,6 +2231,11 @@ def main():
                                dict(H=128, wt=2, stride1=0.5))
     vgraft = volume_kernel_phase(torch, dev, "graft 64^2",
                                  dict(H=64, wt=1, stride1=1))
+    at = vres["b6_atomics"]["dense"]
+    require(at["first_design"] >= 8 * at["global_atomics"],
+            f"B6: {at['global_atomics']} global atomics on the slice's dense "
+            f"cotangent, not 8x below the first design's "
+            f"{at['first_design']}")
 
     # 4. the forward path at full width
     B, T, F, H, W, K = 1, 5, 16, 128, 128, 10
@@ -2329,10 +2382,12 @@ def main():
     with plain_route():
         t_volp = cuda_ms(vol_fwd, n=3, warm=1)
         t_vol_trainp = cuda_ms(vol_fwd_bwd, n=3, warm=1)
-    log(f"[times] {smi_line}: B5 {t_b5:.3f} ms (plain {t_b5p:.3f}, bound "
+    log(f"[times] {smi_line}: B5 {t_b5:.3f} ms (previous design "
+        f"{EARLIER_MS['B5 slice']}; plain {t_b5p:.3f}, bound "
         f"{vres['bounds']['B5'][0]:.3f}); " + "; ".join(
-            f"B6 {kind} {t_b6[kind]:.3f} ms (plain {t_b6p[kind]:.3f}, bound "
-            f"{vres['bounds'][f'B6 {kind}'][0]:.3f})" for kind in t_b6))
+            f"B6 {kind} {t_b6[kind]:.3f} ms (previous design "
+            f"{EARLIER_MS[f'B6 slice {kind}']}; plain {t_b6p[kind]:.3f}, "
+            f"bound {vres['bounds'][f'B6 {kind}'][0]:.3f})" for kind in t_b6))
     log(f"[times] {smi_line}: volume NonLocalAttention forward {t_vol:.3f} "
         f"ms = {T / (t_vol / 1e3):.1f} frames/s (plain {t_volp:.3f} ms); "
         f"fwd+bwd {t_vol_train:.3f} ms = {T / (t_vol_train / 1e3):.2f} "
@@ -2483,6 +2538,9 @@ def main():
             "launches": launches[name], "max_abs_err": errs[key],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None}
+        if key == "B6":
+            # B6's global atomic instructions a backward at the slice
+            entry["stats"] = vres["b6_atomics"]
         if key in t_chunk:
             entry["chunk"] = dict(t_chunk[key],
                                   launches=chunk_launches[name],

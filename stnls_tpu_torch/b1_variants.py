@@ -18,13 +18,13 @@ the CUDA-event medians. Exits non-zero without a CUDA device. Imports
 nothing of JAX.
 """
 
-import ctypes
 import re
-import subprocess
 import sys
 from pathlib import Path
 
 import numpy as np
+
+from stnls_tpu_torch import variant_tools as vt
 
 REG_LIST = """// The ranked list of up to NS entries in registers: every index is a
 // compile-time constant after unrolling, and `i < n` is a predicate.
@@ -104,26 +104,6 @@ VARIANTS = {
 }
 
 
-def build(cuda_lib, name, subs, out_dir):
-    """The variant's source built alone into its own library; returns the
-    library's path and ptxas's report."""
-    src = cuda_lib.CSRC / "nls_topk_fwd.cu"
-    text = src.read_text()
-    for old, new in subs:
-        if old not in text:
-            sys.exit(f"b1_variants: {name}: the source no longer has {old!r}")
-        text = text.replace(old, new)
-    variant = out_dir / f"nls_topk_fwd_{name}.cu"
-    variant.write_text(text)
-    lib = out_dir / f"libb1_{name}.so"
-    r = subprocess.run([cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-shared", "-I",
-                        str(cuda_lib.CSRC), "-o", str(lib), str(variant)],
-                       capture_output=True, text=True)
-    if r.returncode:
-        sys.exit(f"b1_variants: {name} failed to build:\n{r.stdout}{r.stderr}")
-    return lib, r.stdout + r.stderr
-
-
 def frames(log):
     """{(ps, F): 'N bytes stack frame, ...'} of B1's compiled bodies."""
     out, func = {}, None
@@ -148,35 +128,18 @@ def main():
     from stnls_tpu_torch import matrix_steps as ms
     from stnls_tpu_torch.attn_step import cuda_ms
     from stnls_tpu_torch.ops import cuda_lib, nls_cuda
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    print(smi.stdout.strip(), flush=True)
+    print(vt.card(), flush=True)
     shipped = cuda_lib.load()
     print("shipped:", frames(shipped.log), flush=True)
     out_dir = cuda_lib.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
-    sig = cuda_lib.SIGNATURES["stnls_nls_topk_fwd"]
-
-    class Variant:
-        """The shipped library with B1's entry taken from a variant."""
-
-        def __init__(self, path):
-            self.fn = ctypes.CDLL(str(path)).stnls_nls_topk_fwd
-            self.fn.argtypes = sig
-            self.fn.restype = ctypes.c_int
-
-        def stnls_nls_topk_fwd(self, *args):
-            return self.fn(*args)
-
-        def __getattr__(self, name):
-            return getattr(shipped, name)
 
     libs = {"shipped": shipped}
     for name, subs in VARIANTS.items():
-        path, log = build(cuda_lib, name, subs, out_dir)
+        path, log = vt.build(cuda_lib, cuda_lib.CSRC / "nls_topk_fwd.cu",
+                             out_dir, f"b1_{name}", subs)
         print(f"{name}:", frames(log), flush=True)
-        libs[name] = Variant(path)
+        libs[name] = vt.Variant(shipped, path, "stnls_nls_topk_fwd")
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(cs.SEED)
@@ -198,7 +161,7 @@ def main():
         times = {name: [] for name in libs}
         ref = None
         for name in order:
-            cuda_lib.load = lambda lib=libs[name]: lib
+            vt.swap(cuda_lib, libs[name])
             with torch.no_grad():
                 d, c = nls_cuda.nls_topk(a0, a1, f, **kw)
                 if ref is None:
@@ -208,7 +171,7 @@ def main():
                 n = 3 if a0.shape[-1] > 1000 else 10
                 times[name].append(cuda_ms(
                     lambda: nls_cuda.nls_topk(a0, a1, f, **kw), n=n, warm=1))
-        cuda_lib.load = lambda: shipped
+        vt.swap(cuda_lib, shipped)
         print(f"[B1 {label}] " + "; ".join(
             f"{name} {' / '.join(f'{t:.3f}' for t in ts)} ms"
             for name, ts in times.items()), flush=True)

@@ -44,11 +44,12 @@ non-zero without a CUDA device. Imports nothing of JAX.
 import argparse
 import ctypes
 import json
-import subprocess
 import sys
 from pathlib import Path
 
 import numpy as np
+
+from stnls_tpu_torch import variant_tools as vt
 
 # B2's variants of the shipped C interface: (source under csrc/, text
 # substitutions)
@@ -59,28 +60,6 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 PREVIOUS = {"nls_topk_bwd": ("stnls_nls_topk_bwd", [_P] * 10 + [_I] * 17 + [_P]),
             "agg_gather_fwd": ("stnls_agg_gather_fwd",
                                [_P] * 4 + [_I] * 15 + [_P])}
-
-
-def build(cuda_lib, src, out_dir, name, subs=()):
-    """`src`, with the text substitutions `subs`, built alone into
-    out_dir/lib<name>.so; returns (path, ptxas report)."""
-    text = Path(src).read_text()
-    for old, new in subs:
-        if old not in text:
-            sys.exit(f"b2_b3_variants: {name}: {src} no longer has {old!r}")
-        text = text.replace(old, new)
-    src = out_dir / f"{name}.cu"
-    src.write_text(text)
-    lib = out_dir / f"lib{name}.so"
-    r = subprocess.run([cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-shared",
-                        "-I", str(cuda_lib.CSRC), "-o", str(lib), str(src)],
-                       capture_output=True, text=True)
-    if r.returncode:
-        sys.exit(f"b2_b3_variants: {name} failed to build:\n"
-                 f"{r.stdout}{r.stderr}")
-    return lib, "\n".join(line.strip() for line in (r.stdout + r.stderr)
-                          .splitlines() if "registers" in line
-                          or "spill" in line or "entry function" in line)
 
 
 def previous_b2(torch, fn, vid0, vid1, prop_h, prop_w, tj_k, valid, g_d,
@@ -206,43 +185,26 @@ def main():
     import chip_smoke as cs
     from stnls_tpu_torch.attn_step import cuda_ms
     from stnls_tpu_torch.ops import agg_cuda, cuda_lib, nls_cuda
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    card = smi.stdout.strip()
+    card = vt.card()
     print(card, flush=True)
     shipped = cuda_lib.load()
     out_dir = cuda_lib.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     dev = torch.device("cuda", 0)
 
-    class Variant:
-        """The shipped library with B2's entry taken from a variant."""
-
-        def __init__(self, path):
-            self.fn = ctypes.CDLL(str(path)).stnls_nls_topk_bwd
-            self.fn.argtypes = cuda_lib.SIGNATURES["stnls_nls_topk_bwd"]
-            self.fn.restype = ctypes.c_int
-
-        def stnls_nls_topk_bwd(self, *a):
-            return self.fn(*a)
-
-        def __getattr__(self, name):
-            return getattr(shipped, name)
-
     variants = {}
     for name, (src, subs) in B2_VARIANTS.items():
-        path, log = build(cuda_lib, cuda_lib.CSRC / src, out_dir,
-                          f"b2_{name}", subs)
-        print(f"{name}:\n{log}", flush=True)
-        variants[name] = Variant(path)
+        path, log = vt.build(cuda_lib, cuda_lib.CSRC / src, out_dir,
+                             f"b2_{name}", subs)
+        print(f"{name}:\n{vt.ptxas_lines(log)}", flush=True)
+        variants[name] = vt.Variant(shipped, path, "stnls_nls_topk_bwd")
     prev = {}
     prev_dir = Path(args.previous)
     if all((prev_dir / f"{k}.cu").exists() for k in PREVIOUS):
         for key, (sym, argtypes) in PREVIOUS.items():
-            path, log = build(cuda_lib, prev_dir / f"{key}.cu", out_dir,
-                              f"previous_{key}")
-            print(f"previous {key}:\n{log}", flush=True)
+            path, log = vt.build(cuda_lib, prev_dir / f"{key}.cu", out_dir,
+                                 f"previous_{key}")
+            print(f"previous {key}:\n{vt.ptxas_lines(log)}", flush=True)
             fn = getattr(ctypes.CDLL(str(path)), sym)
             fn.argtypes, fn.restype = argtypes, ctypes.c_int
             prev[key] = fn
@@ -251,7 +213,7 @@ def main():
               "only", flush=True)
 
     def swap(lib):
-        cuda_lib.load = lambda: lib
+        vt.swap(cuda_lib, lib)
 
     results = {"card": card}
     libs = dict(shipped=shipped, **variants)

@@ -1,6 +1,7 @@
 // Geometry and patch-distance code shared by the search kernels B1
 // (nls_topk_fwd.cu), B5 (nls_vol_fwd.cu) and B6 (nls_vol_bwd.cu), so that
-// the three read the same lattice the same way.
+// the three read the same lattice the same way (B5 and B6 take the
+// geometry; patch_dist and the query forms are B1's).
 //
 // Temporal chunks (time sharding): B1, B2, B5 and B6 take the query
 // frames of one chunk of a sequence of Tg frames, t0 the global index of
@@ -205,6 +206,26 @@ struct QueryOf<0, 0> {
   using type = GlobalQuery;
 };
 
+// The two bilinear corners of a float key coordinate p inside [0, L-1] on
+// one axis: the integer pixels i0 and i1 = i0 + 1 (i0 itself, weighted 0,
+// where i0 is the last pixel: ok1 false) and their weights.
+struct AxisCorner {
+  int i0, i1;
+  float w0, w1;
+  bool ok1;
+};
+
+__device__ __forceinline__ AxisCorner axis_corner(float p, int L) {
+  AxisCorner c;
+  const float f0 = floorf(p);
+  c.w0 = fmaxf(0.f, 1.f - fabsf(f0 - p));
+  c.w1 = fmaxf(0.f, 1.f - fabsf(__fadd_rn(f0, 1.f) - p));
+  c.i0 = (int)f0;
+  c.ok1 = c.i0 + 1 <= L - 1;
+  c.i1 = c.ok1 ? c.i0 + 1 : c.i0;
+  return c;
+}
+
 // Bilinear corners of a float key position (ph, pw) inside the frame:
 // offsets into one channel plane and weights, with a corner beyond the
 // last row or column weighted 0 (its offset clamped), as lattice_search
@@ -216,20 +237,18 @@ struct Corners {
 };
 
 __device__ __forceinline__ Corners corners(float ph, float pw, int H, int W) {
+  const AxisCorner h = axis_corner(ph, H), w = axis_corner(pw, W);
   Corners c;
-  const float h0 = floorf(ph), w0 = floorf(pw);
-  c.wh0 = fmaxf(0.f, 1.f - fabsf(h0 - ph));
-  c.wh1 = fmaxf(0.f, 1.f - fabsf(__fadd_rn(h0, 1.f) - ph));
-  c.ww0 = fmaxf(0.f, 1.f - fabsf(w0 - pw));
-  c.ww1 = fmaxf(0.f, 1.f - fabsf(__fadd_rn(w0, 1.f) - pw));
-  const int ih0 = (int)h0, iw0 = (int)w0;
-  c.okh1 = ih0 + 1 <= H - 1;
-  c.okw1 = iw0 + 1 <= W - 1;
-  const int ih1 = c.okh1 ? ih0 + 1 : ih0, iw1 = c.okw1 ? iw0 + 1 : iw0;
-  c.o00 = ih0 * W + iw0;
-  c.o01 = ih0 * W + iw1;
-  c.o10 = ih1 * W + iw0;
-  c.o11 = ih1 * W + iw1;
+  c.wh0 = h.w0;
+  c.wh1 = h.w1;
+  c.ww0 = w.w0;
+  c.ww1 = w.w1;
+  c.okh1 = h.ok1;
+  c.okw1 = w.ok1;
+  c.o00 = h.i0 * W + w.i0;
+  c.o01 = h.i0 * W + w.i1;
+  c.o10 = h.i1 * W + w.i0;
+  c.o11 = h.i1 * W + w.i1;
   return c;
 }
 

@@ -27,7 +27,7 @@
 //
 // Layout: the wrapper hands the kernel channels-last copies of the videos,
 // [B,HD,Tv,H,W,Fp] with Fp >= F zero-padded channels (Fp = VW * ng * np,
-// see nls_cuda._b2_channels), and channels-last accumulators of the same
+// see cuda_lib.channel_layout), and channels-last accumulators of the same
 // shape for both video gradients, which it zeroes before and transposes
 // back to [B,HD,Tv,F,H,W] after. A pixel's VW channels are then one 8- or
 // 16-byte vector: one load, one vector atomic (float2/float4 atomicAdd,

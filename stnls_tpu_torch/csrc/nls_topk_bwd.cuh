@@ -1,10 +1,12 @@
-// B2's argument struct and vector helpers, shared by the kernel
+// B2's argument struct and reflection, shared by the kernel
 // (nls_topk_bwd.cu) and its measured variant (variants/
 // nls_topk_bwd_tile.cu, which stnls_tpu_torch/b2_b3_variants.py builds).
 
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include "vec_ops.cuh"
 
 namespace {
 
@@ -31,43 +33,6 @@ __device__ __forceinline__ int reflect_i(int v, int lim) {
   int out = v < 0 ? -v : v;
   out = v > lim - 1 ? 2 * (lim - 1) - v : out;
   return min(max(out, 0), lim - 1);
-}
-
-template <int VW>
-__device__ __forceinline__ void vload(float (&x)[VW], const float* p) {
-  if constexpr (VW == 4) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
-  } else if constexpr (VW == 2) {
-    const float2 v = *reinterpret_cast<const float2*>(p);
-    x[0] = v.x; x[1] = v.y;
-  } else {
-    x[0] = *p;
-  }
-}
-
-template <int VW>
-__device__ __forceinline__ void vstore(float* p, const float (&x)[VW]) {
-  if constexpr (VW == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
-  } else if constexpr (VW == 2) {
-    *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
-  } else {
-    *p = x[0];
-  }
-}
-
-// one global atomic instruction for VW channels (returns 1, the count)
-template <int VW>
-__device__ __forceinline__ unsigned vatomic(float* p, const float (&x)[VW]) {
-  if constexpr (VW == 4) {
-    atomicAdd(reinterpret_cast<float4*>(p), make_float4(x[0], x[1], x[2], x[3]));
-  } else if constexpr (VW == 2) {
-    atomicAdd(reinterpret_cast<float2*>(p), make_float2(x[0], x[1]));
-  } else {
-    atomicAdd(p, x[0]);
-  }
-  return 1u;
 }
 
 }  // namespace

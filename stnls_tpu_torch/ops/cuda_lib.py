@@ -35,8 +35,8 @@ SIGNATURES = {
     "stnls_agg_gather_fwd": [_P] * 4 + [_I] * 17 + [_P],
     "stnls_nls_topk_bwd": [_P] * 11 + [_I] * 20 + [_P],
     "stnls_agg_gather_bwd": [_P] * 8 + [_I] * 15 + [_P],
-    "stnls_nls_vol_fwd": [_P] * 5 + [_I] * 18 + [_F, _F] + [_I] * 5 + [_P],
-    "stnls_nls_vol_bwd": [_P] * 9 + [_I] * 18 + [_F, _F] + [_I] * 4 + [_P],
+    "stnls_nls_vol_fwd": [_P] * 5 + [_I] * 19 + [_F, _F] + [_I] * 6 + [_P],
+    "stnls_nls_vol_bwd": [_P] * 10 + [_I] * 18 + [_F, _F] + [_I] * 7 + [_P],
     "stnls_agg_scatter_add_fwd": [_P] * 4 + [_I] * 18 + [_P],
     "stnls_agg_scatter_add_bwd": [_P] * 6 + [_I] * 20 + [_P],
     "stnls_agg_pool_fwd": [_P] * 4 + [_I] * 15 + [_P],
@@ -133,10 +133,22 @@ def load():
     return KernelLibrary(path, cdll, built, log)
 
 
+def channel_layout(F):
+    """The channels-last layout of F channels a head that B2, B5 and B6
+    read: (vw, ng, np, Fp), vw channels a vector (1, 2 or 4), ng lanes a
+    query (a power of two up to 32), np passes of each lane, Fp = vw * ng
+    * np >= F padded channels."""
+    vw = 1 if F == 1 else 2 if F == 2 else 4
+    nvec = -(-F // vw)
+    ng = min(1 << (nvec - 1).bit_length(), 32)
+    npass = -(-nvec // ng)
+    return vw, ng, npass, vw * ng * npass
+
+
 def channels_last(x, Fp):
     """[..., F, H, W] -> a new contiguous [..., H, W, Fp] tensor, the
     channels Fp - F >= 0 beyond F zero: the layout in which a pixel's
-    channels are one vector load for B2 and B3."""
+    channels are one vector load for B2, B3, B5 and B6."""
     F = x.shape[-3]
     moved = x.movedim(-3, -1)
     if Fp == F:
@@ -144,6 +156,15 @@ def channels_last(x, Fp):
     out = x.new_zeros(moved.shape[:-1] + (Fp,))
     out[..., :F] = moved
     return out
+
+
+def channels_last_pair(vid0, vid1, Fp):
+    """The channels-last copies of two videos that B2, B5 and B6 read: one
+    copy, returned twice, where vid1 is vid0 (as a self-search passes)."""
+    v0c = channels_last(vid0, Fp)
+    same = vid1.data_ptr() == vid0.data_ptr() and \
+        vid1.stride() == vid0.stride()
+    return v0c, v0c if same else channels_last(vid1, Fp)
 
 
 def channels_first(x, F):

@@ -185,17 +185,6 @@ def nls_topk_bwd_plain(vid0, vid1, prop_h, prop_w, tj_k, valid, g_d, cfg,
 nls_topk_bwd_plain.calls = 0
 
 
-def _b2_channels(F):
-    """B2's channel layout for F channels a head: (vw, ng, np, Fp), vw
-    channels a vector (1, 2 or 4), ng lanes a query (a power of two up to
-    32), np passes of each lane, Fp = vw * ng * np >= F padded channels."""
-    vw = 1 if F == 1 else 2 if F == 2 else 4
-    nvec = -(-F // vw)
-    ng = min(1 << (nvec - 1).bit_length(), 32)
-    npass = -(-nvec // ng)
-    return vw, ng, npass, vw * ng * npass
-
-
 def nls_topk_bwd(vid0, vid1, prop_h, prop_w, tj_k, valid, g_d, cfg,
                  query_t0=None, T_global=None, stats=None):
     """B2. vid0, vid1 [B,HD,T,F,H,W]; prop_h, prop_w, tj_k, valid and the
@@ -234,11 +223,8 @@ def nls_topk_bwd(vid0, vid1, prop_h, prop_w, tj_k, valid, g_d, cfg,
             cfg["itype"] not in ("float", "int"):
         raise ValueError(f"nls_topk_bwd: dist_type={cfg['dist_type']!r}, "
                          f"itype={cfg['itype']!r}")
-    vw, ng, npass, Fp = _b2_channels(F)
-    v0c = cuda_lib.channels_last(vid0, Fp)
-    same = vid1.data_ptr() == vid0.data_ptr() and \
-        vid1.stride() == vid0.stride()          # q = k: one copy
-    v1c = v0c if same else cuda_lib.channels_last(vid1, Fp)
+    vw, ng, npass, Fp = cuda_lib.channel_layout(F)
+    v0c, v1c = cuda_lib.channels_last_pair(vid0, vid1, Fp)
     prop_h, prop_w = prop_h.contiguous(), prop_w.contiguous()
     g_d = g_d.contiguous()
     tj = torch.where(valid, tj_k, -1).to(torch.int32).contiguous()

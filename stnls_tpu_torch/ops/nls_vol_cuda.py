@@ -14,6 +14,10 @@ custom_vjp `_vol_op` is in the JAX package: its forward is B5, its
 backward `nls_volume_bwd`, which launches csrc/nls_vol_bwd.cu and returns
 the gradients to both videos and to the centres.
 
+Both kernels read channels-last copies of the videos, [B,HD,T,H,W,Fp]
+(cuda_lib.channel_layout): `nls_volume` makes them and `_SearchVolume`
+keeps them for the backward.
+
 `nls_volume_plain` (ops/nls.volume_at_centres) and
 `nls_volume_bwd_plain` (its VJP) are the kernels' plain PyTorch versions.
 The wrappers take them only for tensors on the CPU; for a CUDA tensor they
@@ -35,7 +39,7 @@ from stnls_tpu_torch.ops.nls import volume_at_centres, chunk_frames
 
 # B5 takes its body with ps and F compiled in for the pairs
 # csrc/nls_vol_fwd.cu lists (B1's counterpart: ops/nls_cuda.COMPILED_BODY);
-# False forces the run-time body. B6 has only its run-time body.
+# False forces the run-time body.
 COMPILED_BODY = True
 
 
@@ -43,9 +47,11 @@ def _stride1(stride1, itype):
     return float(max(1, int(stride1))) if itype == "int" else float(stride1)
 
 
-# Plain version of B5: ops/nls.lattice_search over the window frames at
-# the centres (differentiable). Same arguments and output as `nls_volume`.
-nls_volume_plain = volume_at_centres
+def nls_volume_plain(vid0, vid1, ctr_h, ctr_w, *, out_copies=None, **cfg):
+    """Plain version of B5: ops/nls.lattice_search over the window frames
+    at the centres (differentiable). Same arguments and output as
+    `nls_volume`; it makes no copies (out_copies stays as it is)."""
+    return volume_at_centres(vid0, vid1, ctr_h, ctr_w, **cfg)
 
 
 def _check(name, vid0, vid1, ctr_h, ctr_w, cfg, extra=()):
@@ -83,12 +89,12 @@ def _check(name, vid0, vid1, ctr_h, ctr_w, cfg, extra=()):
 
 
 def _scalars(cfg, shape, frames):
-    """The kernels' shared integer and float arguments, in their C order:
-    the shapes, the video frames T_v and the chunk (t0, T_global, halo),
-    then the search's."""
+    """The kernels' shared integer and float arguments after the channels,
+    in their C order: H, W, the query grid and W_t, the video frames T_v
+    and the chunk (t0, T_global, halo), then the search's."""
     B, HD, T, F, H, W, W_t, nH, nW = shape
     s1 = _stride1(cfg["stride1"], cfg["itype"])
-    return (B, HD, T, F, H, W, nH, nW, W_t) + frames + (
+    return (H, W, nH, nW, W_t) + frames + (
         cfg["ws"], cfg["wt"], cfg["ps"], cfg["stride0"],
         int(cfg["dilation"]), s1, s1 * ((cfg["ws"] - 1) // 2),
         int(cfg["dist_type"] == "l2"), int(bool(cfg["full_ws"])),
@@ -97,11 +103,13 @@ def _scalars(cfg, shape, frames):
 
 def nls_volume(vid0, vid1, ctr_h, ctr_w, *, ws, wt, ps, stride0, stride1,
                dist_type="l2", dilation=1, full_ws=True, use_adj=False,
-               itype="float", query_t0=None, T_global=None):
+               itype="float", query_t0=None, T_global=None, out_copies=None):
     """B5, the search volume. vid0, vid1 [B,HD,T,F,H,W]; ctr_h, ctr_w
     [B,HD,T,W_t,nH,nW] reflected centres (ops/nls.search_centres; integers
     in the int path). Returns dists [B,HD,T,W_t,ws,ws,nH,nW]. Chunk mode:
-    see the module's docstring."""
+    see the module's docstring. The kernel reads channels-last copies of
+    the videos; `out_copies`, a dict, receives them under "copies" for
+    nls_volume_bwd(..., copies=) to read again."""
     cfg = dict(ws=ws, wt=wt, ps=ps, stride0=stride0, stride1=stride1,
                dist_type=dist_type, dilation=dilation, full_ws=full_ws,
                use_adj=use_adj, itype=itype, query_t0=query_t0,
@@ -109,8 +117,15 @@ def nls_volume(vid0, vid1, ctr_h, ctr_w, *, ws, wt, ps, stride0, stride1,
     if vid0.device.type == "cpu":
         return nls_volume_plain(vid0, vid1, ctr_h, ctr_w, **cfg)
     shape, frames = _check("nls_volume", vid0, vid1, ctr_h, ctr_w, cfg)
+    if ps > 74:
+        raise NotImplementedError("nls_volume: ps <= 74 (B5's column table "
+                                  "of 32 threads fills a block's shared "
+                                  "memory)")
     B, HD, T, F, H, W, W_t, nH, nW = shape
-    vid0, vid1 = vid0.contiguous(), vid1.contiguous()
+    vw, _, _, Fp = cuda_lib.channel_layout(F)
+    v0c, v1c = cuda_lib.channels_last_pair(vid0, vid1, Fp)
+    if out_copies is not None:
+        out_copies["copies"] = (v0c, v1c)
     ctr_h, ctr_w = ctr_h.contiguous(), ctr_w.contiguous()
     dists = torch.empty((B, HD, T, W_t, ws, ws, nH, nW), dtype=torch.float32,
                         device=vid0.device)
@@ -118,9 +133,9 @@ def nls_volume(vid0, vid1, ctr_h, ctr_w, *, ws, wt, ps, stride0, stride1,
     with torch.cuda.device(vid0.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.stnls_nls_vol_fwd(
-            vid0.data_ptr(), vid1.data_ptr(), ctr_h.data_ptr(),
-            ctr_w.data_ptr(), dists.data_ptr(), *_scalars(cfg, shape, frames),
-            int(COMPILED_BODY), stream)
+            v0c.data_ptr(), v1c.data_ptr(), ctr_h.data_ptr(),
+            ctr_w.data_ptr(), dists.data_ptr(), B, HD, T, F, Fp,
+            *_scalars(cfg, shape, frames), vw, int(COMPILED_BODY), stream)
     cuda_lib.check_launch(err, "nls_volume")
     nls_volume.launches += 1
     return dists
@@ -129,12 +144,15 @@ def nls_volume(vid0, vid1, ctr_h, ctr_w, *, ws, wt, ps, stride0, stride1,
 nls_volume.launches = 0
 
 
-def nls_volume_bwd_plain(vid0, vid1, ctr_h, ctr_w, g_d, cfg):
+def nls_volume_bwd_plain(vid0, vid1, ctr_h, ctr_w, g_d, cfg, copies=None,
+                         stats=None):
     """Plain version of B6: the VJP of `nls_volume_plain`, recomputed under
     enable_grad one (batch, head) slice at a time, so that its autograd
     residuals (the corner reads of every tap, [.., W_t*ws*ws cells, nH,
     nW, F] each: ~17 GB a slice at 128^2, ws=5, W_t=5, F=8) stay inside a
-    card's memory. Same arguments and outputs as `nls_volume_bwd`."""
+    card's memory. Same arguments and outputs as `nls_volume_bwd`; it
+    reads the videos themselves and counts nothing (copies and stats are
+    left as they are)."""
     nls_volume_bwd_plain.calls += 1
     is_float = cfg["itype"] != "int"
     B, HD = vid0.shape[:2]
@@ -162,11 +180,17 @@ def nls_volume_bwd_plain(vid0, vid1, ctr_h, ctr_w, g_d, cfg):
 nls_volume_bwd_plain.calls = 0
 
 
-def nls_volume_bwd(vid0, vid1, ctr_h, ctr_w, g_d, cfg):
+def nls_volume_bwd(vid0, vid1, ctr_h, ctr_w, g_d, cfg, copies=None,
+                   stats=None):
     """B6. vid0, vid1 [B,HD,T,F,H,W]; ctr_h, ctr_w [B,HD,T,W_t,nH,nW]; the
     cotangent g_d [B,HD,T,W_t,ws,ws,nH,nW]; cfg holds nls_volume's
     keywords. Returns (g_vid0, g_vid1, g_ctr_h, g_ctr_w); the centre
-    gradients are 0 in the int path."""
+    gradients are 0 in the int path. `copies`: the channels-last copies
+    of the videos that nls_volume made (out_copies), else they are made
+    here. `stats`, an int64 CUDA tensor of 4 elements, gets the kernel's
+    counts added in B2's layout (csrc/nls_vol_bwd.cu: the global atomic
+    instructions into g_vid1, those into g_vid0, 0, the active (query,
+    slot, cell) triples)."""
     if vid0.device.type == "cpu":
         return nls_volume_bwd_plain(vid0, vid1, ctr_h, ctr_w, g_d, cfg)
     shape, frames = _check("nls_volume_bwd", vid0, vid1, ctr_h, ctr_w, cfg,
@@ -176,42 +200,60 @@ def nls_volume_bwd(vid0, vid1, ctr_h, ctr_w, g_d, cfg):
     if g_d.shape != (B, HD, T, W_t, ws, ws, nH, nW):
         raise ValueError("nls_volume_bwd: g_d [B,HD,T,W_t,ws,ws,nH,nW] "
                          "expected")
-    vid0, vid1 = vid0.contiguous(), vid1.contiguous()
+    vw, ng, npass, Fp = cuda_lib.channel_layout(F)
+    if copies is None:
+        copies = cuda_lib.channels_last_pair(vid0, vid1, Fp)
+    v0c, v1c = copies
+    if v0c.shape != vid0.shape[:3] + (H, W, Fp) or v1c.shape != v0c.shape \
+            or not (v0c.is_contiguous() and v1c.is_contiguous()):
+        raise ValueError("nls_volume_bwd: copies must be nls_volume's "
+                         "channels-last copies of vid0 and vid1")
     ctr_h, ctr_w = ctr_h.contiguous(), ctr_w.contiguous()
     g_d = g_d.contiguous()
-    g_vid0 = torch.zeros_like(vid0)
-    g_vid1 = torch.zeros_like(vid1)
+    g0c = torch.zeros_like(v0c)
+    g1c = torch.zeros_like(v0c)
     g_ctr_h = torch.empty_like(ctr_h)
     g_ctr_w = torch.empty_like(ctr_w)
     lib = cuda_lib.load()
     with torch.cuda.device(vid0.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.stnls_nls_vol_bwd(
-            vid0.data_ptr(), vid1.data_ptr(), ctr_h.data_ptr(),
-            ctr_w.data_ptr(), g_d.data_ptr(), g_vid0.data_ptr(),
-            g_vid1.data_ptr(), g_ctr_h.data_ptr(), g_ctr_w.data_ptr(),
-            *_scalars(cfg, shape, frames), stream)
+            v0c.data_ptr(), v1c.data_ptr(), ctr_h.data_ptr(),
+            ctr_w.data_ptr(), g_d.data_ptr(), g0c.data_ptr(),
+            g1c.data_ptr(), g_ctr_h.data_ptr(), g_ctr_w.data_ptr(),
+            cuda_lib.stats_ptr(stats, vid0.device, "nls_volume_bwd"),
+            B, HD, T, Fp, *_scalars(cfg, shape, frames), vw, ng, npass,
+            stream)
     cuda_lib.check_launch(err, "nls_volume_bwd")
     nls_volume_bwd.launches += 1
-    return g_vid0, g_vid1, g_ctr_h, g_ctr_w
+    return (cuda_lib.channels_first(g0c, F), cuda_lib.channels_first(g1c, F),
+            g_ctr_h, g_ctr_w)
 
 
 nls_volume_bwd.launches = 0
 
 
 class _SearchVolume(torch.autograd.Function):
-    """Forward: B5 (or its plain version on the CPU). Backward: B6."""
+    """Forward: B5 (or its plain version on the CPU). Backward: B6, on the
+    channels-last copies of the videos that B5 read, kept from the forward
+    to the backward (one or two tensors of the videos' size, Fp / F times
+    it where F is padded)."""
 
     @staticmethod
     def forward(ctx, vid0, vid1, ctr_h, ctr_w, cfg):
         ctx.save_for_backward(vid0, vid1, ctr_h, ctr_w)
         ctx.cfg = cfg
-        return nls_volume(vid0, vid1, ctr_h, ctr_w, **cfg)
+        kept = {}
+        d = nls_volume(vid0, vid1, ctr_h, ctr_w, out_copies=kept, **cfg)
+        ctx.copies = kept.get("copies")
+        return d
 
     @staticmethod
     def backward(ctx, g_d):
         vid0, vid1, ctr_h, ctr_w = ctx.saved_tensors
-        grads = nls_volume_bwd(vid0, vid1, ctr_h, ctr_w, g_d, ctx.cfg)
+        grads = nls_volume_bwd(vid0, vid1, ctr_h, ctr_w, g_d, ctx.cfg,
+                               copies=ctx.copies)
+        ctx.copies = None
         return grads + (None,)
 
 

@@ -923,3 +923,94 @@ def test_time_sharded_search_on_a_world_of_one(dev):
     assert torch.equal(d, d_s) and torch.equal(i, i_s)
     assert_grad_close(g0_s, g0, "g_vid0")
     assert_grad_close(g1_s, g1, "g_vid1")
+
+
+# B5 and B6: B5 bitwise against the plain volume in its compiled and
+# run-time bodies, B6 at 1e-4 * max|ref|, over patch sizes 1-7, widths
+# that are not a multiple of 4, the search's options, chunk mode, a
+# window of one frame (wt = 0: every centre is its query's pixel, so
+# neighbouring queries read neighbouring pixels, the case where B5 and B6
+# are slower than their first design) and the cotangents of the search
+# menu (every cell, the per-frame top-2 of anchor_each, the top-10 of
+# remove_ref_frame); stride1 = 2 and reflected taps at the 32^2 frames'
+# edges spread a slot's corners wide.
+VOLUME_BODY_CASES = [
+    (1, 1, {}, "dense"), (1, 2, {}, "each"), (1, 3, dict(itype="int"), "dense"),
+    (3, 3, dict(dilation=2), "dense"), (3, 8, {}, "dense"), (3, 8, {}, "each"),
+    (3, 8, {}, "remove_ref_frame"), (3, 8, dict(stride1=2.), "dense"),
+    (3, 8, dict(chunk=True), "dense"), (3, 16, dict(use_adj=True), "each"),
+    (5, 8, dict(itype="int"), "each"), (5, 32, dict(dist_type="prod"), "dense"),
+    (7, 2, dict(dilation=2, use_adj=True), "dense"),
+    (7, 16, dict(stride0=2), "each"),
+    (1, 32, dict(stride1=2., dist_type="prod"), "dense"),
+    (1, 16, dict(wt=0, stride1=1.), "each"), (3, 8, dict(wt=0), "dense")]
+
+
+def _volume_cotangent(dev, vol, aux, kind, wt, dist_type):
+    from stnls_tpu_torch.ops.nls_k import aux_to_inds3
+    from stnls_tpu_torch.search.non_local_search import _self_action_topk
+    gen = torch.Generator(dev).manual_seed(4)
+    if kind == "dense":
+        g_d = torch.randn(vol.shape, device=dev, generator=gen)
+        return torch.where(vol.isfinite(), g_d, torch.zeros_like(g_d))
+    sa, mode, k = {"each": ("anchor_each", "each", 2),
+                   "remove_ref_frame": ("remove_ref_frame", "all", 10)}[kind]
+    d = vol.detach().requires_grad_()
+    ds, _ = _self_action_topk(d, aux_to_inds3(aux, d.shape), self_action=sa,
+                              topk_mode=mode, k=k, wt=wt, dist_type=dist_type)
+    g_d, = torch.autograd.grad(ds, d, torch.randn(ds.shape, device=dev,
+                                                  generator=gen))
+    return g_d
+
+
+@pytest.mark.parametrize("ps,F,extra,cotangent", VOLUME_BODY_CASES)
+def test_volume_kernel_bodies_match_plain(dev, ps, F, extra, cotangent,
+                                          monkeypatch):
+    from stnls_tpu_torch.ops.nls import search_centres
+    from stnls_tpu_torch.ops.nls_k import search_aux
+    extra = dict(extra)
+    c = dict(ws=5, wt=1, ps=ps, stride0=1, stride1=0.5, dist_type="l2",
+             dilation=1, use_adj=False, itype="float")
+    if extra.pop("chunk", False):
+        v0, v1, flows = _chunk_inputs(dev, seed=14, F=F)
+        t0, Tl = CHUNK["T_local"], CHUNK["T_local"]
+        v0, v1 = _chunk(v0, t0), _chunk(v1, t0)
+        flows = flows[:, :, t0:t0 + Tl].contiguous()
+        c.update(wt=CHUNK["wt"], query_t0=t0, T_global=CHUNK["T"])
+    else:
+        c.update(extra)
+        v0, v1, flows = _any_ps_inputs(dev, F, c["stride0"], seed=6)
+        if c["wt"] == 0:
+            flows = flows[:, :, :, :0]      # the query's own frame only
+    ctr = [x.contiguous() for x in search_centres(
+        v0.shape, flows, wt=c["wt"], stride0=c["stride0"], itype=c["itype"],
+        T_global=c.get("T_global"))]
+    plain = nls_vol_cuda.nls_volume_plain(v0, v1, *ctr, **c)
+    for compiled in (True, False):
+        monkeypatch.setattr(nls_vol_cuda, "COMPILED_BODY", compiled)
+        vol = nls_vol_cuda.nls_volume(v0, v1, *ctr, **c)
+        assert torch.equal(vol, plain), f"B5, compiled body {compiled}"
+    aux = search_aux(v0.shape, flows, ws=5, wt=c["wt"], stride0=c["stride0"],
+                     stride1=c["stride1"], itype=c["itype"],
+                     query_t0=c.get("query_t0"), T_global=c.get("T_global"))
+    g_d = _volume_cotangent(dev, vol, aux, cotangent, c["wt"],
+                            c["dist_type"])
+    active = int(((g_d != 0) & vol.isfinite()).sum())
+    assert active > 0
+    cfg = dict(c, full_ws=True)
+    stats = torch.zeros(4, dtype=torch.int64, device=dev)
+    g_k = nls_vol_cuda.nls_volume_bwd(v0, v1, *ctr, g_d, cfg, stats=stats)
+    torch.cuda.synchronize()
+    g_p = nls_vol_cuda.nls_volume_bwd_plain(v0, v1, *ctr, g_d, cfg)
+    assert_grad_close(g_k[0], g_p[0], "g_vid0")
+    assert_grad_close(g_k[1], g_p[1], "g_vid1")
+    assert float(g_p[1].abs().max()) > 0
+    offs = (_off_integer(aux["dh"]).all(4), _off_integer(aux["dw"]).all(4))
+    for a, b, off, name in zip(g_k[2:], g_p[2:], offs,
+                               ("g_ctr_h", "g_ctr_w")):
+        if c["itype"] == "int":
+            assert not a.any() and not b.any()
+        elif off.any():
+            assert_grad_close(a[off], b[off], name)
+    into1, into0, stores, n_active = stats.tolist()
+    assert n_active == active and into1 > 0 and into0 > 0 and stores == 0
