@@ -44,9 +44,11 @@ Phases, in order; any failure raises and exits non-zero:
   8. the aggregation kernels against their plain versions on the card:
      B7 ScatterAdd and B9 PooledPatchSum forwards, B8 and B10 their
      backwards on a seeded cotangent, at the agg example's config (128^2,
-     its search's weights and offsets) and at a second one (64^2, strides
+     its search's weights and offsets), at a second one (64^2, strides
      2, dilation 2, use_adj, ps 4 (pool: 5), pt 2, half-integer offsets,
-     -1e8 fills, weights below 1e-8 and negative);
+     -1e8 fills, weights below 1e-8 and negative) and at the agg
+     example's config on 512^2 frames; B9's output and B8's gradients
+     bitwise equal on two calls (no atomics);
   9. the agg example's twin (stnls_tpu_torch/agg_example.py) at full width
      (B=1, T=3, F=16, HD=2, 128^2, K=8): one search, then Gather,
      GatherAdd, ScatterAdd and Pool forward and the gradients of
@@ -55,7 +57,8 @@ Phases, in order; any failure raises and exits non-zero:
      through the plain route on the same search outputs; every gradient
      compared is non-zero, the offsets' gradients of ScatterAdd and Pool
      are exactly 0;
- 10. the times of B7-B10 and of the twin;
+ 10. the times of B7-B10 and of the twin, and of B8 and B9 at 512^2
+     with their bounds;
  11. B1, B5 and B6 against their plain versions at (ps, F a head) other
      than the slice's, on 48^2 frames: ps 1, 5 and 7 with F 2, 4, 16 and
      32, among them dilation 2, use_adj, prod, int, stride0 = 2 and an
@@ -95,8 +98,8 @@ Phases, in order; any failure raises and exits non-zero:
      through the kernels (B1-B4) and through plain_route(), and B3's time
      and bound at the arguments of the twin's gather. A multi-card ring
      exchange is not run: one card holds one rank.
-B2's, B3's, B5's and B6's times are printed with those of their
-previous design in parentheses (EARLIER_MS).
+B2's, B3's, B5's, B6's, B8's and B9's times are printed with those of
+their previous design in parentheses (EARLIER_MS).
 The line before the last is a JSON object of the kernels (B1, B2, B5 and
 B6 with a "chunk" entry of their chunk mode, B6 with a "stats" entry of
 its global atomics at the slice); the last line is
@@ -154,7 +157,8 @@ HBM_BYTES_S, F32_FLOP_S = 3.35e12, 67e12
 # for those terms, plus the cotangent's division once per element.
 FLOPS_PER_TAP = {"B1": 10, "B2": 26, "B3": 9, "B4": 17, "B5": 10, "B6": 26,
                  "B7": 2, "B8": 2, "B9": 2, "B10": 4}
-# B2's, B3's, B5's and B6's times before their redesign, as PERF.md
+# B2's, B3's, B5's, B6's, B8's and B9's times before their redesign
+# (B8 and B9 at the agg example's 128^2, a call), as PERF.md
 # section 6 records them (chip_smoke.py's CUDA events and, "device",
 # profile_step.py's traces; NVIDIA H100 80GB HBM3, 700.00 W), printed in
 # parentheses beside this run's
@@ -164,7 +168,8 @@ EARLIER_MS = {"B2 slice": 5.437, "B2 config 7 device": 90.965,
               "B5 slice": 2.119, "B5 1,2": 6.399, "B5 1,16": 1.003,
               "B5 chunk": 1.776, "B6 slice each": 2.442,
               "B6 slice dense": 18.249, "B6 1,2": 7.437, "B6 1,16": 0.624,
-              "B6 chunk": 1.966}
+              "B6 chunk": 1.966, "B8 agg example": 0.226,
+              "B9 agg example": 0.348}
 # The search of the volume path (attn_step.VOLUME_SEARCH) and the
 # configurations of the B5/B6 checks: (label, itype, dist_type, the
 # cotangents B6 is checked on)
@@ -1009,8 +1014,9 @@ def agg_kernel_phase(torch, dev, name, inputs, scfg, pcfg):
     wrapper but the output size, which the backward's config gets from
     the output): outputs at atol = rtol = TOL, gradients on a seeded
     cotangent at TOL * max|ref|, each non-zero, and the offsets' gradients
-    exactly 0. Returns the largest errors, the bounds from this run's data
-    and the arguments of the timings."""
+    exactly 0; B9's output and B8's gradients bitwise equal on a second
+    call. Returns the largest errors, the bounds from this run's data and
+    the arguments of the timings."""
     from stnls_tpu_torch.ops import agg_sp_cuda as sp
     vid, weights, flows = inputs
     rng = np.random.default_rng(SEED + 6)
@@ -1032,6 +1038,10 @@ def agg_kernel_phase(torch, dev, name, inputs, scfg, pcfg):
             ref = plain(vid, weights, flows, **cfg)
         require(float(ref.abs().max()) > 0, f"{kf} {name}: the output is 0")
         errs[kf] = close(out, ref, f"{kf} {name} out vs plain")
+        if kf == "B9":
+            with torch.no_grad():
+                require(torch.equal(out, fwd(vid, weights, flows, **cfg)),
+                        f"B9 {name}: two calls differ")
         terms = agg_terms(torch, plain, vid, live, flows, cfg)
         log(f"[agg] {kf} {name}: out {tuple(out.shape)}, max|kernel-plain| "
             f"{errs[kf]:.3e}; {terms:.0f} (query, slot, step, tap) terms "
@@ -1043,6 +1053,12 @@ def agg_kernel_phase(torch, dev, name, inputs, scfg, pcfg):
         b_args = (vid, weights, flows, g, bcfg, (True, True, True))
         g_k = bwd(*b_args)
         torch.cuda.synchronize()
+        if kb == "B8":
+            again = bwd(*b_args)
+            require(torch.equal(g_k[0], again[0]) and
+                    torch.equal(g_k[1], again[1]),
+                    f"B8 {name}: two calls differ")
+            log(f"[agg] B8 and B9 {name}: bitwise equal on two calls")
         g_p = plain_bwd(*b_args)
         errs[kb] = 0.
         for gk, gp, what in zip(g_k, g_p, ("g_vid", "g_weights")):
@@ -2420,6 +2436,15 @@ def main():
     ares2 = agg_kernel_phase(
         torch, dev, "strided 64^2", agg_inputs(torch, dev),
         dict(a2, strideIn=2, strideOut=2), dict(a2, stride0=2))
+    a512 = dict(a_cfg, H=512, W=512)
+    a512_in = agg_example.make_inputs(SEED, device=dev, **a512)
+    d512, o512 = agg_example.search(*a512_in, **a512)
+    ares512 = agg_kernel_phase(
+        torch, dev, "agg example 512^2",
+        (shape_vids(a_cfg["HD"], [a512_in[0]])[0].contiguous(),
+         torch.softmax(-10. * d512, -1).contiguous(), o512.contiguous()),
+        dict(a1, strideIn=1, strideOut=1), dict(a1, stride0=1))
+    del a512_in, d512, o512
 
     # 9. the agg example's twin at full width
     agg_twin = agg_example_phase(torch, dev)
@@ -2446,10 +2471,21 @@ def main():
         t_aggsp = cuda_ms(lambda: agg_example.aggregate(v6_t, w_t, o_t,
                                                         **a_cfg), n=3, warm=1)
     t_twin = cuda_ms(lambda: agg_example.run(*agg_twin["inputs"], a_cfg))
+    with torch.no_grad():
+        t512 = {"B9": cuda_ms(lambda: sp.nl_pool(
+                    *ares512["args"]["B9"][0], **ares512["args"]["B9"][1])),
+                "B8": cuda_ms(lambda: sp.nl_scatter_add_bwd(
+                    *ares512["args"]["B8"]))}
     log(f"[times] {smi_line}: " + "; ".join(
-        f"{key} {t_agg[key][0]:.3f} ms (plain {t_agg[key][1]:.3f}, bound "
+        f"{key} {t_agg[key][0]:.3f} ms ("
+        + (f"previous design {EARLIER_MS[f'{key} agg example']}; "
+           if f"{key} agg example" in EARLIER_MS else "")
+        + f"plain {t_agg[key][1]:.3f}, bound "
         f"{ares['bounds'][key][0]:.4f} by {ares['bounds'][key][1]})"
         for key in ("B7", "B8", "B9", "B10")))
+    log(f"[times] {smi_line}: at 512^2 " + "; ".join(
+        f"{key} {t512[key]:.3f} ms (bound {ares512['bounds'][key][0]:.4f} "
+        f"by {ares512['bounds'][key][1]})" for key in ("B8", "B9")))
     # B3 runs twice a step of the twin (Gather, GatherAdd), on its search
     b3_agg = bound_ms(*b3_work(v6_t, w_t, o_t, a1["ps"]))
     log(f"[times] {smi_line}: agg example, the four aggregators fwd+bwd "
@@ -2512,6 +2548,8 @@ def main():
     errs = {key: max(r["err"][key], g["err"][key])
             for r, g in ((res, graft), (vres, vgraft), (ares, ares2))
             for key in r["err"]}
+    for key in ares512["err"]:
+        errs[key] = max(errs[key], ares512["err"][key])
     errs["B6"] = max(errs["B6"], err_ps)
     errs["B2"] = max(errs["B2"], err_full, b2_c4["err"])
     # the chunk mode's launches, path by path, each read from its own run:
@@ -2572,6 +2610,9 @@ def main():
         "b2_config4": b2_c4,
         "b3_multichip_twin": twin["b3"],
         "b3_agg_example_bound_ms": b3_agg[0],
+        "agg_example_512": {key: dict(
+            ms=t512[key], bound_ms=ares512["bounds"][key][0],
+            bound_by=ares512["bounds"][key][1]) for key in t512},
         "earlier_ms": EARLIER_MS,
         "time_sharded_config7": {
             "step_ms_in_turns": sharded["ms"][0::3],

@@ -54,14 +54,16 @@ PORT_KERNELS = {"B1": ("nls_topk_kernel",),
                 "B4": ("agg_gather_bwd_tile_kernel",),
                 "B5": ("nls_vol_fwd_kernel",), "B6": ("nls_vol_bwd_kernel",),
                 "B7": ("agg_scatter_add_fwd_kernel",),
-                "B8": ("agg_scatter_add_bwd_vid_kernel",
-                       "agg_scatter_add_bwd_w_kernel"),
-                "B9": ("agg_pool_fwd_kernel",),
+                "B8": ("agg_scatter_add_bwd_tile_kernel",),
+                "B9": ("agg_pool_fwd_row_kernel",),
                 "B10": ("agg_pool_bwd_kernel",)}
 # the kernels' device names in traces before their redesign, where they
 # changed
 EARLIER_NAMES = {"B2": "nls_topk_bwd_kernel", "B3": "agg_gather_kernel",
-                 "B4": "agg_gather_bwd_kernel"}
+                 "B4": "agg_gather_bwd_kernel",
+                 "B8": "agg_scatter_add_bwd_vid_kernel, "
+                       "agg_scatter_add_bwd_w_kernel",
+                 "B9": "agg_pool_fwd_kernel"}
 
 
 def device_us(evt):

@@ -91,13 +91,6 @@ def _check(vid, weights, flows, *, ps, stride0, pt, reflect_bounds, dilation,
 CHANNELS_LAST_MIN = 1 << 21
 
 
-def _b3_channels(F):
-    """The channels of B3's channels-last video for F channels a head: F
-    up to 2, 4 up to 4, else a multiple of 8 (the kernel's channel group
-    is min(Fp, 8))."""
-    return F if F <= 2 else 4 if F <= 4 else -(-F // 8) * 8
-
-
 class _GatherStack(torch.autograd.Function):
     """Forward: B3, on a channels-last copy of the video for a large
     stack (CHANNELS_LAST_MIN). Backward: B4."""
@@ -111,7 +104,7 @@ class _GatherStack(torch.autograd.Function):
                           device=vid.device)
         channels_last = out.numel() >= CHANNELS_LAST_MIN
         if channels_last:
-            Fp = _b3_channels(F)
+            Fp = cuda_lib.grouped_channels(F)
             vid_k = cuda_lib.channels_last(vid, Fp)
         else:
             Fp, vid_k = F, vid

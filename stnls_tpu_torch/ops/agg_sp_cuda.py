@@ -15,6 +15,10 @@ nl_pool) and `_scatter_add_bwd_plain`, `_pool_bwd_plain` (their VJPs) are
 the kernels' plain PyTorch versions. The wrappers take them only for
 tensors on the CPU; for a CUDA tensor they launch the kernel or raise.
 `scatter_add_counts` (the reference's counts quirk) is plain torch.
+
+B8 reads a channels-last copy of the cotangent above a size
+(SCATTER_CHANNELS_LAST_MIN, `scatter_layout`); B8 and B9 keep a table of
+(query, slot) centres of at most TABLE_BYTES a block in shared memory.
 """
 
 import torch
@@ -77,6 +81,25 @@ def _pool_bwd_plain(vid, weights, flows, g_out, cfg, needs):
 
 _scatter_add_bwd_plain.calls = 0
 _pool_bwd_plain.calls = 0
+
+
+# B8 reads a channels-last copy of the cotangent when the video gradient
+# holds at least this many elements, and the planar cotangent below: there
+# the copy's launch costs the host about what the vector loads save the
+# device (stnls_tpu_torch/b8_b9_variants.py times both layouts, PERF.md)
+SCATTER_CHANNELS_LAST_MIN = 1 << 18
+# the shared memory a block of B8 or B9 gives its centre table; slots
+# beyond it are taken in chunks
+TABLE_BYTES = 48 << 10
+
+
+def scatter_layout(numel, F):
+    """(cl, Fp): whether B8 reads a channels-last copy of the cotangent for
+    a video gradient of `numel` elements, F channels a head, and the
+    copy's channels."""
+    if numel >= SCATTER_CHANNELS_LAST_MIN:
+        return True, cuda_lib.grouped_channels(F)
+    return False, F
 
 
 def _check(name, vid, weights, flows, stride, cfg):
@@ -168,10 +191,12 @@ def nl_scatter_add_bwd(vid, weights, flows, g_out, cfg, needs):
     _check_cotangent("nl_scatter_add_bwd", vid, g_out,
                      (B, HD, T, F, cfg["outH"], cfg["outW"]))
     g_vid, g_w = torch.empty_like(vid), torch.empty_like(weights)
+    cl, Fp = scatter_layout(vid.numel(), F)
+    g_k = cuda_lib.channels_last(g_out, Fp) if cl else g_out.contiguous()
+    ints = _scatter_ints(vid, flows, cfg)
     _launch(cuda_lib.load().stnls_agg_scatter_add_bwd, "nl_scatter_add_bwd",
-            vid, weights, flows, g_out.contiguous(), g_vid, g_w,
-            *_scatter_ints(vid, flows, cfg), int(bool(needs[0])),
-            int(bool(needs[1])))
+            vid, weights, flows, g_k, g_vid, g_w, *ints[:5], Fp, *ints[5:],
+            int(bool(needs[0])), int(bool(needs[1])), int(cl), TABLE_BYTES)
     nl_scatter_add_bwd.launches += 1
     return (g_vid if needs[0] else None, g_w if needs[1] else None,
             torch.zeros_like(flows) if needs[2] else None)
@@ -228,7 +253,7 @@ class _Pool(torch.autograd.Function):
         out = torch.empty(_pool_out_shape(vid, cfg), dtype=torch.float32,
                           device=vid.device)
         _launch(cuda_lib.load().stnls_agg_pool_fwd, "nl_pool", vid, weights,
-                flows, out, *_pool_ints(vid, flows, cfg))
+                flows, out, *_pool_ints(vid, flows, cfg), TABLE_BYTES)
         nl_pool.launches += 1
         ctx.save_for_backward(vid, weights, flows)
         ctx.cfg = cfg

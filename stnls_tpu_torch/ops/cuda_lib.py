@@ -38,8 +38,8 @@ SIGNATURES = {
     "stnls_nls_vol_fwd": [_P] * 5 + [_I] * 19 + [_F, _F] + [_I] * 6 + [_P],
     "stnls_nls_vol_bwd": [_P] * 10 + [_I] * 18 + [_F, _F] + [_I] * 7 + [_P],
     "stnls_agg_scatter_add_fwd": [_P] * 4 + [_I] * 18 + [_P],
-    "stnls_agg_scatter_add_bwd": [_P] * 6 + [_I] * 20 + [_P],
-    "stnls_agg_pool_fwd": [_P] * 4 + [_I] * 15 + [_P],
+    "stnls_agg_scatter_add_bwd": [_P] * 6 + [_I] * 23 + [_P],
+    "stnls_agg_pool_fwd": [_P] * 4 + [_I] * 16 + [_P],
     "stnls_agg_pool_bwd": [_P] * 6 + [_I] * 16 + [_P],
     "stnls_nls_topk_compiled": [_I, _I],
     "stnls_nls_vol_compiled": [_I, _I],
@@ -145,10 +145,17 @@ def channel_layout(F):
     return vw, ng, npass, vw * ng * npass
 
 
+def grouped_channels(F):
+    """The channels of the channels-last copy that B3 and B8 read for F
+    channels a head: F up to 2, 4 up to 4, else a multiple of 8 (B3's
+    threads take min(Fp, 8) channels, B8's 4 a load)."""
+    return F if F <= 2 else 4 if F <= 4 else -(-F // 8) * 8
+
+
 def channels_last(x, Fp):
     """[..., F, H, W] -> a new contiguous [..., H, W, Fp] tensor, the
     channels Fp - F >= 0 beyond F zero: the layout in which a pixel's
-    channels are one vector load for B2, B3, B5 and B6."""
+    channels are one vector load for B2, B3, B5, B6 and B8."""
     F = x.shape[-3]
     moved = x.movedim(-3, -1)
     if Fp == F:

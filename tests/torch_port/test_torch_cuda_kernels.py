@@ -664,9 +664,10 @@ def test_int_search_feeds_the_aggregators(dev):
         assert kernel.launches == n0 + 1 and bool(out.isfinite().all())
 
 
-def _sp_inputs(dev, stride, seed=4, K=6):
+def _sp_inputs(dev, stride, seed=4, K=6, F=F, H=H, W=W, fill_frame=False):
     """Video, weights (negative ones and ones below 1e-8 included) and
-    offsets with exact half-integers and -1e8 fills, on the stride grid."""
+    offsets with exact half-integers and -1e8 fills, on the stride grid;
+    with `fill_frame`, every slot of frame 0 is a fill."""
     rng = np.random.default_rng(seed)
     nH, nW = (H - 1) // stride + 1, (W - 1) // stride + 1
 
@@ -674,25 +675,62 @@ def _sp_inputs(dev, stride, seed=4, K=6):
         return torch.from_numpy(np.asarray(x, np.float32)).to(dev)
 
     weights = rng.random((B, HD, T, nH, nW, K))
-    weights[..., 0], weights[..., 1] = -0.25, 5e-9
     flows = np.stack([rng.integers(-1, 2, (B, HD, T, nH, nW, K)),
                       3 * rng.standard_normal((B, HD, T, nH, nW, K)),
                       3 * rng.standard_normal((B, HD, T, nH, nW, K))], -1)
-    flows[..., 2, 1:] = (0.5, -1.5)
-    flows[..., 3, 1:] = (1.5, -0.5)
-    flows[:, :, 1, ::3, 1::2, 5, :] = -1e8
+    if K > 5:
+        weights[..., 0], weights[..., 1] = -0.25, 5e-9
+        flows[..., 2, 1:] = (0.5, -1.5)
+        flows[..., 3, 1:] = (1.5, -0.5)
+    flows[:, :, 1, ::3, 1::2, min(5, K - 1), :] = -1e8
+    if fill_frame:
+        flows[:, :, 0] = -1e8
     return (t(rng.standard_normal((B, HD, T, F, H, W))), t(weights),
             t(flows))
 
 
+# keys beyond the ops' keywords: the frame (H, W), channels a head (F),
+# slots (K), a frame of -1e8 fills, the cotangent's layout B8 reads
+# ("channels_last" or "planar"; default: the wrapper's size rule), and the
+# shared memory of the centre table (a small one takes the slots in
+# chunks)
 SP_CASES = [dict(), dict(stride=2, dilation=2, use_adj=True, ps=4, pt=2),
-            dict(reflect_bounds=False)]
+            dict(reflect_bounds=False),
+            dict(H=37, W=53, F=3, layout="channels_last"),
+            dict(H=37, W=53, F=3, layout="planar"),
+            dict(H=37, W=53, stride=2, F=1, K=1, use_adj=True),
+            dict(H=20, W=150, F=16, K=20, layout="channels_last"),
+            dict(F=33, ps=5, dilation=2, layout="channels_last"),
+            dict(F=33, K=20, pt=2, layout="planar"),
+            dict(fill_frame=True, pt=2),
+            dict(F=16, K=20, table_bytes=2048, pt=2,
+                 layout="channels_last"),
+            dict(H=37, W=53, K=20, table_bytes=2048, stride=2,
+                 layout="planar"),
+            # a video above SCATTER_CHANNELS_LAST_MIN: B8 reads a
+            # channels-last cotangent by the wrapper's own rule
+            dict(H=128, W=96, K=4)]
 # ScatterAdd also takes strideIn != strideOut and an explicit output size
 SCATTER_CASES = SP_CASES + [dict(stride=2, strideOut=1),
-                            dict(strideOut=2, outH=24, outW=40)]
+                            dict(strideOut=2, outH=24, outW=40),
+                            dict(H=37, W=53, strideOut=2, outH=30, outW=61,
+                                 F=16, reflect_bounds=False,
+                                 layout="channels_last")]
+_SP_INPUT_KEYS = ("K", "F", "H", "W", "fill_frame")
 
 
-def _check_sp_backward(bwd, plain_bwd, args, cfg):
+def _sp_layout(monkeypatch, extra):
+    """Force the cotangent's layout B8 reads where the case names one, and
+    the centre table's shared memory of B8 and B9."""
+    forced = {"channels_last": 0, "planar": sys.maxsize}.get(
+        extra.get("layout"))
+    if forced is not None:
+        monkeypatch.setattr(agg_sp_cuda, "SCATTER_CHANNELS_LAST_MIN", forced)
+    if "table_bytes" in extra:
+        monkeypatch.setattr(agg_sp_cuda, "TABLE_BYTES", extra["table_bytes"])
+
+
+def _check_sp_backward(bwd, plain_bwd, args, cfg, deterministic=False):
     n0 = bwd.launches
     g_k = bwd(*args, cfg, (True, True, True))
     torch.cuda.synchronize()
@@ -702,18 +740,40 @@ def _check_sp_backward(bwd, plain_bwd, args, cfg):
         assert float(b.abs().max()) > 0
         assert_grad_close(a, b, name)
     assert not g_k[2].any() and not g_p[2].any()
+    # what one gradient alone asks for, bitwise (B8: no atomics)
+    for needs in ((True, False, False), (False, True, False)) \
+            if deterministic else ():
+        g_one = bwd(*args, cfg, needs)
+        for a, b, need in zip(g_one, g_k, needs):
+            assert (a is None) != need
+            if need:
+                assert torch.equal(a, b)
+
+
+def _scatter_cfg(extra):
+    s = extra.get("stride", 1)
+    return dict(ps=extra.get("ps", 3), strideIn=s,
+                strideOut=extra.get("strideOut", s), pt=extra.get("pt", 1),
+                dilation=extra.get("dilation", 1),
+                reflect_bounds=extra.get("reflect_bounds", True),
+                use_adj=extra.get("use_adj", False),
+                outH=extra.get("outH", 0), outW=extra.get("outW", 0))
+
+
+def _pool_cfg(extra):
+    return dict(ps=extra.get("ps", 3), stride0=extra.get("stride", 1),
+                pt=extra.get("pt", 1), dilation=extra.get("dilation", 1),
+                reflect_bounds=extra.get("reflect_bounds", True),
+                use_adj=extra.get("use_adj", False))
 
 
 @pytest.mark.parametrize("extra", SCATTER_CASES)
-def test_scatter_add_kernels_match_plain(dev, extra):
-    s = extra.get("stride", 1)
-    cfg = dict(ps=extra.get("ps", 3), strideIn=s,
-               strideOut=extra.get("strideOut", s), pt=extra.get("pt", 1),
-               dilation=extra.get("dilation", 1),
-               reflect_bounds=extra.get("reflect_bounds", True),
-               use_adj=extra.get("use_adj", False),
-               outH=extra.get("outH", 0), outW=extra.get("outW", 0))
-    vid, weights, flows = _sp_inputs(dev, s)
+def test_scatter_add_kernels_match_plain(dev, extra, monkeypatch):
+    _sp_layout(monkeypatch, extra)
+    cfg = _scatter_cfg(extra)
+    vid, weights, flows = _sp_inputs(
+        dev, cfg["strideIn"], **{k: extra[k] for k in _SP_INPUT_KEYS
+                                 if k in extra})
     n0 = agg_sp_cuda.nl_scatter_add.launches
     out = agg_sp_cuda.nl_scatter_add(vid, weights, flows, **cfg)
     torch.cuda.synchronize()
@@ -725,18 +785,23 @@ def test_scatter_add_kernels_match_plain(dev, extra):
     _check_sp_backward(agg_sp_cuda.nl_scatter_add_bwd,
                        agg_sp_cuda._scatter_add_bwd_plain,
                        (vid, weights, flows, g),
-                       dict(cfg, outH=out.shape[-2], outW=out.shape[-1]))
+                       dict(cfg, outH=out.shape[-2], outW=out.shape[-1]),
+                       deterministic=True)
 
 
 @pytest.mark.parametrize("extra", SP_CASES)
-def test_pool_kernels_match_plain(dev, extra):
-    s = extra.get("stride", 1)
-    cfg = dict(ps=extra.get("ps", 3), stride0=s, pt=extra.get("pt", 1),
-               dilation=extra.get("dilation", 1),
-               reflect_bounds=extra.get("reflect_bounds", True),
-               use_adj=extra.get("use_adj", False))
-    vid, weights, flows = _sp_inputs(dev, s)
+def test_pool_kernels_match_plain(dev, extra, monkeypatch):
+    _sp_layout(monkeypatch, extra)
+    cfg = _pool_cfg(extra)
+    vid, weights, flows = _sp_inputs(
+        dev, cfg["stride0"], **{k: extra[k] for k in _SP_INPUT_KEYS
+                                if k in extra})
     n0 = agg_sp_cuda.nl_pool.launches
+    # B9 writes every element, the ones no tap reaches too: its output
+    # takes the block of a freed tensor of NaNs
+    junk = torch.full(agg_sp_cuda._pool_out_shape(vid, cfg), float("nan"),
+                      device=dev)
+    del junk
     out = agg_sp_cuda.nl_pool(vid, weights, flows, **cfg)
     torch.cuda.synchronize()
     assert agg_sp_cuda.nl_pool.launches == n0 + 1
@@ -746,6 +811,26 @@ def test_pool_kernels_match_plain(dev, extra):
                     generator=torch.Generator(dev).manual_seed(0))
     _check_sp_backward(agg_sp_cuda.nl_pool_bwd, agg_sp_cuda._pool_bwd_plain,
                        (vid, weights, flows, g), cfg)
+
+
+@pytest.mark.parametrize("layout", ["channels_last", "planar"])
+def test_pool_and_scatter_backward_are_deterministic(dev, layout,
+                                                     monkeypatch):
+    """B9's output and B8's g_vid and g_w equal bitwise on two calls."""
+    _sp_layout(monkeypatch, dict(layout=layout))
+    vid, weights, flows = _sp_inputs(dev, 1, F=16, K=8, H=48, W=64)
+    cfg = _pool_cfg({})
+    outs = [agg_sp_cuda.nl_pool(vid, weights, flows, **cfg)
+            for _ in range(2)]
+    assert torch.equal(*outs)
+    scfg = dict(_scatter_cfg({}), outH=48, outW=64)
+    g = torch.randn((B, HD, T, 16, 48, 64), device=dev,
+                    generator=torch.Generator(dev).manual_seed(1))
+    grads = [agg_sp_cuda.nl_scatter_add_bwd(vid, weights, flows, g, scfg,
+                                            (True, True, False))
+             for _ in range(2)]
+    assert torch.equal(grads[0][0], grads[1][0])
+    assert torch.equal(grads[0][1], grads[1][1])
 
 
 def test_agg_example_runs_through_its_kernels(dev):
