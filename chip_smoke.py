@@ -46,9 +46,11 @@ Phases, in order; any failure raises and exits non-zero:
      backwards on a seeded cotangent, at the agg example's config (128^2,
      its search's weights and offsets), at a second one (64^2, strides
      2, dilation 2, use_adj, ps 4 (pool: 5), pt 2, half-integer offsets,
-     -1e8 fills, weights below 1e-8 and negative) and at the agg
-     example's config on 512^2 frames; B9's output and B8's gradients
-     bitwise equal on two calls (no atomics);
+     -1e8 fills, weights below 1e-8 and negative), at the agg example's
+     config on 512^2 frames and on its 128^2 video and offsets with
+     seeded uniform (0, 1] weights ("dense": every slot live, the
+     destinations scattered); B9's output, B8's gradients and B10's
+     weight gradient bitwise equal on two calls;
   9. the agg example's twin (stnls_tpu_torch/agg_example.py) at full width
      (B=1, T=3, F=16, HD=2, 128^2, K=8): one search, then Gather,
      GatherAdd, ScatterAdd and Pool forward and the gradients of
@@ -57,8 +59,8 @@ Phases, in order; any failure raises and exits non-zero:
      through the plain route on the same search outputs; every gradient
      compared is non-zero, the offsets' gradients of ScatterAdd and Pool
      are exactly 0;
- 10. the times of B7-B10 and of the twin, and of B8 and B9 at 512^2
-     with their bounds;
+ 10. the times of B7-B10 and of the twin, and of B7-B10 at 512^2, on
+     the dense case and on the strided 64^2 with their bounds;
  11. B1, B5 and B6 against their plain versions at (ps, F a head) other
      than the slice's, on 48^2 frames: ps 1, 5 and 7 with F 2, 4, 16 and
      32, among them dilation 2, use_adj, prod, int, stride0 = 2 and an
@@ -98,7 +100,7 @@ Phases, in order; any failure raises and exits non-zero:
      through the kernels (B1-B4) and through plain_route(), and B3's time
      and bound at the arguments of the twin's gather. A multi-card ring
      exchange is not run: one card holds one rank.
-B2's, B3's, B5's, B6's, B8's and B9's times are printed with those of
+B2's, B3's, B5's, B6's and B7-B10's times are printed with those of
 their previous design in parentheses (EARLIER_MS).
 The line before the last is a JSON object of the kernels (B1, B2, B5 and
 B6 with a "chunk" entry of their chunk mode, B6 with a "stats" entry of
@@ -157,8 +159,8 @@ HBM_BYTES_S, F32_FLOP_S = 3.35e12, 67e12
 # for those terms, plus the cotangent's division once per element.
 FLOPS_PER_TAP = {"B1": 10, "B2": 26, "B3": 9, "B4": 17, "B5": 10, "B6": 26,
                  "B7": 2, "B8": 2, "B9": 2, "B10": 4}
-# B2's, B3's, B5's, B6's, B8's and B9's times before their redesign
-# (B8 and B9 at the agg example's 128^2, a call), as PERF.md
+# B2's, B3's, B5's, B6's and B7-B10's times before their redesign
+# (B7-B10 at the agg example's 128^2, a call), as PERF.md
 # section 6 records them (chip_smoke.py's CUDA events and, "device",
 # profile_step.py's traces; NVIDIA H100 80GB HBM3, 700.00 W), printed in
 # parentheses beside this run's
@@ -168,8 +170,9 @@ EARLIER_MS = {"B2 slice": 5.437, "B2 config 7 device": 90.965,
               "B5 slice": 2.119, "B5 1,2": 6.399, "B5 1,16": 1.003,
               "B5 chunk": 1.776, "B6 slice each": 2.442,
               "B6 slice dense": 18.249, "B6 1,2": 7.437, "B6 1,16": 0.624,
-              "B6 chunk": 1.966, "B8 agg example": 0.226,
-              "B9 agg example": 0.348}
+              "B6 chunk": 1.966, "B7 agg example": 0.108,
+              "B8 agg example": 0.226, "B9 agg example": 0.348,
+              "B10 agg example": 0.146}
 # The search of the volume path (attn_step.VOLUME_SEARCH) and the
 # configurations of the B5/B6 checks: (label, itype, dist_type, the
 # cotangents B6 is checked on)
@@ -998,6 +1001,50 @@ def agg_inputs(torch, dev, *, B=1, HD=2, T=3, F=8, H=64, K=8, stride=2):
                  (rng.standard_normal((B, HD, T, F, H, H)), weights, flows))
 
 
+def agg_cases(torch, dev, labels=None):
+    """The cases of the aggregation checks and times (phases 8 and 10 and
+    the variants scripts b8_b9_variants, b7_b10_variants): {label: ((vid,
+    weights, offsets), ScatterAdd keywords, Pool keywords)}, or the ones
+    of `labels`. The agg example's twin at 128^2 (its search's
+    softmax(-10 d) weights and offsets: one live slot of eight, at the
+    query's own pixel) and the same example at 512^2; agg_inputs' strided
+    64^2 (ps 4, pool 5, pt 2, dilation 2, use_adj, strides 2, fills); and
+    the twin's video and offsets with seeded uniform (0, 1] weights (every
+    slot live, the destinations scattered). A label "agg example N^2" or
+    "agg example dense N^2" gives the same at N^2."""
+    from stnls_tpu_torch import agg_example
+    from stnls_tpu_torch.search.utils import shape_vids
+    a1 = dict(ps=3, pt=1, dilation=1, reflect_bounds=True, use_adj=False)
+    a2 = dict(ps=4, pt=2, dilation=2, reflect_bounds=True, use_adj=True)
+    one = (dict(a1, strideIn=1, strideOut=1), dict(a1, stride0=1))
+    labels = labels or ("agg example 128^2", "strided 64^2",
+                        "agg example 512^2", "agg example dense 128^2")
+    out, searched = {}, {}
+    for label in labels:
+        if label == "strided 64^2":
+            out[label] = (agg_inputs(torch, dev), dict(a2, strideIn=2,
+                                                        strideOut=2),
+                          dict(a2, stride0=2))
+            continue
+        size = int(re.search(r"(\d+)\^2", label).group(1))
+        if size not in searched:
+            cfg = dict(agg_example.CONFIG, H=size, W=size)
+            a_in = agg_example.make_inputs(SEED, device=dev, **cfg)
+            d, o = agg_example.search(*a_in, **cfg)
+            searched[size] = (shape_vids(cfg["HD"], [a_in[0]])[0]
+                              .contiguous(), d, o.contiguous())
+            del a_in
+        v6, d, o = searched[size]
+        if "dense" in label:
+            rng = np.random.default_rng(SEED + 8)
+            w = torch.from_numpy((1. - rng.random(tuple(d.shape)))
+                                 .astype(np.float32)).to(dev)
+        else:
+            w = torch.softmax(-10. * d, -1).contiguous()
+        out[label] = ((v6, w, o),) + one
+    return out
+
+
 def agg_terms(torch, plain, vid, live, flows, cfg):
     """The (query, slot, frame step, tap) terms a ScatterAdd or Pool
     computes on this run's data: its plain version on a one-channel video
@@ -1053,12 +1100,16 @@ def agg_kernel_phase(torch, dev, name, inputs, scfg, pcfg):
         b_args = (vid, weights, flows, g, bcfg, (True, True, True))
         g_k = bwd(*b_args)
         torch.cuda.synchronize()
+        again = bwd(*b_args)
         if kb == "B8":
-            again = bwd(*b_args)
             require(torch.equal(g_k[0], again[0]) and
                     torch.equal(g_k[1], again[1]),
                     f"B8 {name}: two calls differ")
             log(f"[agg] B8 and B9 {name}: bitwise equal on two calls")
+        else:
+            require(torch.equal(g_k[1], again[1]),
+                    f"B10 {name}: g_weights differs on two calls")
+            log(f"[agg] B10 {name}: g_weights bitwise equal on two calls")
         g_p = plain_bwd(*b_args)
         errs[kb] = 0.
         for gk, gp, what in zip(g_k, g_p, ("g_vid", "g_weights")):
@@ -2422,72 +2473,61 @@ def main():
     # 8. the aggregation kernels against their plain versions
     from stnls_tpu_torch import agg_example
     from stnls_tpu_torch.ops import agg_sp_cuda as sp
-    from stnls_tpu_torch.search.utils import shape_vids
     a_cfg = agg_example.CONFIG
-    a_in = agg_example.make_inputs(SEED, device=dev, **a_cfg)
-    d_a, o_a = agg_example.search(*a_in, **a_cfg)
-    v6_a = shape_vids(a_cfg["HD"], [a_in[0]])[0].contiguous()
-    w_a = torch.softmax(-10. * d_a, -1).contiguous()
-    a1 = dict(ps=3, pt=1, dilation=1, reflect_bounds=True, use_adj=False)
-    ares = agg_kernel_phase(
-        torch, dev, "agg example 128^2", (v6_a, w_a, o_a.contiguous()),
-        dict(a1, strideIn=1, strideOut=1), dict(a1, stride0=1))
-    a2 = dict(ps=4, pt=2, dilation=2, reflect_bounds=True, use_adj=True)
-    ares2 = agg_kernel_phase(
-        torch, dev, "strided 64^2", agg_inputs(torch, dev),
-        dict(a2, strideIn=2, strideOut=2), dict(a2, stride0=2))
-    a512 = dict(a_cfg, H=512, W=512)
-    a512_in = agg_example.make_inputs(SEED, device=dev, **a512)
-    d512, o512 = agg_example.search(*a512_in, **a512)
-    ares512 = agg_kernel_phase(
-        torch, dev, "agg example 512^2",
-        (shape_vids(a_cfg["HD"], [a512_in[0]])[0].contiguous(),
-         torch.softmax(-10. * d512, -1).contiguous(), o512.contiguous()),
-        dict(a1, strideIn=1, strideOut=1), dict(a1, stride0=1))
-    del a512_in, d512, o512
+    ares = {label: agg_kernel_phase(torch, dev, label, *case)
+            for label, case in agg_cases(torch, dev).items()}
 
     # 9. the agg example's twin at full width
     agg_twin = agg_example_phase(torch, dev)
 
-    # 10. times of B7-B10 and of the twin
-    with torch.no_grad():
-        t_agg = {}
-        for key, fwd, plain in (("B7", sp.nl_scatter_add,
-                                 sp.nl_scatter_add_plain),
-                                ("B9", sp.nl_pool, sp.nl_pool_plain)):
-            args, cfg = ares["args"][key]
-            t_agg[key] = (cuda_ms(lambda: fwd(*args, **cfg)),
-                          cuda_ms(lambda: plain(*args, **cfg), n=5, warm=1))
-        for key, bwd, plain in (("B8", sp.nl_scatter_add_bwd,
-                                 sp._scatter_add_bwd_plain),
-                                ("B10", sp.nl_pool_bwd,
-                                 sp._pool_bwd_plain)):
-            args = ares["args"][key]
-            t_agg[key] = (cuda_ms(lambda: bwd(*args)),
-                          cuda_ms(lambda: plain(*args), n=5, warm=1))
+    # 10. times of B7-B10 and of the twin; B7-B10 also at 512^2, on the
+    # dense case and on the strided 64^2
+    def agg_times(label, plain_too):
+        args = ares[label]["args"]
+        t = {}
+        with torch.no_grad():
+            for key, fwd, plain in (("B7", sp.nl_scatter_add,
+                                     sp.nl_scatter_add_plain),
+                                    ("B9", sp.nl_pool, sp.nl_pool_plain)):
+                x, cfg = args[key]
+                t[key] = (cuda_ms(lambda: fwd(*x, **cfg)),) + ((cuda_ms(
+                    lambda: plain(*x, **cfg), n=5, warm=1),)
+                    if plain_too else ())
+            for key, bwd, plain in (("B8", sp.nl_scatter_add_bwd,
+                                     sp._scatter_add_bwd_plain),
+                                    ("B10", sp.nl_pool_bwd,
+                                     sp._pool_bwd_plain)):
+                t[key] = (cuda_ms(lambda: bwd(*args[key])),) + ((cuda_ms(
+                    lambda: plain(*args[key]), n=5, warm=1),)
+                    if plain_too else ())
+        return t
+
+    t_agg = agg_times("agg example 128^2", True)
     v6_t, w_t, o_t = agg_twin["search"]
     t_aggs = cuda_ms(lambda: agg_example.aggregate(v6_t, w_t, o_t, **a_cfg))
     with plain_route():
         t_aggsp = cuda_ms(lambda: agg_example.aggregate(v6_t, w_t, o_t,
                                                         **a_cfg), n=3, warm=1)
     t_twin = cuda_ms(lambda: agg_example.run(*agg_twin["inputs"], a_cfg))
-    with torch.no_grad():
-        t512 = {"B9": cuda_ms(lambda: sp.nl_pool(
-                    *ares512["args"]["B9"][0], **ares512["args"]["B9"][1])),
-                "B8": cuda_ms(lambda: sp.nl_scatter_add_bwd(
-                    *ares512["args"]["B8"]))}
+    t_more = {label: {key: t[0] for key, t in agg_times(label, False).items()}
+              for label in ("agg example 512^2", "agg example dense 128^2",
+                            "strided 64^2")}
+    twin_bounds = ares["agg example 128^2"]["bounds"]
     log(f"[times] {smi_line}: " + "; ".join(
         f"{key} {t_agg[key][0]:.3f} ms ("
         + (f"previous design {EARLIER_MS[f'{key} agg example']}; "
            if f"{key} agg example" in EARLIER_MS else "")
         + f"plain {t_agg[key][1]:.3f}, bound "
-        f"{ares['bounds'][key][0]:.4f} by {ares['bounds'][key][1]})"
+        f"{twin_bounds[key][0]:.4f} by {twin_bounds[key][1]})"
         for key in ("B7", "B8", "B9", "B10")))
-    log(f"[times] {smi_line}: at 512^2 " + "; ".join(
-        f"{key} {t512[key]:.3f} ms (bound {ares512['bounds'][key][0]:.4f} "
-        f"by {ares512['bounds'][key][1]})" for key in ("B8", "B9")))
+    for label, t in t_more.items():
+        log(f"[times] {smi_line}: {label} " + "; ".join(
+            f"{key} {t[key]:.3f} ms (bound "
+            f"{ares[label]['bounds'][key][0]:.4f} by "
+            f"{ares[label]['bounds'][key][1]})"
+            for key in ("B7", "B8", "B9", "B10")))
     # B3 runs twice a step of the twin (Gather, GatherAdd), on its search
-    b3_agg = bound_ms(*b3_work(v6_t, w_t, o_t, a1["ps"]))
+    b3_agg = bound_ms(*b3_work(v6_t, w_t, o_t, a_cfg["ps"]))
     log(f"[times] {smi_line}: agg example, the four aggregators fwd+bwd "
         f"{t_aggs:.3f} ms (plain route {t_aggsp:.3f} ms); search + the four "
         f"{t_twin:.3f} ms; B3's bound there {b3_agg[0]:.4f} ms by "
@@ -2544,12 +2584,11 @@ def main():
         ("B9", "agg_pool_fwd", "agg_pallas_sp.py:756"),
         ("B10", "agg_pool_bwd", "agg_pallas_sp.py:917")))
     bounds = dict(res["bounds"], B5=vres["bounds"]["B5"],
-                  B6=vres["bounds"]["B6 each"], **ares["bounds"])
+                  B6=vres["bounds"]["B6 each"], **twin_bounds)
     errs = {key: max(r["err"][key], g["err"][key])
-            for r, g in ((res, graft), (vres, vgraft), (ares, ares2))
-            for key in r["err"]}
-    for key in ares512["err"]:
-        errs[key] = max(errs[key], ares512["err"][key])
+            for r, g in ((res, graft), (vres, vgraft)) for key in r["err"]}
+    for key in twin_bounds:
+        errs[key] = max(a["err"][key] for a in ares.values())
     errs["B6"] = max(errs["B6"], err_ps)
     errs["B2"] = max(errs["B2"], err_full, b2_c4["err"])
     # the chunk mode's launches, path by path, each read from its own run:
@@ -2610,9 +2649,13 @@ def main():
         "b2_config4": b2_c4,
         "b3_multichip_twin": twin["b3"],
         "b3_agg_example_bound_ms": b3_agg[0],
-        "agg_example_512": {key: dict(
-            ms=t512[key], bound_ms=ares512["bounds"][key][0],
-            bound_by=ares512["bounds"][key][1]) for key in t512},
+        **{f"agg_example_{tag}": {key: dict(
+            ms=ms, bound_ms=ares[label]["bounds"][key][0],
+            bound_by=ares[label]["bounds"][key][1])
+            for key, ms in t_more[label].items()}
+           for tag, label in (("512", "agg example 512^2"),
+                              ("dense", "agg example dense 128^2"),
+                              ("strided", "strided 64^2"))},
         "earlier_ms": EARLIER_MS,
         "time_sharded_config7": {
             "step_ms_in_turns": sharded["ms"][0::3],

@@ -1,15 +1,12 @@
 """Time B8 (stnls_tpu_torch/csrc/agg_scatter_add_bwd.cu) and B9
 (stnls_tpu_torch/csrc/agg_pool_fwd.cu) against their first design and
 their variants on one NVIDIA GPU, in turns (shipped, variants, variants
-in reverse, shipped), each variant's outputs held to the shipped kernel's;
-and check that B7 and B10, which share csrc/agg_common.cuh with them, are
-unchanged.
+in reverse, shipped), each variant's outputs held to the shipped kernel's.
 
 Run from the repository root:
 
     mkdir -p build/variants/previous_sp
-    for f in agg_pool_fwd.cu agg_scatter_add_bwd.cu agg_common.cuh \\
-             agg_scatter_add_fwd.cu agg_pool_bwd.cu; do
+    for f in agg_pool_fwd.cu agg_scatter_add_bwd.cu agg_common.cuh; do
         git show REV:stnls_tpu_torch/csrc/$f > build/variants/previous_sp/$f
     done
     python3 -m stnls_tpu_torch.b8_b9_variants [--previous DIR]
@@ -38,28 +35,23 @@ Variants:
     it holds the sources): the first design's B8 and B9 (one thread per
     output element, planar), each built alone with its own agg_common.cuh
     and called with the C interface it had.
-Cases: the agg example's twin at 128^2 (agg_example.CONFIG: B=1, T=3,
-F=8 a head, HD=2, K=8, ps=3, its search's softmax(-10 d) weights and
-offsets), the same example at 512^2 (a 50 MB video, a 450 MB pool
-output), and chip_smoke's strided 64^2 case (agg_inputs: ps 4 -> 5, pt
-2, dilation 2, use_adj, stride 2, -1e8 fills), each with a seeded
-cotangent for B8. Times: CUDA events around one call, wrapper and any
-channels-last copy included (attn_step.cuda_ms, median of 10 after 2
-warm-ups), and the device time of one call (the sum of its kernels',
-torch.profiler over 10 calls). B7 and B10: the SASS of their kernels in
-the shipped library against the previous sources' build (cuobjdump, text
-equal), B10's weight gradient bitwise and the atomic outputs within 1e-4.
-Prints the card's name and power limit and ptxas's registers and spills.
-The last line is a JSON object of the numbers. Exits non-zero without a
-CUDA device. Imports nothing of JAX.
+Cases (chip_smoke.agg_cases): the agg example's twin at 128^2
+(agg_example.CONFIG: B=1, T=3, F=8 a head, HD=2, K=8, ps=3, its search's
+softmax(-10 d) weights and offsets), the same example at 512^2 (a 50 MB
+video, a 450 MB pool output), and chip_smoke's strided 64^2 case
+(agg_inputs: ps 4 -> 5, pt 2, dilation 2, use_adj, stride 2, -1e8
+fills), each with a seeded cotangent for B8. Times: CUDA events around
+one call, wrapper and any channels-last copy included (attn_step.cuda_ms,
+median of 10 after 2 warm-ups), and the device time of one call (the sum
+of its kernels', torch.profiler over 10 calls). Prints the card's name
+and power limit and ptxas's registers and spills. The last line is a
+JSON object of the numbers. Exits non-zero without a CUDA device.
+Imports nothing of JAX.
 """
 
 import argparse
 import ctypes
 import json
-import re
-import shutil
-import subprocess
 import sys
 from pathlib import Path
 
@@ -69,10 +61,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # the first design's C interfaces: (entry, argtypes)
 PREVIOUS = {"agg_pool_fwd": ("stnls_agg_pool_fwd", [_P] * 4 + [_I] * 15 + [_P]),
             "agg_scatter_add_bwd": ("stnls_agg_scatter_add_bwd",
-                                    [_P] * 6 + [_I] * 20 + [_P]),
-            "agg_scatter_add_fwd": ("stnls_agg_scatter_add_fwd",
-                                    [_P] * 4 + [_I] * 18 + [_P]),
-            "agg_pool_bwd": ("stnls_agg_pool_bwd", [_P] * 6 + [_I] * 16 + [_P])}
+                                    [_P] * 6 + [_I] * 20 + [_P])}
 # B8's variants that are text substitutions of the shipped source: a
 # launch bound of 5 or 6 blocks of 256 threads an SM (fewer registers, one
 # wave of blocks at the agg twin), and the centre table's fill unrolled
@@ -89,63 +78,23 @@ B8_SUBS = {
 B9_SUBS = {"min12": [("__launch_bounds__(kCols)", "__launch_bounds__(kCols, 12)")],
            "k4": [("            for (int k = 0; k < kn; ++k) {",
                    "#pragma unroll 4\n            for (int k = 0; k < kn; ++k) {")]}
-# the kernels whose machine code must not change, by device name
-UNCHANGED = ("agg_scatter_add_fwd_kernel", "agg_pool_bwd_kernel")
-
-
-def device_ms(torch, fn, n=10):
-    """Device time of one call of fn: the sum of the device times of the
-    kernels, copies and memsets it launched, torch.profiler over n calls."""
-    from torch.profiler import profile, ProfilerActivity
-    from torch.autograd import DeviceType
-    for _ in range(3):              # a session can come back empty: again
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA],
-                     acc_events=True) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        total = sum(getattr(r, "self_device_time_total",
-                            getattr(r, "self_cuda_time_total", 0.))
-                    for r in prof.key_averages()
-                    if r.device_type == DeviceType.CUDA)
-        if total > 0:
-            break
-    return total / 1e3 / n
 
 
 def cases(torch, cs, dev):
     """{label: (vid, weights, offsets, pool keywords, scatter keywords,
     cotangent of ScatterAdd)}."""
-    from stnls_tpu_torch import agg_example
     from stnls_tpu_torch.ops import agg_sp_cuda as sp
-    from stnls_tpu_torch.search.utils import shape_vids
-    out = {}
-    a_cfg = agg_example.CONFIG
-    a1 = dict(ps=3, pt=1, dilation=1, reflect_bounds=True, use_adj=False)
-    for size in (128, 512):
-        cfg = dict(a_cfg, H=size, W=size)
-        a_in = agg_example.make_inputs(cs.SEED, device=dev, **cfg)
-        d, o = agg_example.search(*a_in, **cfg)
-        v6 = shape_vids(cfg["HD"], [a_in[0]])[0].contiguous()
-        w = torch.softmax(-10. * d, -1).contiguous()
-        out[f"agg example {size}^2"] = (
-            v6, w, o.contiguous(), dict(a1, stride0=1),
-            dict(a1, strideIn=1, strideOut=1, outH=size, outW=size))
-        del a_in, d
-    a2 = dict(ps=4, pt=2, dilation=2, reflect_bounds=True, use_adj=True)
-    vid, w, o = cs.agg_inputs(torch, dev)
-    H, W = vid.shape[-2:]
-    outH, outW = sp.default_out_size(H, W, *w.shape[3:5], 2)
-    out["strided 64^2"] = (vid, w, o, dict(a2, stride0=2),
-                           dict(a2, strideIn=2, strideOut=2, outH=outH,
-                                outW=outW))
     gen = torch.Generator(device=dev).manual_seed(cs.SEED + 7)
-    return {label: c + (torch.randn(c[0].shape[:4] + (c[4]["outH"],
-                                                       c[4]["outW"]),
-                                    generator=gen, device=dev),)
-            for label, c in out.items()}
+    out = {}
+    for label, ((vid, w, o), scfg, pcfg) in cs.agg_cases(torch, dev, (
+            "agg example 128^2", "agg example 512^2",
+            "strided 64^2")).items():
+        outH, outW = sp.default_out_size(*vid.shape[-2:], *w.shape[3:5],
+                                         scfg["strideOut"])
+        out[label] = (vid, w, o, pcfg, dict(scfg, outH=outH, outW=outW),
+                      torch.randn(vid.shape[:4] + (outH, outW),
+                                  generator=gen, device=dev))
+    return out
 
 
 def previous_pool(torch, fn, vid, weights, flows, cfg):
@@ -194,112 +143,6 @@ def previous_scatter_bwd(torch, fn, vid, weights, flows, g, cfg):
     return g_vid, g_w
 
 
-def sass(lib_path, names):
-    """{kernel name: its SASS text, addresses and all} of the kernels of
-    `names` in a library, by cuobjdump; None without cuobjdump."""
-    from stnls_tpu_torch.ops import cuda_lib
-    tool = Path(cuda_lib._nvcc()).with_name("cuobjdump")
-    if not tool.exists() and not shutil.which("cuobjdump"):
-        return None
-    r = subprocess.run([str(tool) if tool.exists() else "cuobjdump",
-                        "-sass", str(lib_path)], capture_output=True,
-                       text=True)
-    out, cur = {}, None
-    for line in r.stdout.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            cur = next((n for n in names if n in m.group(1)), None)
-            if cur:
-                out[cur] = []
-            continue
-        if cur and line.strip().startswith("....."):   # the function's end
-            cur = None
-        if cur:
-            out[cur].append(line.strip())
-    return {k: "\n".join(v) for k, v in out.items()}
-
-
-def res_usage(lib_path, names):
-    """cuobjdump's resource usage lines (registers, shared memory) of the
-    kernels of `names` in a library."""
-    from stnls_tpu_torch.ops import cuda_lib
-    tool = Path(cuda_lib._nvcc()).with_name("cuobjdump")
-    r = subprocess.run([str(tool) if tool.exists() else "cuobjdump",
-                        "-res-usage", str(lib_path)], capture_output=True,
-                       text=True)
-    lines, keep = [], False
-    for line in r.stdout.splitlines():
-        if "Function" in line:
-            keep = any(n in line for n in names)
-            if keep:
-                lines.append(line.strip()[-80:])
-        elif keep and "REG" in line:
-            lines.append("  " + line.strip())
-    return "\n".join(lines)
-
-
-def check_unchanged(torch, cs, prev_dir, out_dir, label, case, shipped):
-    """B7 and B10: SASS of the shipped kernels against the previous
-    sources' build, and their outputs (B10's g_w bitwise)."""
-    from stnls_tpu_torch.ops import agg_sp_cuda as sp, cuda_lib
-    res = {}
-    libs = {}
-    for key in ("agg_scatter_add_fwd", "agg_pool_bwd"):
-        path, _ = vt.build(cuda_lib, prev_dir / f"{key}.cu", out_dir,
-                           f"previous_{key}", include=prev_dir)
-        libs[key] = path
-    mine = sass(shipped.path, UNCHANGED)
-    if mine is None:
-        print("[B7/B10] no cuobjdump: machine code not compared", flush=True)
-    else:
-        for key, name in zip(libs, UNCHANGED):
-            theirs = sass(libs[key], (name,)).get(name, "")
-            ours = mine.get(name, "")
-            same = bool(ours) and ours == theirs
-            res[f"{name} sass equal"] = same
-            print(f"[B7/B10] {name}: SASS {'equal' if same else 'DIFFERS'} "
-                  f"({len(ours.splitlines())} and "
-                  f"{len(theirs.splitlines())} lines)", flush=True)
-            if not same:
-                diff = [(a, b) for a, b in zip(ours.splitlines(),
-                                               theirs.splitlines()) if a != b]
-                print("\n".join(f"  shipped  {a}\n  previous {b}"
-                                for a, b in diff[:8]), flush=True)
-    vid, w, o, pcfg, scfg, g = case
-    fn7 = getattr(ctypes.CDLL(str(libs["agg_scatter_add_fwd"])),
-                  PREVIOUS["agg_scatter_add_fwd"][0])
-    fn7.argtypes, fn7.restype = PREVIOUS["agg_scatter_add_fwd"][1], _I
-    fn10 = getattr(ctypes.CDLL(str(libs["agg_pool_bwd"])),
-                   PREVIOUS["agg_pool_bwd"][0])
-    fn10.argtypes, fn10.restype = PREVIOUS["agg_pool_bwd"][1], _I
-    stream = torch.cuda.current_stream().cuda_stream
-    out7 = torch.zeros_like(vid)
-    fn7(vid.data_ptr(), w.data_ptr(), o.data_ptr(), out7.data_ptr(),
-        *sp._scatter_ints(vid, o, scfg), stream)
-    cfg7 = {k: v for k, v in scfg.items()}
-    ref7 = sp.nl_scatter_add(vid, w, o, **cfg7)
-    gp = torch.randn(sp._pool_out_shape(vid, pcfg), device=vid.device,
-                     generator=torch.Generator(vid.device).manual_seed(3))
-    gv10, gw10 = torch.zeros_like(vid), torch.empty_like(w)
-    fn10(vid.data_ptr(), w.data_ptr(), o.data_ptr(), gp.data_ptr(),
-         gv10.data_ptr(), gw10.data_ptr(), *sp._pool_ints(vid, o, pcfg), 1,
-         stream)
-    r10 = sp.nl_pool_bwd(vid, w, o, gp, pcfg, (True, True, False))
-    torch.cuda.synchronize()
-    res["B10 g_w bitwise"] = bool(torch.equal(gw10, r10[1]))
-    for what, a, b in (("B7 out", out7, ref7), ("B10 g_vid", gv10, r10[0])):
-        err = float((a - b).abs().max())
-        res[f"{what} max_abs_err"] = err
-        if err > 1e-4 * max(1., float(b.abs().max())):
-            sys.exit(f"b8_b9_variants: {what} differs from the previous "
-                     f"build at {label}: {err:.3e}")
-    if not res["B10 g_w bitwise"]:
-        sys.exit(f"b8_b9_variants: B10's g_w differs from the previous "
-                 f"build at {label}")
-    print(f"[B7/B10 {label}] {res}", flush=True)
-    return res
-
-
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--previous", default="build/variants/previous_sp")
@@ -315,7 +158,7 @@ def main():
     card = vt.card()
     print(card, flush=True)
     shipped = cuda_lib.load()
-    print("shipped, registers a thread:\n" + res_usage(
+    print("shipped, registers a thread:\n" + vt.res_usage(
         shipped.path, ("agg_pool_fwd_row_kernel",
                        "agg_scatter_add_bwd_tile_kernel")), flush=True)
     out_dir = cuda_lib.BUILD_DIR / "variants"
@@ -338,7 +181,7 @@ def main():
     for name, subs in B8_SUBS.items():
         path, log = vt.build(cuda_lib, cuda_lib.CSRC / "agg_scatter_add_bwd.cu",
                              out_dir, f"b8_{name}", subs)
-        print(f"{name}:\n{res_usage(path, ('tile_kernel',))}", flush=True)
+        print(f"{name}:\n{vt.res_usage(path, ('tile_kernel',))}", flush=True)
         b8_variants[name] = vt.Variant(shipped, path,
                                        "stnls_agg_scatter_add_bwd")
     path, log = vt.build(cuda_lib, cuda_lib.CSRC / "variants" /
@@ -348,7 +191,7 @@ def main():
     for name, subs in B9_SUBS.items():
         path_v, _ = vt.build(cuda_lib, cuda_lib.CSRC / "agg_pool_fwd.cu",
                              out_dir, f"b9_{name}", subs)
-        print(f"{name}:\n{res_usage(path_v, ('row_kernel',))}", flush=True)
+        print(f"{name}:\n{vt.res_usage(path_v, ('row_kernel',))}", flush=True)
         b9_variants[name] = vt.Variant(shipped, path_v, "stnls_agg_pool_fwd")
     fn = getattr(ctypes.CDLL(str(path)), "stnls_agg_pool_fwd")
     fn.argtypes, fn.restype = [_P] * 4 + [_I] * 18 + [_P], _I
@@ -400,10 +243,6 @@ def main():
 
     results = {"card": card, "SCATTER_CHANNELS_LAST_MIN": rule}
     all_cases = cases(torch, cs, dev)
-    if prev:
-        results["B7/B10 unchanged"] = check_unchanged(
-            torch, cs, prev_dir, out_dir, "agg example 128^2",
-            all_cases["agg example 128^2"], shipped)
     with torch.no_grad():
         for label, c in all_cases.items():
             for key, runs in (("B9", b9_runs), ("B8", b8_runs)):
@@ -425,14 +264,14 @@ def main():
                 dev_ms = {name: [] for name in runs}
                 for name in order:
                     times[name].append(cuda_ms(lambda: runs[name](c)))
-                    dev_ms[name].append(device_ms(torch,
+                    dev_ms[name].append(vt.device_ms(torch,
                                                   lambda: runs[name](c)))
                 layout(shipped, None)
                 results[f"{key} {label}"] = dict(ms=times, device_ms=dev_ms,
                                                  bitwise_to_shipped=bitwise)
                 if key == "B8":
                     # the shipped kernel asked for one gradient alone
-                    split = {what: device_ms(torch, lambda: sp.nl_scatter_add_bwd(
+                    split = {what: vt.device_ms(torch, lambda: sp.nl_scatter_add_bwd(
                         *c[:3], c[5], c[4], needs))
                         for what, needs in (("g_vid only", (True, False, False)),
                                             ("g_w only", (False, True, False)))}
@@ -445,10 +284,6 @@ def main():
                     for name in runs) + f"; bitwise to shipped: {bitwise}",
                     flush=True)
     print(json.dumps(results))
-    changed = [k for k, v in results.get("B7/B10 unchanged", {}).items()
-               if k.endswith("sass equal") and not v]
-    if changed:
-        sys.exit(f"b8_b9_variants: machine code changed: {changed}")
 
 
 if __name__ == "__main__":

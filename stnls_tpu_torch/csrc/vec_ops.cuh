@@ -1,8 +1,8 @@
 // Loads, stores and global atomic adds of VW = 1, 2 or 4 neighbouring
 // floats as one instruction, for the kernels that read and add into
 // channels-last videos ([.., H, W, Fp], a pixel's channels side by side):
-// B2 (nls_topk_bwd.cu), B5 (nls_vol_fwd.cu) and B6 (nls_vol_bwd.cu). The
-// pointer must be aligned to VW floats.
+// B2 (nls_topk_bwd.cu), B5 (nls_vol_fwd.cu), B6 (nls_vol_bwd.cu), and B7
+// and B10 through agg_patch.cuh. The pointer must be aligned to VW floats.
 
 #pragma once
 

@@ -19,6 +19,11 @@ tensors on the CPU; for a CUDA tensor they launch the kernel or raise.
 B8 reads a channels-last copy of the cotangent above a size
 (SCATTER_CHANNELS_LAST_MIN, `scatter_layout`); B8 and B9 keep a table of
 (query, slot) centres of at most TABLE_BYTES a block in shared memory.
+B7 and B10 run one thread per (query, vector of channels)
+(cuda_lib.channel_layout) and add into a channels-last accumulator that
+the wrapper moves to planar after the launch; B10 reads a channels-last
+copy of the video; both take a body with ps = 3 compiled in
+(COMPILED_BODY).
 """
 
 import torch
@@ -91,6 +96,9 @@ SCATTER_CHANNELS_LAST_MIN = 1 << 18
 # the shared memory a block of B8 or B9 gives its centre table; slots
 # beyond it are taken in chunks
 TABLE_BYTES = 48 << 10
+# B7 and B10 take the body with ps = 3 compiled in (False: the run-time
+# body for every ps)
+COMPILED_BODY = True
 
 
 def scatter_layout(numel, F):
@@ -162,11 +170,14 @@ class _ScatterAdd(torch.autograd.Function):
     @staticmethod
     def forward(ctx, vid, weights, flows, cfg):
         B, HD, T, F = vid.shape[:4]
-        out = torch.zeros((B, HD, T, F, cfg["outH"], cfg["outW"]),
+        vw, ng, npass, Fp = cuda_lib.channel_layout(F)
+        acc = torch.zeros((B, HD, T, cfg["outH"], cfg["outW"], Fp),
                           dtype=torch.float32, device=vid.device)
         _launch(cuda_lib.load().stnls_agg_scatter_add_fwd, "nl_scatter_add",
-                vid, weights, flows, out, *_scatter_ints(vid, flows, cfg))
+                vid, weights, flows, acc, *_scatter_ints(vid, flows, cfg),
+                vw, ng, npass, int(COMPILED_BODY))
         nl_scatter_add.launches += 1
+        out = cuda_lib.channels_first(acc, F)
         ctx.save_for_backward(vid, weights, flows)
         ctx.cfg = cfg
         return out
@@ -276,12 +287,19 @@ def nl_pool_bwd(vid, weights, flows, g_out, cfg, needs):
         return _pool_bwd_plain(vid, weights, flows, g_out, cfg, needs)
     _check("nl_pool_bwd", vid, weights, flows, cfg["stride0"], cfg)
     _check_cotangent("nl_pool_bwd", vid, g_out, _pool_out_shape(vid, cfg))
-    g_vid, g_w = torch.zeros_like(vid), torch.empty_like(weights)
-    _launch(cuda_lib.load().stnls_agg_pool_bwd, "nl_pool_bwd", vid, weights,
-            flows, g_out.contiguous(), g_vid, g_w,
-            *_pool_ints(vid, flows, cfg), int(bool(needs[0])))
+    F = vid.shape[3]
+    vw, ng, npass, Fp = cuda_lib.channel_layout(F)
+    acc = vid.new_zeros(vid.shape[:3] + vid.shape[4:] + (Fp,)) \
+        if needs[0] else None
+    g_w = torch.empty_like(weights)
+    _launch(cuda_lib.load().stnls_agg_pool_bwd, "nl_pool_bwd",
+            cuda_lib.channels_last(vid, Fp), weights, flows,
+            g_out.contiguous(), 0 if acc is None else acc, g_w,
+            *_pool_ints(vid, flows, cfg), int(bool(needs[0])), vw, ng, npass,
+            int(COMPILED_BODY))
     nl_pool_bwd.launches += 1
-    return (g_vid if needs[0] else None, g_w if needs[1] else None,
+    return (None if acc is None else cuda_lib.channels_first(acc, F),
+            g_w if needs[1] else None,
             torch.zeros_like(flows) if needs[2] else None)
 
 

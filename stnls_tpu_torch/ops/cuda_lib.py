@@ -37,10 +37,10 @@ SIGNATURES = {
     "stnls_agg_gather_bwd": [_P] * 8 + [_I] * 15 + [_P],
     "stnls_nls_vol_fwd": [_P] * 5 + [_I] * 19 + [_F, _F] + [_I] * 6 + [_P],
     "stnls_nls_vol_bwd": [_P] * 10 + [_I] * 18 + [_F, _F] + [_I] * 7 + [_P],
-    "stnls_agg_scatter_add_fwd": [_P] * 4 + [_I] * 18 + [_P],
+    "stnls_agg_scatter_add_fwd": [_P] * 4 + [_I] * 22 + [_P],
     "stnls_agg_scatter_add_bwd": [_P] * 6 + [_I] * 23 + [_P],
     "stnls_agg_pool_fwd": [_P] * 4 + [_I] * 16 + [_P],
-    "stnls_agg_pool_bwd": [_P] * 6 + [_I] * 16 + [_P],
+    "stnls_agg_pool_bwd": [_P] * 6 + [_I] * 20 + [_P],
     "stnls_nls_topk_compiled": [_I, _I],
     "stnls_nls_vol_compiled": [_I, _I],
 }
@@ -134,10 +134,10 @@ def load():
 
 
 def channel_layout(F):
-    """The channels-last layout of F channels a head that B2, B5 and B6
-    read: (vw, ng, np, Fp), vw channels a vector (1, 2 or 4), ng lanes a
-    query (a power of two up to 32), np passes of each lane, Fp = vw * ng
-    * np >= F padded channels."""
+    """The channels-last layout of F channels a head that B2, B5, B6, B7
+    and B10 read or add into: (vw, ng, np, Fp), vw channels a vector (1,
+    2 or 4), ng lanes a query (a power of two up to 32), np passes of each
+    lane, Fp = vw * ng * np >= F padded channels."""
     vw = 1 if F == 1 else 2 if F == 2 else 4
     nvec = -(-F // vw)
     ng = min(1 << (nvec - 1).bit_length(), 32)
@@ -155,7 +155,7 @@ def grouped_channels(F):
 def channels_last(x, Fp):
     """[..., F, H, W] -> a new contiguous [..., H, W, Fp] tensor, the
     channels Fp - F >= 0 beyond F zero: the layout in which a pixel's
-    channels are one vector load for B2, B3, B5, B6 and B8."""
+    channels are one vector load for B2, B3, B5, B6, B8 and B10."""
     F = x.shape[-3]
     moved = x.movedim(-3, -1)
     if Fp == F:
@@ -176,7 +176,7 @@ def channels_last_pair(vid0, vid1, Fp):
 
 def channels_first(x, F):
     """The inverse of `channels_last`: [..., H, W, Fp] -> [..., F, H, W]."""
-    return x[..., :F].movedim(-1, -3).contiguous()
+    return (x if x.shape[-1] == F else x[..., :F]).movedim(-1, -3).contiguous()
 
 
 def stats_ptr(stats, device, name):

@@ -664,10 +664,12 @@ def test_int_search_feeds_the_aggregators(dev):
         assert kernel.launches == n0 + 1 and bool(out.isfinite().all())
 
 
-def _sp_inputs(dev, stride, seed=4, K=6, F=F, H=H, W=W, fill_frame=False):
+def _sp_inputs(dev, stride, seed=4, K=6, F=F, H=H, W=W, fill_frame=False,
+               dense=False):
     """Video, weights (negative ones and ones below 1e-8 included) and
     offsets with exact half-integers and -1e8 fills, on the stride grid;
-    with `fill_frame`, every slot of frame 0 is a fill."""
+    with `fill_frame`, every slot of frame 0 is a fill; `dense`: every
+    weight in (0, 1] and no fill, so every slot is live."""
     rng = np.random.default_rng(seed)
     nH, nW = (H - 1) // stride + 1, (W - 1) // stride + 1
 
@@ -678,6 +680,9 @@ def _sp_inputs(dev, stride, seed=4, K=6, F=F, H=H, W=W, fill_frame=False):
     flows = np.stack([rng.integers(-1, 2, (B, HD, T, nH, nW, K)),
                       3 * rng.standard_normal((B, HD, T, nH, nW, K)),
                       3 * rng.standard_normal((B, HD, T, nH, nW, K))], -1)
+    if dense:
+        return tuple(t(x) for x in (
+            rng.standard_normal((B, HD, T, F, H, W)), 1. - weights, flows))
     if K > 5:
         weights[..., 0], weights[..., 1] = -0.25, 5e-9
         flows[..., 2, 1:] = (0.5, -1.5)
@@ -690,10 +695,11 @@ def _sp_inputs(dev, stride, seed=4, K=6, F=F, H=H, W=W, fill_frame=False):
 
 
 # keys beyond the ops' keywords: the frame (H, W), channels a head (F),
-# slots (K), a frame of -1e8 fills, the cotangent's layout B8 reads
-# ("channels_last" or "planar"; default: the wrapper's size rule), and the
-# shared memory of the centre table (a small one takes the slots in
-# chunks)
+# slots (K), a frame of -1e8 fills, every slot live ("dense"), the
+# cotangent's layout B8 reads ("layout": "channels_last" or "planar";
+# default: the wrapper's size rule), B7's and B10's run-time body at ps =
+# 3 ("body": "run_time"), and the shared memory of the centre table (a
+# small one takes the slots in chunks)
 SP_CASES = [dict(), dict(stride=2, dilation=2, use_adj=True, ps=4, pt=2),
             dict(reflect_bounds=False),
             dict(H=37, W=53, F=3, layout="channels_last"),
@@ -709,28 +715,44 @@ SP_CASES = [dict(), dict(stride=2, dilation=2, use_adj=True, ps=4, pt=2),
                  layout="planar"),
             # a video above SCATTER_CHANNELS_LAST_MIN: B8 reads a
             # channels-last cotangent by the wrapper's own rule
-            dict(H=128, W=96, K=4)]
+            dict(H=128, W=96, K=4),
+            # both sides of B7's and B10's body rule (ps = 3 compiled in,
+            # forced to the run-time body); F not a multiple of their 4
+            # channels a lane (3, 33), F = 2 (2 a lane), a run-time ps
+            # (5), 2 passes of a lane (F = 130), every slot live
+            dict(body="run_time"),
+            dict(body="run_time", stride=2, dilation=2, pt=2),
+            dict(stride=2, dilation=2, use_adj=True, pt=2),
+            dict(F=3, ps=5), dict(F=33, pt=2, body="run_time"),
+            dict(F=2, K=20),
+            dict(F=130, H=16, W=24, K=3),
+            dict(F=130, H=16, W=24, K=3, body="run_time"),
+            dict(dense=True), dict(dense=True, ps=5),
+            dict(dense=True, body="run_time")]
 # ScatterAdd also takes strideIn != strideOut and an explicit output size
 SCATTER_CASES = SP_CASES + [dict(stride=2, strideOut=1),
                             dict(strideOut=2, outH=24, outW=40),
                             dict(H=37, W=53, strideOut=2, outH=30, outW=61,
                                  F=16, reflect_bounds=False,
                                  layout="channels_last")]
-_SP_INPUT_KEYS = ("K", "F", "H", "W", "fill_frame")
+_SP_INPUT_KEYS = ("K", "F", "H", "W", "fill_frame", "dense")
 
 
 def _sp_layout(monkeypatch, extra):
-    """Force the cotangent's layout B8 reads where the case names one, and
-    the centre table's shared memory of B8 and B9."""
+    """Force the cotangent's layout B8 reads where the case names one,
+    B7's and B10's run-time body, and the centre table's shared memory of
+    B8 and B9."""
     forced = {"channels_last": 0, "planar": sys.maxsize}.get(
         extra.get("layout"))
     if forced is not None:
         monkeypatch.setattr(agg_sp_cuda, "SCATTER_CHANNELS_LAST_MIN", forced)
+    if extra.get("body") == "run_time":
+        monkeypatch.setattr(agg_sp_cuda, "COMPILED_BODY", False)
     if "table_bytes" in extra:
         monkeypatch.setattr(agg_sp_cuda, "TABLE_BYTES", extra["table_bytes"])
 
 
-def _check_sp_backward(bwd, plain_bwd, args, cfg, deterministic=False):
+def _check_sp_backward(bwd, plain_bwd, args, cfg, bitwise):
     n0 = bwd.launches
     g_k = bwd(*args, cfg, (True, True, True))
     torch.cuda.synchronize()
@@ -740,14 +762,17 @@ def _check_sp_backward(bwd, plain_bwd, args, cfg, deterministic=False):
         assert float(b.abs().max()) > 0
         assert_grad_close(a, b, name)
     assert not g_k[2].any() and not g_p[2].any()
-    # what one gradient alone asks for, bitwise (B8: no atomics)
-    for needs in ((True, False, False), (False, True, False)) \
-            if deterministic else ():
+    # what one gradient alone asks for: bitwise where the kernel sums it
+    # without atomics (`bitwise`: g_vid, g_weights; B8 both, B10 g_w)
+    for needs in ((True, False, False), (False, True, False)):
         g_one = bwd(*args, cfg, needs)
-        for a, b, need in zip(g_one, g_k, needs):
+        for a, b, need, exact, name in zip(g_one, g_k, needs, bitwise,
+                                           ("g_vid", "g_weights")):
             assert (a is None) != need
-            if need:
+            if need and exact:
                 assert torch.equal(a, b)
+            elif need:
+                assert_grad_close(a, b, name)
 
 
 def _scatter_cfg(extra):
@@ -786,7 +811,7 @@ def test_scatter_add_kernels_match_plain(dev, extra, monkeypatch):
                        agg_sp_cuda._scatter_add_bwd_plain,
                        (vid, weights, flows, g),
                        dict(cfg, outH=out.shape[-2], outW=out.shape[-1]),
-                       deterministic=True)
+                       bitwise=(True, True))
 
 
 @pytest.mark.parametrize("extra", SP_CASES)
@@ -810,19 +835,27 @@ def test_pool_kernels_match_plain(dev, extra, monkeypatch):
     g = torch.randn(out.shape, device=dev,
                     generator=torch.Generator(dev).manual_seed(0))
     _check_sp_backward(agg_sp_cuda.nl_pool_bwd, agg_sp_cuda._pool_bwd_plain,
-                       (vid, weights, flows, g), cfg)
+                       (vid, weights, flows, g), cfg, bitwise=(False, True))
 
 
 @pytest.mark.parametrize("layout", ["channels_last", "planar"])
 def test_pool_and_scatter_backward_are_deterministic(dev, layout,
                                                      monkeypatch):
-    """B9's output and B8's g_vid and g_w equal bitwise on two calls."""
+    """B9's output, B8's g_vid and g_w (in either layout of the cotangent)
+    and B10's g_w equal bitwise on two calls."""
     _sp_layout(monkeypatch, dict(layout=layout))
     vid, weights, flows = _sp_inputs(dev, 1, F=16, K=8, H=48, W=64)
     cfg = _pool_cfg({})
     outs = [agg_sp_cuda.nl_pool(vid, weights, flows, **cfg)
             for _ in range(2)]
     assert torch.equal(*outs)
+    g_pool = torch.randn(outs[0].shape, device=dev,
+                         generator=torch.Generator(dev).manual_seed(2))
+    g_ws = [agg_sp_cuda.nl_pool_bwd(vid, weights, flows, g_pool, cfg,
+                                    (True, True, False))[1]
+            for _ in range(2)]
+    assert float(g_ws[0].abs().max()) > 0
+    assert torch.equal(*g_ws)
     scfg = dict(_scatter_cfg({}), outH=48, outW=64)
     g = torch.randn((B, HD, T, 16, 48, 64), device=dev,
                     generator=torch.Generator(dev).manual_seed(1))
