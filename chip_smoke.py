@@ -99,13 +99,31 @@ Phases, in order; any failure raises and exits non-zero:
      at the bench slice's widths (B=2, T=4) on that mesh, 3 SGD steps
      through the kernels (B1-B4) and through plain_route(), and B3's time
      and bound at the arguments of the twin's gather. A multi-card ring
-     exchange is not run: one card holds one rank.
+     exchange is not run: one card holds one rank;
+ 15. the model layer: (a) benchmarks/matrix.py's config 6, the
+     NonLocalDenoiser train step (stnls_tpu_torch/matrix_steps.py,
+     parameters from a seeded torch.Generator) at its published 540x960,
+     T 3: one step through the kernels (one launch each of B1-B4, no
+     plain backward), the output and every parameter's gradient finite
+     and non-zero, 3 SGD steps lowering the loss, its time, frames/s and
+     peak memory, and B1-B4's times and bounds at the arguments the step
+     gives them; (b) the same step and SGD steps on a 270x480 crop
+     against the plain backwards on the kernels' forward and against
+     plain_route(), under the rules of phase 5; (c)
+     NonLocalAttentionStack and NonLocalAttention with StackConv at the
+     slice's widths, forward against plain_route() and the training path
+     of phase 5; (d) vnlb (int search, ps 5, through B1) on a seeded
+     smooth noisy RGB video (128^2, T 5): offsets equal to the plain
+     route's, the output at 1e-4, the PSNR gain (> 4 dB), its time and
+     its Bayes filter's (batched eigh), and flow_patches.get_mse scoring
+     the video's true motion below zero flow.
 B2's, B3's, B5's, B6's and B7-B10's times are printed with those of
 their previous design in parentheses (EARLIER_MS).
 The line before the last is a JSON object of the kernels (B1, B2, B5 and
 B6 with a "chunk" entry of their chunk mode, B6 with a "stats" entry of
-its global atomics at the slice); the last line is
-{"ok": true, "device": {...}}. The script imports nothing of JAX.
+its global atomics at the slice, B1-B4 with a "config6" entry at config
+6's arguments); the last line is {"ok": true, "device": {...}}. The
+script imports nothing of JAX.
 """
 
 import contextlib
@@ -429,6 +447,38 @@ def b6_atomics(torch, args, d):
                 first_design=cells * taps_f * corners + slots * taps_f)
 
 
+def nb(*xs):
+    """The bytes of the tensors xs."""
+    return sum(x.numel() * x.element_size() for x in xs)
+
+
+def b1_work(vid0, vid1, flows, dists, cells, *, ws, wt, ps):
+    """The bytes and float operations of B1 on its arguments and outputs:
+    the inputs read once, dists and cells written once; FLOPS_PER_TAP per
+    (query, window cell, tap, channel), every cell of the W_t * ws^2
+    window valid (full_ws)."""
+    cells_all = min(2 * wt + 1, vid1.shape[2]) * ws * ws
+    return (nb(vid0, vid1, flows, dists, cells),
+            dists[..., 0].numel() * cells_all * ps * ps * vid0.shape[3]
+            * FLOPS_PER_TAP["B1"])
+
+
+def b4_work(args):
+    """The bytes and float operations of B4 on its arguments (vid,
+    weights, flows, g_stack, cfg, needs): the inputs read once, the three
+    gradients written once; FLOPS_PER_TAP per (query, slot, in-frame tap,
+    channel) and the division by the overlap count once per cotangent
+    element."""
+    vid, weights, flows, g_stack, cfg = args[:5]
+    B, HD, T, F, H, W = vid.shape
+    nH, nW, K = flows.shape[-4:-1]
+    taps = taps_in_frame(nH, H, cfg["ps"], cfg["stride0"]) * taps_in_frame(
+        nW, W, cfg["ps"], cfg["stride0"]) * B * HD * T * K
+    return (nb(vid, weights, flows, g_stack) + nb(vid, weights,
+                                                          flows),
+            taps * F * FLOPS_PER_TAP["B4"] + g_stack.numel())
+
+
 def b3_work(vid, weights, inds, ps, stride0=1):
     """The bytes and float operations of B3: video, weights and offsets
     read once, the stack written once; FLOPS_PER_TAP per (output pixel,
@@ -579,22 +629,12 @@ def kernel_phase(torch, dev, name, cfg):
         f"{n_global / max(n_all, 1):.4f})")
 
     # bounds at this config, from these inputs
-    def nb(*xs):
-        return sum(x.numel() * x.element_size() for x in xs)
-
-    nq = B * HD * T * H * H
-    K = c_k.shape[-1]
-    ps = kw["ps"]
-    cells_all = (min(2 * cfg["wt"] + 1, T)) * 25      # full_ws: all valid
-    taps = taps_in_frame(H, H, ps) ** 2 * B * HD * T * K   # (q, k, tap)
     bounds = {
-        "B1": bound_ms(nb(vid0, vid1, flows, d_k, c_k),
-                       nq * cells_all * ps * ps * F * FLOPS_PER_TAP["B1"]),
+        "B1": bound_ms(*b1_work(vid0, vid1, flows, d_k, c_k, ws=5,
+                                wt=cfg["wt"], ps=kw["ps"])),
         "B2": bound_ms(*b2_work(b2_args)),
-        "B3": bound_ms(*b3_work(vid1, weights, inds, ps)),
-        "B4": bound_ms(nb(vid1, weights, inds, g_stack) + nb(vid1, weights,
-                                                             inds),
-                       taps * F * FLOPS_PER_TAP["B4"] + g_stack.numel()),
+        "B3": bound_ms(*b3_work(vid1, weights, inds, kw["ps"])),
+        "B4": bound_ms(*b4_work(b4_args)),
     }
     return dict(err={"B1": err_b1, "B2": max(errs_b2), "B3": err_b3,
                      "B4": max(errs_b4)}, share=share, bounds=bounds,
@@ -701,9 +741,6 @@ def volume_kernel_phase(torch, dev, name, cfg):
             res.setdefault(kind, dict(args=args, active=active,
                                       kw=kw, g=(g_k, g_d), atomics=at))
 
-    def nb(*xs):
-        return sum(x.numel() * x.element_size() for x in xs)
-
     first = res["each"]
     vid0, vid1, ctr_h, ctr_w, g_d, _ = first["args"]
     with torch.no_grad():
@@ -740,12 +777,12 @@ def train_path(torch, attn, step, data):
     return grads, updates, model, losses
 
 
-def attn_train_path(torch, attn, data):
+def attn_train_path(torch, attn, data, lr=LR):
     """Forward and backward of NonLocalAttention `attn` into the video,
     the flows and the parameters, then SGD_STEPS steps of plain SGD of a
     copy of it towards the fixed target. Returns the gradients, the SGD
-    updates (each parameter's sum over the steps of LR * grad: its change,
-    without the rounding of p - LR * grad at |p|), the trained copy and
+    updates (each parameter's sum over the steps of lr * grad: its change,
+    without the rounding of p - lr * grad at |p|), the trained copy and
     the losses."""
     from stnls_tpu_torch.utils.config import ConfigDict
     vid, fflow, bflow, proj_w, stack_w, target = data
@@ -767,7 +804,7 @@ def attn_train_path(torch, attn, data):
         losses.append(float(loss.detach()))
         with torch.no_grad():
             for n, p in model.named_parameters():
-                u = LR * p.grad
+                u = lr * p.grad
                 p -= u
                 updates[n] += u
     return grads, updates, model, losses
@@ -1068,9 +1105,6 @@ def agg_kernel_phase(torch, dev, name, inputs, scfg, pcfg):
     vid, weights, flows = inputs
     rng = np.random.default_rng(SEED + 6)
     F = vid.shape[3]
-
-    def nb(*xs):
-        return sum(x.numel() * x.element_size() for x in xs)
 
     errs, bounds, args = {}, {}, {}
     for kf, kb, fwd, plain, bwd, plain_bwd, cfg, live in (
@@ -1428,7 +1462,9 @@ def matrix_phase(torch, dev):
     peak GB)}."""
     from stnls_tpu_torch import matrix_steps as ms
     out = {}
-    for name in ms.CONFIGS:
+    for name, c in ms.CONFIGS.items():
+        if c["config"] == 6:        # the denoiser's train step: phase 15
+            continue
         cfg = ms.config(name)
         step = ms.make_step(name)
         inputs = ms.make_inputs(name, SEED, device=dev)
@@ -1705,9 +1741,6 @@ def ps1_kernel_times(torch, dev, smi_line, matrix):
     from stnls_tpu_torch import matrix_steps as ms
     from stnls_tpu_torch.attn_step import cuda_ms
     from stnls_tpu_torch.ops import nls_cuda, nls_vol_cuda
-
-    def nb(*xs):
-        return sum(x.numel() * x.element_size() for x in xs)
 
     out = {}
     for label, name in (("1,2", "align1080p_fwd"), ("1,16", "gda540p_ws9")):
@@ -2047,9 +2080,6 @@ def chunk_times(torch, smi_line, r):
     from stnls_tpu_torch.attn_step import cuda_ms
     from stnls_tpu_torch.ops import nls_cuda, nls_vol_cuda
 
-    def nb(*xs):
-        return sum(x.numel() * x.element_size() for x in xs)
-
     plain = dict(n=3, warm=1)
     v0p, v1p, fl = r["b1_args"]
     F, taps = v0p.shape[3], r["b1_kw"]["ps"] ** 2
@@ -2260,6 +2290,410 @@ def twin_phase(torch, dev, mesh, smi_line, widths=None):
     return dict(launches=launches, err=max(errs.values()), ms=t,
                 losses=losses, b3=dict(ms=t_b3, bound_ms=b3[0],
                                        bound_by=b3[1]))
+
+
+# 15. the model layer: matrix config 6 (the NonLocalDenoiser train step)
+# at its published 540x960 through B1-B4, and against the plain route on
+# DENOISER_CROP of its inputs (the plain B1/B2/B4 stay within seconds
+# there); the stack attention and StackConv at the slice's widths; vnlb on
+# a seeded noisy video of VNLB_SIZE through B1
+DENOISER = "denoiser540p_train_step"
+DENOISER_CROP = (270, 480)
+STACK_CONV_AGG = {"agg_name": "stack_conv", "embed_dim": 8, "nheads": 2,
+                  "inner_mult": 1, "k_agg": 10}
+# the SGD rate of the stack modules: their stack projections see K = 10
+# patches a pixel, and at LR the seeded modules' losses grow
+STACK_LR = 0.02
+VNLB_CFG = {"sigma": 30., "ws": 7, "wt": 1, "ps": 5, "k": 24, "stride0": 2,
+            "nsteps": 2}
+VNLB_SIZE = dict(B=1, T=5, H=128, W=128)
+# the content of the vnlb video moves by (dh, dw) pixels a frame
+VNLB_MOTION = (1., 2.)
+
+
+def denoiser_train(torch, inputs, steps=SGD_STEPS):
+    """Config 6's step (matrix_steps, parameters seeded SEED + 6) on
+    `inputs`, then `steps` steps of plain SGD of its denoiser towards the
+    clean video. Returns the first step's result, each parameter's change
+    over the SGD steps (the sum of LR * grad), the losses and the step."""
+    from stnls_tpu_torch import matrix_steps as ms
+    step = ms.make_step(DENOISER, seed=SEED + 6)
+    res = step(*inputs)
+    updates = {n: torch.zeros_like(p)
+               for n, p in step.model.named_parameters()}
+    losses, cur = [], res
+    for i in range(steps):
+        losses.append(float(cur["loss"]))
+        with torch.no_grad():
+            for n, p in step.model.named_parameters():
+                u = LR * cur["grads"][n]
+                p -= u
+                updates[n] += u
+        if i + 1 < steps:
+            cur = step(*inputs)
+    losses.append(float(step(*inputs)["loss"]))
+    return res, updates, losses, step
+
+
+def denoiser_search(torch, model, inputs):
+    """The (dists, offsets) of the denoiser's attention search on the
+    route in force."""
+    from stnls_tpu_torch.nn.utils import rescale_flows
+    from stnls_tpu_torch.utils.config import ConfigDict
+    noisy, _, fflow, bflow = inputs
+    B, T, C, H, W = noisy.shape
+    with torch.no_grad():
+        x = model.embed(noisy.reshape(B * T, C, H, W)).reshape(B, T, -1, H,
+                                                               W)
+        fl = rescale_flows(ConfigDict(fflow=fflow, bflow=bflow), H, W)
+        q, k, _ = model.attn.get_qkv(x)
+        return model.attn.search(q, k, fl.fflow, fl.bflow)
+
+
+@contextlib.contextmanager
+def captured_kernel_args(calls):
+    """Record into `calls` (name -> list) the arguments of each call of
+    B1-B4 while inside: nls_topk's (args, kwargs, result), B2's and B4's
+    argument tuples (from their autograd Functions' backward), B3's (vid,
+    weights, flows, cfg). The wrappers and their launch counts are not
+    touched."""
+    from stnls_tpu_torch.search import non_local_search
+    from stnls_tpu_torch.ops import nls_cuda, agg_cuda
+    b1_fn = non_local_search.nls_topk
+    b2_fn = nls_cuda._SearchDists.__dict__["backward"]
+    b4_fn = agg_cuda._GatherStack.__dict__["backward"]
+    apply = agg_cuda._GatherStack.apply
+
+    def b1(*args, **kw):
+        out = b1_fn(*args, **kw)
+        calls.setdefault("B1", []).append((args, kw, out))
+        return out
+
+    def b2(ctx, g_d):
+        calls.setdefault("B2", []).append(
+            (*ctx.saved_tensors, g_d, ctx.cfg) + tuple(ctx.chunk))
+        return b2_fn.__func__(ctx, g_d)
+
+    def b3(*args):
+        calls.setdefault("B3", []).append(args)
+        return apply(*args)
+
+    def b4(ctx, g_stack):
+        calls.setdefault("B4", []).append(
+            (*ctx.saved_tensors, g_stack, ctx.cfg, ctx.needs_input_grad[:3]))
+        return b4_fn.__func__(ctx, g_stack)
+
+    non_local_search.nls_topk = b1
+    nls_cuda._SearchDists.backward = staticmethod(b2)
+    agg_cuda._GatherStack.apply = b3
+    agg_cuda._GatherStack.backward = staticmethod(b4)
+    try:
+        yield calls
+    finally:
+        non_local_search.nls_topk = b1_fn
+        nls_cuda._SearchDists.backward = b2_fn
+        agg_cuda._GatherStack.backward = b4_fn
+        del agg_cuda._GatherStack.apply
+
+
+def config6_kernels(torch, smi_line, inputs):
+    """B1-B4 at the arguments config 6's step gives them: one call each a
+    step, their CUDA-event times and their bounds."""
+    from stnls_tpu_torch import matrix_steps as ms
+    from stnls_tpu_torch.attn_step import cuda_ms
+    from stnls_tpu_torch.ops import nls_cuda, agg_cuda
+    step = ms.make_step(DENOISER, seed=SEED + 6)
+    calls = {}
+    with captured_kernel_args(calls):
+        step(*inputs)
+    require({k: len(v) for k, v in calls.items()} ==
+            {"B1": 1, "B2": 1, "B3": 1, "B4": 1},
+            f"config 6: kernel calls a step {calls.keys()}")
+    (a1, kw1, (d1, c1)), = calls["B1"]
+    a2, = calls["B2"]
+    a3, = calls["B3"]
+    a4, = calls["B4"]
+    cfg = ms.config(DENOISER)
+    bounds = {"B1": bound_ms(*b1_work(*a1, d1, c1, ws=kw1["ws"],
+                                      wt=kw1["wt"], ps=kw1["ps"])),
+              "B2": bound_ms(*b2_work(a2)),
+              "B3": bound_ms(*b3_work(*a3[:3], a3[3]["ps"],
+                                      a3[3]["stride0"])),
+              "B4": bound_ms(*b4_work(a4))}
+    with torch.no_grad():
+        t = {"B1": cuda_ms(lambda: nls_cuda.nls_topk(*a1, **kw1), n=5),
+             "B2": cuda_ms(lambda: nls_cuda.nls_topk_bwd(*a2), n=5),
+             "B3": cuda_ms(lambda: agg_cuda.nl_gather_stack(
+                 *a3[:3], **a3[3]), n=5),
+             "B4": cuda_ms(lambda: agg_cuda.nl_gather_stack_bwd(*a4), n=5)}
+    log(f"[times] {smi_line}: config 6 at {cfg['H']}x{cfg['W']}, video "
+        f"{tuple(a1[0].shape)}, K {c1.shape[-1]}: " + "; ".join(
+            f"{key} {t[key]:.3f} ms (bound {bounds[key][0]:.4f} by "
+            f"{bounds[key][1]})" for key in t))
+    return {key: dict(ms=t[key], bound_ms=bounds[key][0],
+                      bound_by=bounds[key][1]) for key in t}
+
+
+def denoiser_phase(torch, dev, smi_line):
+    """(1) config 6 at its published size through the kernels: one step
+    (B1-B4 launched once each, no plain backward), outputs and every
+    parameter's gradient finite and non-zero, then SGD_STEPS SGD steps
+    that lower the loss; its median time and peak memory. (2) on
+    DENOISER_CROP of the inputs, the kernel route against the plain
+    backwards on the kernels' forward and against plain_route(): the
+    output at TOL (away from the reach of a query whose cells flipped at a
+    near-tie), the loss at TOL, the gradients and each parameter's SGD
+    update under compare()'s rules. Returns the launches, the errors, the
+    times and the kernels' rows at config 6."""
+    from stnls_tpu_torch import matrix_steps as ms
+    from stnls_tpu_torch.attn_step import cuda_ms
+    cfg = ms.config(DENOISER)
+    inputs = ms.make_inputs(DENOISER, SEED, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    reset_counts()
+    step = ms.make_step(DENOISER, seed=SEED + 6)
+    res = step(*inputs)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+    launches, plain_calls = read_counts()
+    log(f"[denoiser] config 6 at {cfg['H']}x{cfg['W']}, T {cfg['T']}: "
+        f"launches {launches}, plain backward calls {plain_calls}, peak "
+        f"{peak:.3f} GB")
+    require(all(launches[k] == 1 for k in ("nls_topk_fwd", "nls_topk_bwd",
+                                           "agg_gather_fwd",
+                                           "agg_gather_bwd")) and
+            not any(v for k, v in launches.items() if k not in (
+                "nls_topk_fwd", "nls_topk_bwd", "agg_gather_fwd",
+                "agg_gather_bwd")),
+            f"config 6: launches a step {launches}, not one each of B1-B4")
+    require(not any(plain_calls.values()),
+            "config 6: a plain backward ran on the kernel route")
+    require(tuple(res["out"].shape) == tuple(inputs[0].shape) and
+            bool(res["out"].isfinite().all()), "config 6: output")
+    for name, g in res["grads"].items():
+        require(bool(g.isfinite().all()) and float(g.abs().max()) > 0,
+                f"config 6: the gradient of {name} is not finite or is 0")
+    _, updates, losses, _ = denoiser_train(torch, inputs)
+    require(losses[-1] < losses[0], f"config 6: SGD losses {losses}")
+    log(f"[denoiser] config 6: loss {float(res['loss']):.6f}, every "
+        f"gradient of {len(res['grads'])} parameters finite and non-zero; "
+        f"{SGD_STEPS} SGD steps, losses {losses}")
+    t = cuda_ms(lambda: step(*inputs), n=5, warm=1)
+    log(f"[times] {smi_line}: config 6 train step {t:.3f} ms = "
+        f"{cfg['T'] / (t / 1e3):.2f} frames/s (peak {peak:.3f} GB)")
+    rows = config6_kernels(torch, smi_line, inputs)
+    del res, updates, step
+
+    # (2) the crop, through the kernels and the plain routes
+    crop = crop_inputs(inputs, *DENOISER_CROP)
+    mine, upd, losses, step_k = denoiser_train(torch, crop)
+    with plain_route(forward=False):
+        bwd, bwd_upd, _, step_b = denoiser_train(torch, crop)
+    with plain_route():
+        ref, ref_upd, ref_losses, step_p = denoiser_train(torch, crop)
+    geo = dict(wt=cfg["wt"], ps=cfg["ps"])
+    fresh = ms.make_step(DENOISER, seed=SEED + 6).model.to(dev)
+    ours = denoiser_search(torch, fresh, crop)
+    with plain_route():
+        theirs = denoiser_search(torch, fresh, crop)
+    reach_ps = cfg["ps"] + 2 * (2 * cfg["nres"] + 1)    # + the 3x3 convs
+    mask, n_flip = flipped_reach(torch, tuple(mine["out"].shape), ours,
+                                 theirs, output=True, wt=0, ps=reach_ps)
+    err_out = close(mine["out"].masked_fill(mask, 0.),
+                    ref["out"].masked_fill(mask, 0.),
+                    "config 6 output kernels vs plain")
+    close(mine["loss"], ref["loss"], "config 6 loss kernels vs plain")
+    errs = {"out": err_out}
+    for name, g in mine["grads"].items():
+        errs[f"grad {name}"], _ = grad_close(
+            g, bwd["grads"][name], f"config 6 grad {name} vs the plain "
+            "backwards on the kernels' forward")
+        err, _ = compare(torch, g, ref["grads"][name],
+                         f"config 6 grad {name} vs the plain route",
+                         lambda: (ours, theirs), **geo)
+        errs[f"grad {name}"] = max(errs[f"grad {name}"], err)
+    trained = denoiser_search(torch, step_k.model, crop)
+    with plain_route():
+        trained_ref = denoiser_search(torch, step_p.model, crop)
+    trained_bwd = denoiser_search(torch, step_b.model, crop)
+    for name, u in upd.items():
+        err, scale = compare(torch, u, ref_upd[name], f"config 6 SGD update "
+                             f"of {name} vs the plain route",
+                             lambda: (trained, trained_ref), **geo)
+        err_b, _ = compare(torch, u, bwd_upd[name], f"config 6 SGD update "
+                           f"of {name} vs the plain backwards",
+                           lambda: (trained, trained_bwd), **geo)
+        require(scale > 0, f"config 6: SGD left {name} unchanged")
+        errs[f"update {name}"] = max(err, err_b)
+    log(f"[denoiser] config 6 on the {DENOISER_CROP[0]}x{DENOISER_CROP[1]} "
+        f"crop vs the plain route: output max|kernels-plain| {err_out:.3e} "
+        f"away from {n_flip} queries that took other cells at a near-tie; "
+        f"SGD losses, kernels {losses}, plain {ref_losses}; largest "
+        "max|kernels-plain| of the gradients "
+        f"{max(v for k, v in errs.items() if k.startswith('grad')):.3e}, "
+        "of the SGD updates "
+        f"{max(v for k, v in errs.items() if k.startswith('update')):.3e}")
+    return dict(launches=launches, ms=t, peak_gb=peak, rows=rows,
+                err=max(v for k, v in errs.items() if k != "out"),
+                err_out=err_out)
+
+
+def stack_phase(torch, dev, smi_line, data, step):
+    """NonLocalAttentionStack (the gather stack) and NonLocalAttention
+    with StackConv (STACK_CONV_AGG) at the slice's widths and search:
+    the forward through the kernels against plain_route() at TOL, then the
+    training path of phase 5 (attn_train_path: gradients into the video,
+    the flows and the parameters, SGD_STEPS SGD steps at STACK_LR) through
+    check_routes. Returns each module's launches and fwd+bwd time."""
+    from stnls_tpu_torch.attn_step import attention_module, cuda_ms
+    from stnls_tpu_torch.nn import NonLocalAttentionStack
+    from stnls_tpu_torch.utils.config import ConfigDict
+    vid, fflow, bflow = data[:3]
+    flows = ConfigDict(fflow=fflow, bflow=bflow)
+    out = {}
+    for label, module in (
+            ("stack", attention_module(SEED + 1, dev,
+                                       cls=NonLocalAttentionStack)),
+            ("stack_conv", attention_module(SEED + 1, dev,
+                                            agg=STACK_CONV_AGG))):
+        reset_counts()
+        with torch.no_grad():
+            y, _ = module(vid, flows)
+        torch.cuda.synchronize()
+        fwd = read_counts()[0]
+        with torch.no_grad(), plain_route():
+            y_ref, _ = module(vid, flows)
+        require(tuple(y.shape) == tuple(vid.shape) and
+                bool(y.isfinite().all()), f"{label}: output")
+        err = close(y, y_ref, f"{label} forward kernels vs plain")
+        log(f"[{label}] forward launches {fwd}; out {tuple(y.shape)}, "
+            f"max|kernels-plain| {err:.3e}")
+        require(fwd["nls_topk_fwd"] == 1 and fwd["agg_gather_fwd"] == 1,
+                f"{label}: the forward did not run B1 and B3")
+        launches = check_routes(
+            torch, label, lambda m=module: attn_train_path(torch, m, data,
+                                                           lr=STACK_LR),
+            ("nls_topk_fwd", "nls_topk_bwd", "agg_gather_fwd",
+             "agg_gather_bwd"), module, step, data,
+            dict(wt=step.search.wt, ps=step.search.ps))
+
+        def fwd_bwd(m=module):
+            v = vid.clone().requires_grad_()
+            o, _ = m(v, flows)
+            torch.autograd.grad(o.pow(2).mean(), [v] + list(m.parameters()))
+
+        t = cuda_ms(fwd_bwd)
+        log(f"[times] {smi_line}: {label} fwd+bwd {t:.3f} ms = "
+            f"{vid.shape[1] / (t / 1e3):.2f} frames/s")
+        out[label] = dict(launches=launches, fwd_bwd_ms=t, err=err)
+    return out
+
+
+def vnlb_video(torch, dev, rng, *, B, T, H, W):
+    """A smooth RGB video in [0, 1] whose content moves by VNLB_MOTION a
+    frame (low-frequency sinusoids of numpy seed draws), its noisy copy
+    (sigma 30 / 255) and the flows of that motion (fflow (dw, dh), bflow
+    the negation)."""
+    dh, dw = VNLB_MOTION
+    t = np.arange(T)[:, None, None]
+    y = np.arange(H)[None, :, None] - dh * t
+    x = np.arange(W)[None, None, :] - dw * t
+    clean = np.zeros((B, T, 3, H, W))
+    for b in range(B):
+        for c in range(3):
+            f = np.zeros((T, H, W))
+            for _ in range(4):
+                ky, kx = rng.uniform(0.02, 0.12, 2)
+                f += rng.uniform(0.5, 1.) * np.sin(ky * y + kx * x
+                                                   + rng.uniform(0, 6.3))
+            clean[b, :, c] = 0.5 + 0.12 * f
+    clean = np.clip(clean, 0., 1.).astype(np.float32)
+    noisy = clean + (VNLB_CFG["sigma"] / 255.) * rng.standard_normal(
+        clean.shape).astype(np.float32)
+    fflow = np.zeros((B, T, 2, H, W), np.float32)
+    fflow[:, :, 0], fflow[:, :, 1] = dw, dh
+    return tuple(torch.from_numpy(a).to(dev) for a in (clean, noisy, fflow,
+                                                      -fflow))
+
+
+def vnlb_phase(torch, dev, smi_line):
+    """vnlb (run_vnlb at VNLB_CFG, int search through B1) on a seeded
+    video of VNLB_SIZE: the time of a call and of its Bayes filter
+    (batched torch.linalg.eigh); its search's offsets equal
+    plain_route()'s, the output at TOL against plain_route()'s (the rest
+    of the pipeline is deterministic), the PSNR gain; and
+    flow_patches.get_mse, the true motion scoring below zero flow."""
+    from stnls_tpu_torch.attn_step import cuda_ms
+    from stnls_tpu_torch.misc import vnlb, flow_patches
+    from stnls_tpu_torch.search.non_local_search import NonLocalSearch
+    from stnls_tpu_torch.utils.color import rgb2yuv
+    from stnls_tpu_torch.utils.config import ConfigDict
+    rng = np.random.default_rng(SEED + 7)
+    clean, noisy, fflow, bflow = vnlb_video(torch, dev, rng, **VNLB_SIZE)
+    cfg = VNLB_CFG
+    # one call each: its batched eigh takes seconds (the times of the
+    # kernel route's call, which also counts the launches)
+    reset_counts()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    out = vnlb.run_vnlb(cfg, noisy)
+    end.record()
+    end.synchronize()
+    t_all = start.elapsed_time(end)
+    launches = read_counts()[0]
+    require(launches["nls_topk_fwd"] == cfg["nsteps"] and
+            sum(launches.values()) == cfg["nsteps"],
+            f"vnlb: launches {launches}, not one B1 a step")
+    search = NonLocalSearch(cfg["ws"], cfg["wt"], cfg["ps"], cfg["k"],
+                            stride0=cfg["stride0"], self_action="anchor",
+                            itype="int")
+    yuv = rgb2yuv(noisy)
+    d_k, i_k = search(yuv, yuv)
+    groups = vnlb._gather_groups(yuv, i_k, cfg["ps"], cfg["stride0"])
+    t_filter = cuda_ms(lambda: vnlb._bayes_filter(groups, cfg["sigma"]),
+                       n=1, warm=0)
+    log(f"[times] {smi_line}: vnlb on {tuple(noisy.shape)} {t_all:.3f} ms "
+        f"a call ({cfg['nsteps']} steps), its Bayes filter {t_filter:.3f} "
+        f"ms a step (batched eigh of {groups[..., 0, 0].numel()} "
+        f"{groups.shape[-1]}x{groups.shape[-1]} covariances)")
+    with plain_route():
+        ref = vnlb.run_vnlb(cfg, noisy)
+        d_p, i_p = search(yuv, yuv)
+    require(torch.equal(i_k, i_p), "vnlb: B1's offsets differ from the "
+            "plain version's")
+    err_d = close(d_k, d_p, "vnlb search dists")
+    err = close(out, ref, "vnlb output kernels vs plain")
+
+    def psnr(a):
+        return float(10 * torch.log10(1. / ((a - clean) ** 2).mean()))
+
+    p_in, p_out = psnr(noisy), psnr(out)
+    require(bool(out.isfinite().all()) and p_out > p_in + 4.,
+            f"vnlb: PSNR {p_in:.2f} -> {p_out:.2f} dB")
+    zero = ConfigDict(fflow=torch.zeros_like(fflow),
+                      bflow=torch.zeros_like(bflow))
+    mse_true = flow_patches.get_mse(clean, ConfigDict(fflow=fflow,
+                                                      bflow=bflow), 3)
+    mse_zero = flow_patches.get_mse(clean, zero, 3)
+    require(all(np.isfinite(v) for v in (*mse_true.values(),
+                                        *mse_zero.values())) and
+            mse_true.fflow < mse_zero.fflow and
+            mse_true.bflow < mse_zero.bflow,
+            f"flow_patches: true motion {mse_true}, zero {mse_zero}")
+    log(f"[vnlb] video {tuple(noisy.shape)}, {cfg}: launches {launches}; "
+        f"offsets equal to the plain route's, dists max|kernels-plain| "
+        f"{err_d:.3e}; output max|kernels-plain| {err:.3e}; PSNR "
+        f"{p_in:.3f} -> {p_out:.3f} dB; groups {tuple(groups.shape)}")
+    log(f"[vnlb] flow_patches.get_mse, true motion {dict(mse_true)}, zero "
+        f"flow {dict(mse_zero)}")
+    return dict(launches=launches, ms=t_all, bayes_filter_ms=t_filter,
+                psnr_in=p_in, psnr_out=p_out, err=max(err, err_d),
+                size=dict(VNLB_SIZE), flow_mse=dict(
+                    true=dict(mse_true), zero=dict(mse_zero)))
 
 
 def main():
@@ -2567,6 +3001,14 @@ def main():
         sharded = time_sharded_phase(torch, dev, mesh, matrix, smi_line)
         twin = twin_phase(torch, dev, mesh, smi_line)
 
+    # 15. the model layer: config 6's denoiser train step at 540p and on
+    # a crop against the plain route; the stack attention and StackConv;
+    # vnlb and flow_patches
+    torch.cuda.empty_cache()
+    den = denoiser_phase(torch, dev, smi_line)
+    stacks = stack_phase(torch, dev, smi_line, data, step)
+    vn = vnlb_phase(torch, dev, smi_line)
+
     require("jax" not in sys.modules, "JAX was imported")
     rows = (("B1", "nls_topk_fwd", "nls_pallas.py:761", t_b1, t_b1p),
             ("B2", "nls_topk_bwd", "nls_pallas_bwd.py:675", t_b2, t_b2p),
@@ -2618,6 +3060,11 @@ def main():
         if key == "B6":
             # B6's global atomic instructions a backward at the slice
             entry["stats"] = vres["b6_atomics"]
+        if key in den["rows"]:
+            # at config 6's arguments (540x960, 2 heads of 8, K 8), its
+            # launches a train step
+            entry["config6"] = dict(den["rows"][key],
+                                    launches=den["launches"][name])
         if key in t_chunk:
             entry["chunk"] = dict(t_chunk[key],
                                   launches=chunk_launches[name],
@@ -2637,9 +3084,17 @@ def main():
         "agg_example_aggregators_fwd_bwd_ms": t_aggs,
         "agg_example_aggregators_fwd_bwd_plain_ms": t_aggsp,
         "agg_example_ms": t_twin,
-        "matrix": {name: {
+        "matrix": dict({name: {
             "ms": ms, "frames_per_s": matrix[name][1][0].shape[1] / (ms / 1e3),
             "peak_gb": matrix[name][3]} for name, ms in t_matrix.items()},
+            **{DENOISER: {"ms": den["ms"],
+                          "frames_per_s": 3 / (den["ms"] / 1e3),
+                          "peak_gb": den["peak_gb"]}}),
+        "model_layer": {
+            "stack_fwd_bwd_ms": stacks["stack"]["fwd_bwd_ms"],
+            "stack_conv_fwd_bwd_ms": stacks["stack_conv"]["fwd_bwd_ms"],
+            "vnlb": {key: vn[key] for key in (
+                "ms", "bayes_filter_ms", "psnr_in", "psnr_out", "size")}},
         "ps1_kernels": ps1, "compiled_vs_run_time_ms": spec,
         "b4_slice_atomics": res["b4_atomics"],
         "b2_slice_atomics": res["b2_atomics"],

@@ -26,8 +26,10 @@ through B5/B6), and for the twin of examples/agg_example.py
 (stnls_tpu_torch/agg_example.py: B=1, T=3, F=16, HD=2, 128^2, K=8; its
 search, then Gather, GatherAdd, ScatterAdd and Pool forward and backward,
 through B1, B3/B4, B7/B8 and B9/B10), and for the steps of
-benchmarks/matrix.py's configs 1, 4, 5 and 7 at their published sizes
-(stnls_tpu_torch/matrix_steps.py, seed 0; 5 is a forward only), for
+benchmarks/matrix.py's configs 1, 4, 5, 6 and 7 at their published sizes
+(stnls_tpu_torch/matrix_steps.py, seed 0; 5 is a forward only; 6 is the
+NonLocalDenoiser's train step at 540x960, its loss and its gradients to
+every parameter, through B1-B4, parameters seeded 0), for
 config 7 through parallel.time_sharded_search on a one-rank NCCL mesh
 (chip_smoke.sharded_config7_step: B1/B2 in chunk mode), and for one train step of the twin of
 __graft_entry__.dryrun_multichip (stnls_tpu_torch/multichip_step.py) at
@@ -96,9 +98,14 @@ def summarise(rows, steps, label):
     memcpy, memset); the top device rows and the top host ops by the
     device time of the kernels they launched. The port's own kernels are
     launched through ctypes, under no host op: they show among the
-    device rows only."""
+    device rows only. The attention modules' stage ranges
+    (torch.profiler.record_function: qkv, search, normz, agg, proj) are
+    user annotations, which the profiler also gives device rows spanning
+    their kernels: they are left out of the device rows, lest those
+    kernels count twice, and show among the host op rows."""
     from torch.autograd import DeviceType
-    dev_rows = [r for r in rows if r.device_type == DeviceType.CUDA]
+    dev_rows = [r for r in rows if r.device_type == DeviceType.CUDA
+                and not getattr(r, "is_user_annotation", False)]
     op_rows = [r for r in rows if r.device_type == DeviceType.CPU]
     total_ms = sum(device_us(r) for r in dev_rows) / 1e3 / steps
     launches = sum(r.count for r in dev_rows) / steps

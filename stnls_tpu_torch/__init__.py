@@ -16,3 +16,5 @@ from stnls_tpu_torch import search
 from stnls_tpu_torch import normz
 from stnls_tpu_torch import agg
 from stnls_tpu_torch import nn
+from stnls_tpu_torch import models
+from stnls_tpu_torch import misc

@@ -1,7 +1,7 @@
 """String-menu construction of aggregation ops (PyTorch port of
 stnls_tpu/agg/api.py). The default "wpsum" resolves to PooledPatchSum, as
-in the JAX package. Every entry resolves but "scatter" (NonLocalScatter)
-and "stack_conv", which raise NotImplementedError."""
+in the JAX package. Every entry resolves but "scatter" (NonLocalScatter),
+which raises NotImplementedError."""
 
 import importlib
 
@@ -19,7 +19,7 @@ MENU = ConfigDict({
     "scatter_add": "scatter_add",
     "stack_conv": "stack_conv",
 })
-PORTED = ("gather", "gather_add", "scatter_add", "pool")
+PORTED = ("gather", "gather_add", "scatter_add", "pool", "stack_conv")
 
 
 def from_agg_menu(name):

@@ -45,11 +45,14 @@ def smooth_flows(rng, shape, amp=4.0, modes=4):
 VOLUME_SEARCH = {"self_action": "anchor_each", "topk_mode": "each", "k": 2}
 
 
-def attention_module(seed, device="cuda", search=None):
+def attention_module(seed, device="cuda", search=None, agg=None,
+                     cls=NonLocalAttention):
     """NonLocalAttention (2 heads of 8 channels, the bench step's search:
     ws=5, wt=2, ps=3, K=10, stride1=0.5, anchor, float) with weights drawn
-    from numpy seed `seed`, scaled by 1/sqrt(fan-in). `search` overrides
-    entries of the search config (e.g. VOLUME_SEARCH)."""
+    from numpy seed `seed`, scaled by 1/sqrt(fan-in). `search` and `agg`
+    override entries of the search and agg configs (e.g. VOLUME_SEARCH);
+    `cls` is the module built from the four configs (e.g.
+    NonLocalAttentionStack)."""
     attn_cfg = {"nheads": 2, "embed_dim": 8, "use_attn_projection": True,
                 "use_attn_flow": True}
     search_cfg = {"search_name": "nls", "ws": 5, "wt": 2, "ps": 3, "k": 10,
@@ -59,8 +62,8 @@ def attention_module(seed, device="cuda", search=None):
     normz_cfg = {"normz_name": "softmax", "normz_scale": 10,
                  "dist_type": "l2"}
     agg_cfg = {"agg_name": "gather", "ps": 3, "stride0": 1,
-               "itype": "float"}
-    attn = NonLocalAttention(attn_cfg, search_cfg, normz_cfg, agg_cfg)
+               "itype": "float", **(agg or {})}
+    attn = cls(attn_cfg, search_cfg, normz_cfg, agg_cfg)
     rng = np.random.default_rng(seed)
     state = {}
     for key, val in attn.state_dict().items():

@@ -9,3 +9,4 @@ from stnls_tpu_torch.nn.topk import (
 from stnls_tpu_torch.nn.non_local_attn import (
     NonLocalAttention, ConvQKV, LayerNorm2D,
 )
+from stnls_tpu_torch.nn.non_local_attn_stack import NonLocalAttentionStack

@@ -2,9 +2,13 @@
 (PyTorch port of stnls_tpu/nn/non_local_attn.py).
 
 ConvQKV 1x1 projections (reflect padding for larger kernels),
-menu-dispatched search, softmax normalisation, menu-dispatched
-aggregation and an output 1x1 projection, as torch.nn.Modules. The
-recurrent `state` is threaded through the call as in the JAX module.
+menu-dispatched search (a refinement search consumes the recurrent
+`state`), softmax normalisation, menu-dispatched aggregation and an output
+1x1 projection, as torch.nn.Modules. The recurrent `state` is threaded
+through the call as in the JAX module. Each of the five stages (qkv,
+search, normz, agg, proj) runs under a `_StageTimer`
+(nn/non_local_attn_stack.py): a profiler range of the stage's name, or
+with attn_timer its wall time in `module._times`.
 `params_from_jax` (stnls_tpu_torch.convert) carries flax parameters over.
 """
 
@@ -79,13 +83,11 @@ class ConvQKV(torch.nn.Module):
 class NonLocalAttention(torch.nn.Module):
     """attn = NonLocalAttention(attn_cfg, search_cfg, normz_cfg, agg_cfg);
     vid_out, state = attn(vid, flows, state)."""
+    refine_names = ("refine",)
 
     def __init__(self, attn_cfg, search_cfg, normz_cfg, agg_cfg):
         super().__init__()
         attn_cfg = extract_config(attn_cfg, restrict=False)
-        if attn_cfg.attn_timer:
-            raise NotImplementedError(
-                "NonLocalAttention attn_timer is not yet ported, see ROADMAP")
         nheads = attn_cfg.nheads
         inner_mult = optional(attn_cfg, "inner_mult", 1)
         embed_dim = attn_cfg.embed_dim * inner_mult
@@ -98,8 +100,10 @@ class NonLocalAttention(torch.nn.Module):
         self.agg = agg_mod.init(agg_cfg)
 
         self.use_flow = attn_cfg.use_attn_flow
+        self.use_timer = attn_cfg.attn_timer
         self.use_state_update = optional(search_cfg, "use_state_update",
                                          False)
+        self.search_name = optional(search_cfg, "search_name", "nls")
         self.stride0 = optional(search_cfg, "stride0", 1)
 
         self.qkv = ConvQKV(io_dim, heads=nheads, dim_head=embed_dim,
@@ -111,18 +115,26 @@ class NonLocalAttention(torch.nn.Module):
             if attn_cfg.use_norm_layer else None
 
     def forward(self, vid, flows=None, state=None, deterministic=True):
+        from stnls_tpu_torch.nn.non_local_attn_stack import _StageTimer
+        timer = _StageTimer(self.use_timer, vid)
         B, T, C, H, W = vid.shape
         if self.use_flow and flows is not None:
             flows = rescale_flows(flows, H, W)
         if self.norm_layer is not None:
             vid = self.norm_layer(vid)
-        q_vid, k_vid, v_vid = self.get_qkv(vid)
-        dists, inds = self.run_search(q_vid, k_vid, flows, state)
+        with timer("qkv"):
+            q_vid, k_vid, v_vid = self.get_qkv(vid)
+        with timer("search"):
+            dists, inds = self.run_search(q_vid, k_vid, flows, state)
         state = self._next_state(state, inds, q_vid.shape)
         # as the JAX module: the attention weights are never dropped
-        weights, inds = self.normz(dists, inds)
-        vid = self.run_aggregation(v_vid, weights, inds)
-        vid = self.run_projection(vid, deterministic)
+        with timer("normz"):
+            weights, inds = self.normz(dists, inds)
+        with timer("agg"):
+            vid = self.run_aggregation(v_vid, weights, inds)
+        with timer("proj"):
+            vid = self.run_projection(vid, deterministic)
+        self._times = timer.times
         return vid, state
 
     def get_qkv(self, vid):
@@ -132,6 +144,14 @@ class NonLocalAttention(torch.nn.Module):
                 v.reshape(B, T, -1, H, W))
 
     def run_search(self, q_vid, k_vid, flows, state):
+        """The flow search; a refinement search starts from the previous
+        call's offsets (state[0]) and rand_inds takes no flows. The search
+        menu raises NotImplementedError for these two until they are
+        ported."""
+        if self.search_name in self.refine_names:
+            return self.search(q_vid, k_vid, _inds_rs1(state[0]))
+        if self.search_name == "rand_inds":
+            return self.search(q_vid, k_vid)
         return self.search(q_vid, k_vid, flows.fflow, flows.bflow)
 
     def _next_state(self, state, inds, vshape):
@@ -187,3 +207,12 @@ def _inds_rs0(inds, nH, nW):
     elif inds.ndim != 7:
         return inds
     return inds.permute(2, 3, 4, 0, 1, 5, 6)
+
+
+def _inds_rs1(inds):
+    """State layout [T,nH,nW,B,HD,K,3] -> [B,HD,Q,K,3]."""
+    if inds.ndim != 7:
+        return inds
+    T, nH, nW, B, HD, K, tr = inds.shape
+    inds = inds.permute(3, 4, 0, 1, 2, 5, 6)
+    return inds.reshape(B, HD, T * nH * nW, K, tr)

@@ -276,8 +276,13 @@ def test_menu_resolves_every_ported_name():
     for name in ("wpsum", "pool", "gather", "nlgather", "nlstack",
                  "gather_add", "scatter_add", "scatter_sum"):
         stnls_tpu_torch.agg.init({"agg_name": name})
-    for name in ("scatter", "stack_conv"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            stnls_tpu_torch.agg.init({"agg_name": name})
+    # stack_conv builds its Conv3d from the stack's width: the v1 defaults
+    # (-1) give none, so the config names it
+    agg = stnls_tpu_torch.agg.init({"agg_name": "stack_conv", "embed_dim": 4,
+                                    "nheads": 2, "inner_mult": 1,
+                                    "k_agg": 2, "ps": 3})
+    assert isinstance(agg, stnls_tpu_torch.agg.StackConv)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        stnls_tpu_torch.agg.init({"agg_name": "scatter"})
     assert stnls_tpu_torch.agg.WeightedPatchSum is \
         stnls_tpu_torch.agg.PooledPatchSum

@@ -1,9 +1,12 @@
-"""The twin of benchmarks/matrix.py's search-only configs
+"""The twin of benchmarks/matrix.py's configs
 (stnls_tpu_torch/matrix_steps.py) against the same JAX modules, at a small
-size: each config's own ps, F a head, ws, wt, K, heads, itype and anchor,
-with T = 8 and 24x32 frames. The JAX search is held to its lattice engine
-(impl="lattice"; the TPU-only budgets matrix.py passes are dropped). Dists,
-offsets and the video gradient agree to 1e-4 (torch_port_helpers). A
+size: each search config's own ps, F a head, ws, wt, K, heads, itype and
+anchor, with T = 8 and 24x32 frames; config 6's denoiser at its widths on
+T = 3 frames of 24x32, its parameters carried over from matrix.py's flax
+init by params_from_jax. The JAX search is held to its lattice engine
+(impl="lattice"; the TPU-only budgets matrix.py passes are dropped).
+Dists, offsets, outputs and losses agree to atol = rtol = 1e-4, the video's
+and the parameters' gradients to 1e-4 * max|ref| (torch_port_helpers). A
 search with more ranked slots than B1 keeps (K = 80 of 243 cells) takes
 the volume route on every device and gives JAX's lattice top-K."""
 
@@ -14,7 +17,10 @@ import jax.numpy as jnp
 import torch
 
 import stnls_tpu
+from stnls_tpu.models.denoiser import NonLocalDenoiser as JDenoiser
+from stnls_tpu.utils.config import ConfigDict as JConfigDict
 from stnls_tpu_torch import matrix_steps
+from stnls_tpu_torch.convert import params_from_jax
 from stnls_tpu_torch.ops.nls_cuda import KMAX
 from stnls_tpu_torch.search.non_local_search import NonLocalSearch, \
     search_route
@@ -22,6 +28,10 @@ from stnls_tpu_torch.search.non_local_search import NonLocalSearch, \
 from torch_port_helpers import to_torch, assert_close, assert_grad_close
 
 SIZE = dict(T=8, H=24, W=32)
+SEARCH_CONFIGS = [name for name, cfg in matrix_steps.CONFIGS.items()
+                  if cfg["config"] != 6]
+DENOISER = "denoiser540p_train_step"
+DENOISER_SIZE = dict(T=3, H=24, W=32)
 
 
 def _jax_step(cfg):
@@ -45,7 +55,7 @@ def _jax_step(cfg):
     return step
 
 
-@pytest.mark.parametrize("name", list(matrix_steps.CONFIGS))
+@pytest.mark.parametrize("name", SEARCH_CONFIGS)
 def test_matrix_step_matches_jax(name):
     cfg = matrix_steps.config(name, **SIZE)
     inputs = matrix_steps.make_inputs(name, device="cpu", **SIZE)
@@ -84,6 +94,71 @@ def test_matrix_inputs_follow_matrix_py():
     vid1, f1, b1 = matrix_steps.make_inputs("davis64_int", device="cpu",
                                             **SIZE)
     assert torch.equal(f1, b1) and torch.equal(f1, f1.round())
+
+
+def test_denoiser_step_matches_jax():
+    """Config 6: the loss mean((denoiser(noisy) - vid)^2) and its gradient
+    to every parameter against jax.grad of matrix.py's loss, from
+    matrix.py's flax init (PRNGKey(0)) carried over."""
+    cfg = matrix_steps.config(DENOISER, **DENOISER_SIZE)
+    inputs = matrix_steps.make_inputs(DENOISER, device="cpu",
+                                      **DENOISER_SIZE)
+    noisy, vid, ff, bf = (jnp.asarray(x.numpy()) for x in inputs)
+    flows = JConfigDict(fflow=ff, bflow=bf)
+    jmodel = JDenoiser(
+        embed_dim=cfg["embed_dim"], nheads=cfg["nheads"], ws=cfg["ws"],
+        wt=cfg["wt"], ps=cfg["ps"], k=cfg["K"], nres=cfg["nres"],
+        search_overrides=dict(matrix_steps.DENOISER_SEARCH, impl="lattice"),
+        agg_overrides=matrix_steps.DENOISER_AGG)
+    params = jmodel.init(jax.random.PRNGKey(0), noisy, flows)
+
+    def loss(p, v):
+        out, _ = jmodel.apply(p, v, flows)
+        return jnp.mean((out - vid) ** 2), out
+
+    (jloss, jout), jgrads = jax.value_and_grad(loss, has_aux=True)(params,
+                                                                   noisy)
+    step = matrix_steps.make_step(
+        DENOISER, params=params_from_jax(jax.tree.map(np.asarray, params)),
+        **DENOISER_SIZE)
+    out = step(*inputs)
+    assert set(out) == {"out", "loss", "grads"}
+    assert out["out"].shape == (1, 3, 3, 24, 32)
+    assert_close(out["out"], jout, "output")
+    assert_close(out["loss"], jloss, "loss")
+    ref = params_from_jax(jax.tree.map(np.asarray, jgrads))
+    assert set(out["grads"]) == set(ref) == \
+        {n for n, _ in step.model.named_parameters()}
+    for name, g in out["grads"].items():
+        assert float(g.abs().max()) > 0, name
+        assert_grad_close(g, ref[name].numpy(), name)
+
+
+def test_denoiser_inputs_follow_matrix_py():
+    """matrix.py's config 6 draws vid, then the noise of noisy = vid + 0.1
+    * N, then fflow and bflow (amplitude 3), from seed 0; without params
+    the step's denoiser is seeded by a torch.Generator."""
+    noisy, vid, ff, bf = matrix_steps.make_inputs(DENOISER, device="cpu",
+                                                  **DENOISER_SIZE)
+    rng = np.random.default_rng(0)
+    shape = (1, 3, 3, 24, 32)
+    v = rng.standard_normal(shape).astype(np.float32)
+    n = rng.standard_normal(shape).astype(np.float32)
+    np.testing.assert_array_equal(vid.numpy(), v)
+    np.testing.assert_array_equal(noisy.numpy(),
+                                  np.asarray(jnp.asarray(v) + 0.1
+                                             * jnp.asarray(n)))
+    np.testing.assert_array_equal(
+        ff.numpy(), matrix_steps.smooth_flows(rng, (1, 3, 2, 24, 32),
+                                              amp=3.0))
+    assert 1.4 < float(bf.abs().max()) <= 3.0 + 1e-6
+    a, b = (matrix_steps.make_step(DENOISER, seed=s, **DENOISER_SIZE).model
+            for s in (0, 0))
+    c = matrix_steps.make_step(DENOISER, seed=1, **DENOISER_SIZE).model
+    for (name, pa), pb, pc in zip(a.named_parameters(), b.parameters(),
+                                  c.parameters()):
+        assert torch.equal(pa, pb), name
+        assert not torch.equal(pa, pc), name
 
 
 def test_many_ranked_slots_take_the_volume_route(rng):
