@@ -116,13 +116,31 @@ Phases, in order; any failure raises and exits non-zero:
      smooth noisy RGB video (128^2, T 5): offsets equal to the plain
      route's, the output at 1e-4, the PSNR gain (> 4 dB), its time and
      its Bayes filter's (batched eigh), and flow_patches.get_mse scoring
-     the video's true motion below zero flow.
+     the video's true motion below zero flow;
+ 16. the search layer: (a) the twin of benchmarks/search_bench.py
+     (stnls_tpu_torch/search_bench.py) at its full size (512^2, T 3, 3
+     heads of F 9, ws 21, wt 3, ps 7, K 10): NonLocalSearch float and
+     int, RefineSearch (wr 3) on the float search's offsets and the
+     refine's forward and backward, each call's time over SB_REPS calls
+     and its peak memory, one B1 launch a search call and one B2 launch a
+     refine backward; B1's and B2's times and bounds at those arguments;
+     (b) B1 (float and int, bitwise, head by head) and B2 (seeded
+     cotangent) at (ps 7, F 9, ws 21, W_t 3) on a 96^2 crop against their
+     plain versions; (c) the refine on a 32^2 crop, its selection in 8
+     bands against the whole plain lattice and its B2 gradients against
+     the lattice's autograd; (d) PairedSearch (lazy and anchored),
+     PairedRefine, RandIndsSearch, N3MatMultSearch and NonLocalSearch's
+     lattice route (pt 2, reflect_bounds=False) at 16^2 on the card
+     against the CPU; (e) NonLocalAttentionStack's two stages at the
+     slice's widths, the second a refine with ref_itype="int", through
+     B1-B4 against plain_route().
 B2's, B3's, B5's, B6's and B7-B10's times are printed with those of
 their previous design in parentheses (EARLIER_MS).
 The line before the last is a JSON object of the kernels (B1, B2, B5 and
 B6 with a "chunk" entry of their chunk mode, B6 with a "stats" entry of
 its global atomics at the slice, B1-B4 with a "config6" entry at config
-6's arguments); the last line is {"ok": true, "device": {...}}. The
+6's arguments, B1 and B2 with a "search_bench" entry at the search
+twin's); the last line is {"ok": true, "device": {...}}. The
 script imports nothing of JAX.
 """
 
@@ -2696,6 +2714,427 @@ def vnlb_phase(torch, dev, smi_line):
                     true=dict(mse_true), zero=dict(mse_zero)))
 
 
+# Phase 16: the twin of benchmarks/search_bench.py
+# (stnls_tpu_torch/search_bench.py) at its full size, SB_REPS calls a
+# search after one warm-up (the twin's own default is the original's 5:
+# at 2 the phase stays near two minutes, its refine a plain lattice of
+# ~8 s a call); B1 and B2 at its (ps 7, F 9, ws 21, W_t 3) on
+# an SB_CROP^2 crop of its inputs; the refine on an SB_REFINE_CROP^2 crop
+# (its selection in SB_REFINE_BANDS bands) against the whole plain
+# lattice; the other flavours at SB_SMALL^2 on the card against the CPU
+SB_REPS = 2
+SB_CROP, SB_REFINE_CROP, SB_REFINE_BANDS, SB_SMALL = 96, 32, 8, 16
+# the refine crop's given offsets are the crop search's, moved off the
+# integers so that the position derivatives are the bilinear weights'
+SB_FRACTION = 0.3
+
+
+def search_bench_run(torch, dev, smi_line):
+    """The search_bench twin's sequence at full size through the kernels,
+    counts set to 0 just before and read just after: one B1 launch a
+    NonLocalSearch call, one B2 launch a refine backward, no plain
+    backward; outputs' shapes, finiteness, the anchored slot 0 of the
+    search and the refine's ascending dists."""
+    from stnls_tpu_torch import search_bench
+    torch.cuda.empty_cache()
+    reset_counts()
+    res = search_bench.run(device=dev, reps=SB_REPS,
+                           log=lambda line: log(f"[search_bench] "
+                                                f"{smi_line}: {line}"))
+    torch.cuda.synchronize()
+    launches, plain = read_counts()
+    calls = SB_REPS + 1
+    for name in ("nls", "nls_int"):
+        require(res[name]["b1"] == calls and res[name]["b2"] == 0,
+                f"search_bench {name}: B1/B2 launches {res[name]['b1']}/"
+                f"{res[name]['b2']} in {calls} calls")
+    require(res["refine"]["b1"] == 0 and res["refine"]["b2"] == 0,
+            "search_bench refine: its forward launched B1 or B2")
+    require(res["refine fwd+bwd"]["b2"] == calls,
+            f"search_bench refine: {res['refine fwd+bwd']['b2']} B2 "
+            f"launches in {calls} backwards")
+    # the sequence's own search for the refine's offsets is one more B1
+    require(launches["nls_topk_fwd"] == 2 * calls + 1 and
+            launches["nls_topk_bwd"] == calls and
+            not any(plain.values()),
+            f"search_bench: launches {launches}, plain calls {plain}")
+    data = res["data"]
+    cfg, given, d, i = data["cfg"], data["given"], data["dists"], data["inds"]
+    shape = (cfg["B"], cfg["HD"], cfg["T"], cfg["H"], cfg["W"], cfg["k"])
+    require(tuple(given.shape) == shape + (3,) and
+            bool((given[..., 0, :] == 0).all()),
+            "search_bench nls: shape or anchored slot 0")
+    require(tuple(d.shape) == shape and tuple(i.shape) == shape + (3,) and
+            bool(d.isfinite().all()) and
+            bool((d[..., 1:] >= d[..., :-1]).all()),
+            "search_bench refine: shape, finite or ascending dists")
+    log(f"[search_bench] launches {launches}: B1 once a NonLocalSearch "
+        f"call, B2 once a refine backward ({SB_REPS} calls after one "
+        "warm-up each)")
+    return res, launches
+
+
+def search_bench_kernel_args(torch, res):
+    """B1's arguments at the twin's search (the videos [B,HD,T,F,H,W],
+    the flows, its keywords) and B2's at the refine's winners (their key
+    positions and frames from the refine's offsets, valid where its dists
+    are finite) with the fwd+bwd line's cotangent (1 at every finite
+    dist)."""
+    from stnls_tpu_torch.search.utils import shape_vids, shape_flows
+    data = res["data"]
+    cfg = data["cfg"]
+    v6 = shape_vids(cfg["HD"], [data["vid"]])[0].contiguous()
+    fl7 = shape_flows(cfg["HD"], data["flows"]).contiguous()
+    b1_kw = dict(ws=cfg["ws"], wt=cfg["wt"], ps=cfg["ps"], stride0=1,
+                 stride1=1, k=cfg["k"], anchor=True, dist_type="l2")
+    d, inds = data["dists"], data["inds"]
+    dev = d.device
+    grid = torch.arange(cfg["H"], device=dev, dtype=torch.float32)
+    t = torch.arange(cfg["T"], device=dev)[:, None, None, None]
+    valid = d.isfinite()
+    b2_args = (v6, v6, (inds[..., 1] + grid[:, None, None]).contiguous(),
+               (inds[..., 2] + grid[:, None]).contiguous(),
+               t + inds[..., 0].long(), valid, valid.float(),
+               dict(ps=cfg["ps"], stride0=1, dist_type="l2", dilation=1,
+                    use_adj=False, itype="float"))
+    return v6, fl7, b1_kw, b2_args
+
+
+def search_bench_crop(torch, v6, fl7, b1_kw):
+    """B1 (float and int, bitwise) and B2 (seeded cotangent, 1e-4 *
+    max|ref|; position gradients off integers) against their plain
+    versions at the twin's (ps, F, ws, W_t) on an SB_CROP^2 crop of its
+    inputs, all heads and frames (B1's plain volume a head at a time).
+    Returns the errors, times and bounds."""
+    from stnls_tpu_torch.ops import nls_cuda
+    from stnls_tpu_torch.ops.nls_k import cells_geometry
+    from stnls_tpu_torch.attn_step import cuda_ms
+    v = v6[..., :SB_CROP, :SB_CROP].contiguous()
+    fl = fl7[..., :SB_CROP, :SB_CROP].contiguous()
+    out = {}
+    for itype in ("float", "int"):
+        kw = dict(b1_kw, itype=itype)
+        with torch.no_grad():
+            d_k, c_k = nls_cuda.nls_topk(v, v, fl, **kw)
+            torch.cuda.synchronize()
+            for h in range(v.shape[1]):
+                vh = v[:, h:h + 1]
+                d_p, c_p = nls_cuda.nls_topk_plain(vh, vh, fl, **kw)
+                require(torch.equal(d_k[:, h:h + 1], d_p) and
+                        torch.equal(c_k[:, h:h + 1], c_p),
+                        f"B1 search_bench crop {itype} head {h}: differs "
+                        "from the plain volume's")
+                del d_p, c_p
+            out[f"B1 {itype} ms"] = cuda_ms(
+                lambda: nls_cuda.nls_topk(v, v, fl, **kw), n=5, warm=1)
+            vh = v[:, :1]
+            out[f"B1 {itype} plain ms (a head)"] = cuda_ms(
+                lambda: nls_cuda.nls_topk_plain(vh, vh, fl, **kw), n=1,
+                warm=0)
+        if itype == "float":
+            out["B1 bound"] = bound_ms(*b1_work(v, v, fl, d_k, c_k,
+                                                ws=kw["ws"], wt=kw["wt"],
+                                                ps=kw["ps"]))
+            cells = c_k
+    log(f"[search_bench] B1 at (ps, F, ws, W_t) = ({b1_kw['ps']}, "
+        f"{v.shape[3]}, {b1_kw['ws']}, {min(2 * b1_kw['wt'] + 1, v.shape[2])})"
+        f" on the {SB_CROP}^2 crop, float and int: dists and cells equal "
+        "to the plain volume's bitwise, head by head")
+    H = W = SB_CROP
+    geo = cells_geometry(fl, cells, H=H, W=W, ws=b1_kw["ws"],
+                         wt=b1_kw["wt"], stride0=1, stride1=1)
+    rng = np.random.default_rng(SEED + 16)
+    g_d = torch.from_numpy(rng.standard_normal(tuple(cells.shape))
+                           .astype(np.float32)).to(v.device)
+    args = (v, v, geo["prop_h"], geo["prop_w"], geo["tj_k"], geo["valid"],
+            g_d, dict(ps=b1_kw["ps"], stride0=1, dist_type="l2", dilation=1,
+                      use_adj=False, itype="float"))
+    g_k = nls_cuda.nls_topk_bwd(*args)
+    torch.cuda.synchronize()
+    g_p = nls_cuda.nls_topk_bwd_plain(*args)
+    off = off_integer(geo["prop_h"]) & off_integer(geo["prop_w"])
+    errs = []
+    for gk, gp, what, mask in zip(g_k, g_p, ("g_vid0", "g_vid1", "g_prop_h",
+                                             "g_prop_w"),
+                                  (None, None, off, off)):
+        if mask is not None:
+            gk, gp = gk[mask], gp[mask]
+        err, scale = grad_close(gk, gp, f"B2 search_bench crop {what}")
+        require(scale > 0, f"B2 search_bench crop {what}: 0")
+        errs.append(err)
+    out["B2 err"] = max(errs)
+    out["B2 ms"] = cuda_ms(lambda: nls_cuda.nls_topk_bwd(*args), n=5,
+                           warm=1)
+    out["B2 plain ms"] = cuda_ms(lambda: nls_cuda.nls_topk_bwd_plain(*args),
+                                 n=1, warm=0)
+    out["B2 bound"] = bound_ms(*b2_work(args))
+    log(f"[search_bench] B2 on the crop: max|kernel-plain| {out['B2 err']:.3e}"
+        f" (g_vid0, g_vid1, positions at {int(off.sum())} of {off.numel()} "
+        "(q, k) off integers)")
+    return out
+
+
+def refine_crop_phase(torch, v6, fl7):
+    """The refine (the twin's: wr 3, K 10, ps 7, 3 heads) on an
+    SB_REFINE_CROP^2 crop, its given offsets the crop search's moved by
+    SB_FRACTION: the selection in SB_REFINE_BANDS bands against the whole
+    plain lattice (dists and offsets at TOL), and the gradients into the
+    video and the offsets through B2 against the plain lattice's autograd
+    at 1e-4 * max|ref|. Returns the largest errors."""
+    from stnls_tpu_torch.search import NonLocalSearch, RefineSearch
+    from stnls_tpu_torch.search import refinement
+    from stnls_tpu_torch.search.utils import unshape_vid
+    n = SB_REFINE_CROP
+    v = unshape_vid(v6[..., :n, :n]).contiguous()
+    fl = fl7[:, 0, ..., :n, :n].contiguous()
+    HD = v6.shape[1]
+    with torch.no_grad():
+        _, inds = NonLocalSearch(21, 3, 7, 10, nheads=HD, stride0=1,
+                                 self_action="anchor")(v, v, fl)
+    given = inds.float()
+    given[..., 1:] += SB_FRACTION
+    refine = RefineSearch(21, 3, wr=3, k=10, ps=7, nheads=HD, stride0=1)
+    rng = np.random.default_rng(SEED + 17)
+    out = {}
+    for route in ("kernels", "plain"):
+        vv, gg = v.clone().requires_grad_(), given.clone().requires_grad_()
+        reset_counts()
+        if route == "kernels":
+            cells = HD * v6.shape[2] * n * n * 10 * 9
+            saved = refinement.SELECT_CELLS
+            refinement.SELECT_CELLS = -(-cells // SB_REFINE_BANDS)
+            try:
+                d, i = refine(vv, vv, gg)
+            finally:
+                refinement.SELECT_CELLS = saved
+        else:
+            from stnls_tpu_torch.search.utils import shape_vids
+            v6c = shape_vids(HD, [vv])[0]
+            d, i = refinement._lattice_route(v6c, v6c, gg, refine.cfg)
+        if route == "kernels":
+            g_d = torch.from_numpy(rng.standard_normal(tuple(d.shape))
+                                   .astype(np.float32)).to(d.device)
+            g_i = torch.from_numpy(rng.standard_normal(tuple(i.shape))
+                                   .astype(np.float32)).to(d.device)
+        loss = (torch.where(d.isfinite(), d, 0.) * g_d).sum() \
+            + (i * g_i).sum()
+        grads = torch.autograd.grad(loss, (vv, gg))
+        torch.cuda.synchronize()
+        out[route] = (d.detach(), i.detach(), grads, read_counts())
+    d_k, i_k, g_k, (lk, pk) = out["kernels"]
+    d_p, i_p, g_p, (lp, pp) = out["plain"]
+    require(lk["nls_topk_bwd"] == 1 and not any(pk.values()),
+            f"refine crop: the kernel route's backward was not B2: {lk}")
+    require(lp["nls_topk_bwd"] == 0, "refine crop: B2 on the plain lattice")
+    err_d = close(d_k, d_p, "refine crop dists (bands vs whole lattice)")
+    err_i = close(i_k, i_p, "refine crop offsets (bands vs whole lattice)")
+    errs = []
+    for gk, gp, what in zip(g_k, g_p, ("g_vid", "g_offsets")):
+        err, scale = grad_close(gk, gp, f"refine crop {what}")
+        require(scale > 0, f"refine crop {what}: 0")
+        errs.append(err)
+    log(f"[search_bench] refine on the {n}^2 crop: selection in "
+        f"{SB_REFINE_BANDS} bands vs the whole plain lattice: dists "
+        f"{err_d:.3e}, offsets {err_i:.3e}; B2's gradients vs the lattice's "
+        f"autograd: video {errs[0]:.3e}, offsets {errs[1]:.3e}")
+    return dict(err_fwd=max(err_d, err_i), err_bwd=max(errs))
+
+
+def card_vs_cpu(torch, dev, label, fn, inputs):
+    """fn on CUDA copies of the numpy inputs against fn on CPU tensors:
+    outputs at TOL, the gradients of a seeded loss into the float inputs
+    at 1e-4 * max|ref|. Returns the largest errors."""
+    rng = np.random.default_rng(SEED + 18)
+    res = {}
+    for where in ("cpu", dev):
+        ins = [torch.from_numpy(x).to(where).requires_grad_(
+            x.dtype == np.float32) for x in inputs]
+        outs = fn(*ins)
+        if where == "cpu":
+            cot = [torch.from_numpy(rng.standard_normal(tuple(o.shape))
+                                    .astype(np.float32)) for o in outs]
+        loss = sum((torch.where(o.isfinite(), o.float(), 0.)
+                    * c.to(where)).sum() for o, c in zip(outs, cot)
+                   if o.is_floating_point())
+        grads = torch.autograd.grad(loss, [x for x in ins
+                                           if x.requires_grad],
+                                    allow_unused=True,
+                                    materialize_grads=True)
+        res[where] = ([o.detach().cpu() for o in outs],
+                      [g.cpu() for g in grads])
+    err_f = max(close(a.float(), b.float(), f"{label} output")
+                for a, b in zip(res[dev][0], res["cpu"][0]))
+    err_g = max([0.] + [grad_close(a, b, f"{label} gradient")[0]
+                        for a, b in zip(res[dev][1], res["cpu"][1])])
+    return err_f, err_g
+
+
+def flavours_phase(torch, dev):
+    """PairedSearch (the lazy route through B1/B2 and the paired anchor
+    through B5/B6), PairedRefine, RandIndsSearch (noise from a seeded
+    torch.Generator on the CPU, passed to both), N3MatMultSearch and
+    NonLocalSearch's lattice route (pt 2, reflect_bounds=False) at
+    SB_SMALL^2 on the card against the same call on the CPU."""
+    from stnls_tpu_torch import search as S
+    rng = np.random.default_rng(SEED + 19)
+    B, HD, T, F, n = 1, 2, 3, 4, SB_SMALL
+
+    def arr(*shape, scale=1., shift=0.):
+        return (scale * rng.standard_normal(shape) + shift).astype(
+            np.float32)
+
+    frames = (arr(B, HD * F, n, n), arr(B, HD * F, n, n))
+    flow = arr(B, HD, 2, n, n, scale=2., shift=SB_FRACTION)
+    vids = (arr(B, T, HD * F, n, n), arr(B, T, HD * F, n, n))
+    fk2 = arr(B, HD, n, n, 4, 2, scale=2., shift=SB_FRACTION)
+    flows = arr(B, T, 2, 2, n, n, scale=1.5, shift=SB_FRACTION)
+    noise = torch.Generator().manual_seed(SEED)
+    rands = [torch.randn(vids[0].shape, generator=noise).numpy()
+             for _ in range(2)]
+    rand_inds = S.rand_inds.init({"ws": 3, "wt": 1, "ps": 3, "k": 4,
+                                  "stride0": 1, "nheads": HD})
+    cases = {
+        "PairedSearch lazy": (S.PairedSearch(5, ps=3, k=4, nheads=HD,
+                                             stride0=1),
+                              frames + (flow,)),
+        "PairedSearch anchor": (S.PairedSearch(5, ps=3, k=4, nheads=HD,
+                                               stride0=1,
+                                               self_action="anchor"),
+                                frames + (flow,)),
+        "PairedRefine": (S.PairedRefine(7, 3, 5, ps=3, nheads=HD, stride0=1,
+                                        self_action="anchor"),
+                         frames + (fk2,)),
+        "RandIndsSearch": (lambda v0, v1, r0, r1: rand_inds(
+            v0, v1, rands=(r0, r1)), vids + tuple(rands)),
+        "N3MatMultSearch": (S.N3MatMultSearch(3, 1, ps=3, k=6, nheads=HD),
+                            vids),
+        "NonLocalSearch pt 2": (S.NonLocalSearch(3, 1, 3, 4, nheads=HD,
+                                                 pt=2, self_action="anchor"),
+                                vids + (flows,)),
+        "NonLocalSearch reflect_bounds=False": (
+            S.NonLocalSearch(3, 1, 3, 4, nheads=HD, reflect_bounds=False,
+                             self_action="anchor"), vids + (flows,)),
+    }
+    errs = {}
+    for label, (fn, inputs) in cases.items():
+        reset_counts()
+        errs[label] = card_vs_cpu(torch, dev, label, fn, inputs)
+        launches = {k: c for k, c in read_counts()[0].items() if c}
+        log(f"[flavours] {label} at {n}^2: card vs CPU outputs "
+            f"{errs[label][0]:.3e}, gradients {errs[label][1]:.3e}; "
+            f"launches {launches}")
+    return errs
+
+
+def stack_refine_phase(torch, dev, data):
+    """NonLocalAttentionStack's two-stage path at the slice's widths: the
+    search with use_state_update, then search_name="refine" (wr 3) with
+    ref_itype="int" on its state; the second stage's forward and backward
+    into the video and the parameters through the kernels (B1 and B3 in
+    the first stage; B3, B4 and B2 in the second) against plain_route()."""
+    from stnls_tpu_torch.attn_step import attention_module
+    from stnls_tpu_torch.nn import NonLocalAttentionStack
+    from stnls_tpu_torch.utils.config import ConfigDict
+    vid, fflow, bflow = data[:3]
+    flows = ConfigDict(fflow=fflow, bflow=bflow)
+    s1 = attention_module(SEED + 1, dev, search={"use_state_update": True},
+                          cls=NonLocalAttentionStack)
+    s2 = attention_module(SEED + 2, dev, search={
+        "search_name": "refine", "wr": 3, "use_state_update": True},
+        attn={"ref_itype": "int"}, cls=NonLocalAttentionStack)
+    require(s2.search.itype == "int", "the refine stage is not int")
+    res = {}
+    for route in ("kernels", "plain"):
+        ctx = plain_route() if route == "plain" else contextlib.nullcontext()
+        reset_counts()
+        with ctx:
+            with torch.no_grad():
+                _, state = s1(vid, flows, state=[torch.zeros(()), None])
+            v = vid.clone().requires_grad_()
+            out, state2 = s2(v, flows, state=state)
+            names, params = zip(*s2.named_parameters())
+            grads = torch.autograd.grad(out.pow(2).mean(), (v,) + params)
+        torch.cuda.synchronize()
+        res[route] = (out.detach(), grads, state2, read_counts())
+    out, grads, state2, (launches, plain) = res["kernels"]
+    require(tuple(out.shape) == tuple(vid.shape) and
+            bool(out.isfinite().all()) and state2[0].ndim == 7,
+            "stack refine: output or state")
+    require(launches["nls_topk_fwd"] == 1 and
+            launches["nls_topk_bwd"] == 1 and
+            launches["agg_gather_fwd"] == 2 and
+            launches["agg_gather_bwd"] == 1 and not any(plain.values()),
+            f"stack refine: launches {launches}, plain calls {plain}")
+    err = close(out, res["plain"][0], "stack refine output kernels vs plain")
+    errs = [grad_close(g, r, f"stack refine {name}")[0]
+            for g, r, name in zip(grads, res["plain"][1],
+                                  ("vid",) + names)]
+    log(f"[stack refine] two stages at the slice (second: refine wr 3, "
+        f"int): launches {launches}; output {err:.3e}, gradients "
+        f"{max(errs):.3e} off the plain route")
+    return dict(launches=launches, err=max(err, max(errs)))
+
+
+def search_bench_phase(torch, dev, smi_line, data):
+    """Phase 16. Returns the JSON fields and B1's and B2's "search_bench"
+    entries for the kernels line."""
+    from stnls_tpu_torch.ops import nls_cuda
+    from stnls_tpu_torch.attn_step import cuda_ms
+    t0 = time.perf_counter()
+    res, launches = search_bench_run(torch, dev, smi_line)
+    v6, fl7, b1_kw, b2_args = search_bench_kernel_args(torch, res)
+    with torch.no_grad():
+        d_k, c_k = nls_cuda.nls_topk(v6, v6, fl7, itype="float", **b1_kw)
+        t_b1 = cuda_ms(lambda: nls_cuda.nls_topk(v6, v6, fl7, itype="float",
+                                                 **b1_kw), n=2, warm=0)
+        t_b1i = cuda_ms(lambda: nls_cuda.nls_topk(v6, v6, fl7, itype="int",
+                                                  **b1_kw), n=2, warm=0)
+    b1_bound = bound_ms(*b1_work(v6, v6, fl7, d_k, c_k, ws=b1_kw["ws"],
+                                 wt=b1_kw["wt"], ps=b1_kw["ps"]))
+    del d_k, c_k
+    t_b2 = cuda_ms(lambda: nls_cuda.nls_topk_bwd(*b2_args), n=3, warm=1)
+    b2_bound = bound_ms(*b2_work(b2_args))
+    b2_at = b2_atomics(torch, b2_args)
+    log(f"[times] {smi_line}: search_bench B1 {t_b1:.3f} ms float, "
+        f"{t_b1i:.3f} int (bound {b1_bound[0]:.3f} by {b1_bound[1]}); B2 at "
+        f"the refine's winners {t_b2:.3f} ms (bound {b2_bound[0]:.3f} by "
+        f"{b2_bound[1]}; {b2_at['global_atomics']} global atomics, the "
+        f"first version's {b2_at['first_version']})")
+    del b2_args
+    torch.cuda.empty_cache()
+    crop = search_bench_crop(torch, v6, fl7, b1_kw)
+    refine = refine_crop_phase(torch, v6, fl7)
+    del v6, fl7, res["data"]
+    torch.cuda.empty_cache()
+    flavours = flavours_phase(torch, dev)
+    stack = stack_refine_phase(torch, dev, data)
+    secs = time.perf_counter() - t0
+    log(f"[search_bench] phase 16 took {secs:.1f} s")
+    lines = {name: dict(ms=r["ms"], peak_gb=r["peak_gb"])
+             for name, r in res.items()}
+    entry = {
+        "B1": dict(ms=t_b1, int_ms=t_b1i, launches=launches["nls_topk_fwd"],
+                   bound_ms=b1_bound[0], bound_by=b1_bound[1],
+                   library_ms=None, crop=dict(
+                       size=SB_CROP, ms=crop["B1 float ms"],
+                       int_ms=crop["B1 int ms"],
+                       plain_ms_a_head=crop["B1 float plain ms (a head)"],
+                       int_plain_ms_a_head=crop["B1 int plain ms (a head)"],
+                       bound_ms=crop["B1 bound"][0], max_abs_err=0.)),
+        "B2": dict(ms=t_b2, launches=launches["nls_topk_bwd"],
+                   bound_ms=b2_bound[0], bound_by=b2_bound[1],
+                   library_ms=None, atomics=b2_at, crop=dict(
+                       size=SB_CROP, ms=crop["B2 ms"],
+                       plain_ms=crop["B2 plain ms"],
+                       bound_ms=crop["B2 bound"][0],
+                       max_abs_err=crop["B2 err"]))}
+    return dict(lines=lines, entry=entry, refine=refine, flavours=flavours,
+                stack=stack, seconds=secs, errs={"B2": crop["B2 err"]})
+
+
+T_START = time.perf_counter()
+
+
 def main():
     here = Path(__file__).resolve().parent
     if not (here / "stnls_tpu_torch" / "csrc").is_dir():
@@ -3009,7 +3448,15 @@ def main():
     stacks = stack_phase(torch, dev, smi_line, data, step)
     vn = vnlb_phase(torch, dev, smi_line)
 
+    # 16. the search layer: benchmarks/search_bench.py's twin at full size,
+    # B1/B2 at its arguments, the refine against the plain lattice, the
+    # other flavours against the CPU, the stack's refine stage
+    torch.cuda.empty_cache()
+    sbp = search_bench_phase(torch, dev, smi_line, data)
+
     require("jax" not in sys.modules, "JAX was imported")
+    log(f"[chip_smoke] phases 1-16 took {time.perf_counter() - T_START:.1f} "
+        "s")
     rows = (("B1", "nls_topk_fwd", "nls_pallas.py:761", t_b1, t_b1p),
             ("B2", "nls_topk_bwd", "nls_pallas_bwd.py:675", t_b2, t_b2p),
             ("B3", "agg_gather_fwd", "agg_pallas.py:408", t_b3, t_b3p),
@@ -3032,7 +3479,7 @@ def main():
     for key in twin_bounds:
         errs[key] = max(a["err"][key] for a in ares.values())
     errs["B6"] = max(errs["B6"], err_ps)
-    errs["B2"] = max(errs["B2"], err_full, b2_c4["err"])
+    errs["B2"] = max(errs["B2"], err_full, b2_c4["err"], sbp["errs"]["B2"])
     # the chunk mode's launches, path by path, each read from its own run:
     # the time-sharded config 7 (B1, B2), the volume route at K = 80 (B5,
     # B6) and one train step of the twin (B1, B2)
@@ -3065,6 +3512,11 @@ def main():
             # launches a train step
             entry["config6"] = dict(den["rows"][key],
                                     launches=den["launches"][name])
+        if key in sbp["entry"]:
+            # at search_bench's arguments (512^2, 3 heads of F 9, ws 21,
+            # W_t 3, ps 7, K 10; B2 at its refine's winners), launches in
+            # its sequence, and on a crop against the plain versions
+            entry["search_bench"] = sbp["entry"][key]
         if key in t_chunk:
             entry["chunk"] = dict(t_chunk[key],
                                   launches=chunk_launches[name],
@@ -3117,7 +3569,12 @@ def main():
             "time_sharded_ms_in_turns": sharded["ms"][1:3],
             "peak_gb": sharded["peak_gb"]},
         "multichip_twin": {"train_step_ms": twin["ms"],
-                           "losses": twin["losses"]}}}))
+                           "losses": twin["losses"]},
+        "search_bench": {"lines": sbp["lines"], "refine_crop": sbp["refine"],
+                         "flavours": sbp["flavours"],
+                         "stack_refine": sbp["stack"],
+                         "phase_seconds": sbp["seconds"]},
+        "script_seconds": time.perf_counter() - T_START}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

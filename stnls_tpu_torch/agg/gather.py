@@ -2,8 +2,10 @@
 stnls_tpu/agg/gather.py).
 
 The stack comes from the gather kernel (ops/agg_cuda.nl_gather_stack,
-B3), whose plain version runs for CPU tensors. It is differentiable in
-vid, weights and (float path) flows. The TPU-only knobs (budget, spread,
+B3), whose plain version runs for CPU tensors. reflect_bounds=False,
+which B3 does not take (nor stnls_tpu's Pallas gather), runs that plain
+version (ops/agg.nl_gather_stack) on every device. It is differentiable
+in vid, weights and (float path) flows. The TPU-only knobs (budget, spread,
 wt_hint, tile, impl) are accepted and do nothing: the kernel is exact for
 any offsets.
 """
@@ -12,6 +14,7 @@ import torch
 
 from stnls_tpu_torch.utils.config import extract_pairs
 from stnls_tpu_torch.ops.agg_cuda import nl_gather_stack
+from stnls_tpu_torch.ops import agg as agg_ops
 from stnls_tpu_torch.agg.utils import (
     ensure_ndim6, ensure_flow_heads, expand_heads,
 )
@@ -36,6 +39,11 @@ def non_local_gather(vid, weights, flows, ps=7, stride0=4, pt=1,
     weights6 = weights.reshape(B, HD_, T, nH, nW, K).contiguous()
     # int offsets (an int search's) are read as floats by the kernel
     flows7 = flows.reshape(B, HD_, T, nH, nW, K, 3).float().contiguous()
+    if not reflect_bounds:
+        return agg_ops.nl_gather_stack(
+            vid, weights6, flows7, ps=ps, stride0=stride0, pt=pt,
+            dilation=dilation, reflect_bounds_=False, use_adj=use_adj,
+            itype=itype)
     return nl_gather_stack(vid.contiguous(), weights6, flows7, ps=ps,
                            stride0=stride0, pt=pt, dilation=dilation,
                            reflect_bounds=reflect_bounds, use_adj=use_adj,

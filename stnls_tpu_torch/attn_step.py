@@ -46,15 +46,16 @@ VOLUME_SEARCH = {"self_action": "anchor_each", "topk_mode": "each", "k": 2}
 
 
 def attention_module(seed, device="cuda", search=None, agg=None,
-                     cls=NonLocalAttention):
+                     cls=NonLocalAttention, attn=None):
     """NonLocalAttention (2 heads of 8 channels, the bench step's search:
     ws=5, wt=2, ps=3, K=10, stride1=0.5, anchor, float) with weights drawn
-    from numpy seed `seed`, scaled by 1/sqrt(fan-in). `search` and `agg`
-    override entries of the search and agg configs (e.g. VOLUME_SEARCH);
+    from numpy seed `seed`, scaled by 1/sqrt(fan-in). `search`, `agg`
+    and `attn` override entries of the search, agg and attention configs
+    (e.g. VOLUME_SEARCH);
     `cls` is the module built from the four configs (e.g.
     NonLocalAttentionStack)."""
     attn_cfg = {"nheads": 2, "embed_dim": 8, "use_attn_projection": True,
-                "use_attn_flow": True}
+                "use_attn_flow": True, **(attn or {})}
     search_cfg = {"search_name": "nls", "ws": 5, "wt": 2, "ps": 3, "k": 10,
                   "nheads": 2, "stride0": 1, "stride1": 0.5,
                   "self_action": "anchor", "itype": "float",

@@ -118,19 +118,32 @@ def _patch_pixel(P, pi, pj, dilation, fh, fw, is_int, masks=None):
     return pv
 
 
+def _out_of_frame_masks(o_h, o_w, oi, oj, pad, H, W, dilation, is_int,
+                        dtype):
+    """reflect_bounds=False: for patch pixel (pi, pj), the validity
+    multipliers `_patch_pixel` takes, so that reads outside the frame are
+    0. o_h/o_w are the patch origins, oi/oj their padded integer corners.
+    Returns masks(pi, pj)."""
+    def masks(pi, pj):
+        a, b = pi * dilation, pj * dilation
+        ok = (in_bounds(o_h + a, H) & in_bounds(o_w + b, W)).to(dtype)
+        if is_int:
+            return (ok,)
+        mh = [in_bounds(oi - pad + a + u, H).to(dtype) for u in (0, 1)]
+        mw = [in_bounds(oj - pad + b + v, W).to(dtype) for v in (0, 1)]
+        return (ok, mh[0], mh[1], mw[0], mw[1])
+    return masks
+
+
 def nl_gather_stack(vid, weights, flows, *, ps, stride0, pt=1, dilation=1,
                     reflect_bounds_=True, use_adj=False, itype="float"):
     """NonLocalGather: weighted non-local patch stack.
 
     vid [B,HD,T,F,H,W]; weights [B,HD,T,nH,nW,K]; flows [B,HD,T,nH,nW,K,3]
     (relative offsets) -> stack [B,HD,K,T,F,H,W], count-normalised.
-    Reads reflect at the frame borders (reflect_bounds_=False is not yet
-    ported).
+    Reads reflect at the frame borders; with reflect_bounds_=False, reads
+    outside the frame are 0 (the patch's frames still reflect in time).
     """
-    if not reflect_bounds_:
-        raise NotImplementedError(
-            "nl_gather_stack with reflect_bounds=False is not yet ported, "
-            "see ROADMAP")
     B, HD, T, F, H, W = vid.shape
     K = flows.shape[-2]
     dev = vid.device
@@ -153,6 +166,9 @@ def nl_gather_stack(vid, weights, flows, *, ps, stride0, pt=1, dilation=1,
     vp, (Tp, Hp, Wp) = pad_frames_cf(vid, pad)
     oi, oj, fh, fw, S = _patch_geometry(
         nl_h, nl_w, ps, dilation, patch_offset, pad, is_int)
+    masks = None if reflect_bounds_ else _out_of_frame_masks(
+        nl_h + dilation * patch_offset, nl_w + dilation * patch_offset,
+        oi, oj, pad, H, W, dilation, is_int, vid.dtype)
 
     stack = vid.new_zeros((B, HD, F, K, T, H, W))
     for pk in range(pt):
@@ -166,7 +182,8 @@ def nl_gather_stack(vid, weights, flows, *, ps, stride0, pt=1, dilation=1,
                 w0, w1, sw = _valid_ref_slices(nW, stride0, dWp, W)
                 if h0 >= h1 or w0 >= w1:
                     continue
-                pv = _patch_pixel(P, pi, pj, dilation, fh, fw, is_int)
+                pv = _patch_pixel(P, pi, pj, dilation, fh, fw, is_int,
+                                  None if masks is None else masks(pi, pj))
                 val = pv * w_km[:, :, None]          # [B,HD,F,K,T,nH,nW]
                 stack[..., sh, sw] += val[..., h0:h1, w0:w1]
     stack = stack.permute(0, 1, 3, 4, 2, 5, 6)    # [B,HD,K,T,F,H,W]
@@ -230,19 +247,9 @@ def nl_gather_add(vid, weights, flows, *, ps, strideIn, strideOut, pt=1,
     vp, (Tp, Hp, Wp) = pad_frames_cf(vid, pad)
     oi, oj, fh, fw, S = _patch_geometry(
         nl_h, nl_w, ps, dilation, patch_offset, pad, is_int)
-    o_h = nl_h + dilation * patch_offset
-    o_w = nl_w + dilation * patch_offset
-
-    def pixel_masks(pi, pj):
-        if reflect_bounds_:
-            return None
-        a, b = pi * dilation, pj * dilation
-        ok = (in_bounds(o_h + a, H) & in_bounds(o_w + b, W)).to(vid.dtype)
-        if is_int:
-            return (ok,)
-        mh = [in_bounds(oi - pad + a + u, H).to(vid.dtype) for u in (0, 1)]
-        mw = [in_bounds(oj - pad + b + v, W).to(vid.dtype) for v in (0, 1)]
-        return (ok, mh[0], mh[1], mw[0], mw[1])
+    masks = None if reflect_bounds_ else _out_of_frame_masks(
+        nl_h + dilation * patch_offset, nl_w + dilation * patch_offset,
+        oi, oj, pad, H, W, dilation, is_int, vid.dtype)
 
     out = vid.new_zeros((B, HD, F, T, outH, outW))
     for pk in range(pt):
@@ -257,7 +264,7 @@ def nl_gather_add(vid, weights, flows, *, ps, strideIn, strideOut, pt=1,
                 if h0 >= h1 or w0 >= w1:
                     continue
                 pv = _patch_pixel(P, pi, pj, dilation, fh, fw, is_int,
-                                  masks=pixel_masks(pi, pj))
+                                  None if masks is None else masks(pi, pj))
                 # sum over K -> [B,HD,F,T,nH,nW]
                 val = (pv * w_km[:, :, None]).sum(3)
                 out[..., sh, sw] += val[..., h0:h1, w0:w1]

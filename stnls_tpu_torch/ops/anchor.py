@@ -14,7 +14,9 @@ Semantics:
   * dists: slot 0 and the self slot swap values;
   * inds: slot 0 is overwritten with exact zeros, and the *old* slot-0
     offset triple is written into the self slot.
-`anchor_self_refine` is not ported yet (it goes with the refine search).
+`anchor_self_refine` anchors, in each group of a refine search, the
+entry closest to the group's given offset, and keeps that entry's own
+offsets in slot 0.
 """
 
 import torch
@@ -54,3 +56,14 @@ def anchor_self_time(dists, inds3):
     # slot 0 keeps the self entry's (dt, 0, 0): spatial components zeroed
     zeroed = torch.cat([iself[:1], torch.zeros_like(iself[1:])], dim=0)
     return _swap_self(dists, inds3, self_idx, zeroed)
+
+
+def anchor_self_refine(dists, inds3, flows3):
+    """Refinement anchoring: per source group, move the entry closest
+    (first argmin of the L1 distance) to the group's *given* offset to
+    slot 0 of the group. dists [..., Ks, S], inds3 [C, ..., Ks, S], flows3
+    [C, ..., Ks]; slot 0 takes the self entry's own offsets."""
+    delta = torch.sum(torch.abs(inds3 - flows3[..., None]), dim=0)
+    self_idx = torch.argmin(delta, dim=-1)
+    idx = self_idx[None, ..., None].expand(inds3.shape[:-1] + (1,))
+    return _swap_self(dists, inds3, self_idx, torch.gather(inds3, -1, idx))

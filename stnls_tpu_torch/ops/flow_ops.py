@@ -1,17 +1,20 @@
-"""Flow composition ops.
+"""Flow composition ops (PyTorch port of stnls_tpu/ops/flow_ops.py).
 
-PyTorch port of stnls_tpu/ops/flow_ops.py::search_flow. Per-frame optical
-flows are composed into multi-frame offsets by repeatedly bilinearly
-sampling the next frame's flow at the current accumulated position, with
-out-of-bounds corners reflect-indexed (not zeroed). The walk is a Python
-loop over the W_t-1 window slots, vectorised over every query; autograd
-gives the gradients to both flows.
+Per-frame optical flows are composed into multi-frame offsets by
+repeatedly bilinearly sampling the next frame's flow at the current
+accumulated position, with out-of-bounds corners reflect-indexed (not
+zeroed). The walks are Python loops over the window slots (search_flow)
+or the frame steps (accumulate_flow), vectorised over every query;
+autograd gives the gradients to both flows. `non_local_inds` lays the
+search windows out as absolute coordinates.
 """
 
 import numpy as np
 import torch
 
-from stnls_tpu_torch.ops.geometry import reflect_bounds, num_queries
+from stnls_tpu_torch.ops.geometry import (
+    reflect_bounds, num_queries, time_window_frames, search_offsets,
+)
 
 
 def _sample_flow(flow, h, w, H, W):
@@ -90,3 +93,95 @@ def search_flow(fflow, bflow, wt, stride0=1):
         w_curr = w_curr + dW
         outs.append(torch.stack([w_curr - w_ref, h_curr - h_ref], dim=2))
     return torch.stack(outs, dim=2)
+
+
+def accumulate_flow(fflow, bflow, stride0=1):
+    """All-pairs accumulated flows: (pfflow, pbflow), each
+    [B,T,T-1,2,nH,nW]; pfflow[:,ti,k] is the offset from frame ti to
+    frame ti+k+1 (a walk along fflow), pbflow[:,ti,k] to frame ti-k-1
+    (along bflow). A step past the sequence's end keeps the last
+    position."""
+    B, T, _, H, W = fflow.shape
+    nH, nW = num_queries(H, W, stride0)
+    dev = fflow.device
+    h_ref = (torch.arange(nH, device=dev, dtype=fflow.dtype) * stride0)
+    w_ref = (torch.arange(nW, device=dev, dtype=fflow.dtype) * stride0)
+    h_ref = h_ref[None, None, :, None].expand(B, T, nH, nW)
+    w_ref = w_ref[None, None, None, :].expand(B, T, nH, nW)
+
+    def walk(flow, direction):
+        h_curr, w_curr = h_ref, w_ref
+        outs = []
+        for k in range(T - 1):
+            # frame ti + direction*k's flow moves the walk one frame on
+            pick = torch.tensor([min(max(ti + direction * k, 0), T - 1)
+                                 for ti in range(T)], device=dev)
+            ok = torch.tensor([0 <= ti + direction * (k + 1) < T
+                               for ti in range(T)], device=dev)
+            dW, dH = _sample_flow(flow[:, pick], h_curr, w_curr, H, W)
+            okb = ok[None, :, None, None]
+            h_curr = torch.where(okb, h_curr + dH, h_curr)
+            w_curr = torch.where(okb, w_curr + dW, w_curr)
+            outs.append(torch.stack([w_curr - w_ref, h_curr - h_ref], dim=2))
+        if not outs:
+            return fflow.new_zeros((B, T, 0, 2, nH, nW))
+        return torch.stack(outs, dim=2)
+
+    return walk(fflow, +1), walk(bflow, -1)
+
+
+def extract_search_from_accumulated(pfflow, pbflow, wt, T):
+    """The W_t-1 search-window offsets [B,T,W_t-1,2,nH,nW] out of the
+    all-pairs volumes of `accumulate_flow`."""
+    W_t = min(2 * wt + 1, T)
+    tj_tab = time_window_frames(T, wt)
+    outs = []
+    for ti in range(T):
+        slots = []
+        for si in range(1, W_t):
+            tj = int(tj_tab[ti, si])
+            slots.append(pfflow[:, ti, tj - ti - 1] if tj > ti
+                         else pbflow[:, ti, ti - tj - 1])
+        outs.append(torch.stack(slots, dim=1))
+    return torch.stack(outs, dim=1)
+
+
+def index_grid(T, nH, nW, dtype=torch.float32, device=None):
+    """Absolute (t, h, w) coordinate grid [3, T, nH, nW]."""
+    t, h, w = torch.meshgrid(torch.arange(T, dtype=dtype, device=device),
+                             torch.arange(nH, dtype=dtype, device=device),
+                             torch.arange(nW, dtype=dtype, device=device),
+                             indexing="ij")
+    return torch.stack([t, h, w], dim=0)
+
+
+def non_local_inds(fflow, bflow, ws, wt, stride0, stride1):
+    """Absolute float (t, h, w) coordinates of the whole search grid, no
+    distances: the flow-shifted window centres (search_flow) laid out as
+    the ws x ws lattice of each window frame (full_ws). Returns
+    [3,B,T,W_t,ws,ws,nH,nW]."""
+    B, T, _, H, W = fflow.shape
+    nH, nW = num_queries(H, W, stride0)
+    W_t = min(2 * wt + 1, T)
+    dev = fflow.device
+    flows = search_flow(fflow, bflow, wt, stride0)   # [B,T,W_t-1,2,nH,nW]
+    tj_tab = torch.as_tensor(time_window_frames(T, wt), device=dev)
+    base_h = (torch.arange(nH, device=dev, dtype=fflow.dtype)
+              * stride0)[:, None]
+    base_w = torch.arange(nW, device=dev, dtype=fflow.dtype) * stride0
+    flows_full = torch.cat([flows.new_zeros((B, T, 1, 2, nH, nW)), flows],
+                           dim=2)
+    ctr_h = reflect_bounds(base_h + flows_full[:, :, :, 1], H)
+    ctr_w = reflect_bounds(base_w + flows_full[:, :, :, 0], W)
+    off_h, off_w = search_offsets(ctr_h, ctr_w, float(stride1), ws, H, W,
+                                  True, False)
+    cells = torch.arange(ws, device=dev, dtype=fflow.dtype)
+    # [B,T,W_t,ws,nH,nW]
+    ph = ctr_h[:, :, :, None] + stride1 * (cells[:, None, None]
+                                           - off_h[:, :, :, None])
+    pw = ctr_w[:, :, :, None] + stride1 * (cells[:, None, None]
+                                           - off_w[:, :, :, None])
+    shape = (B, T, W_t, ws, ws, nH, nW)
+    tj = tj_tab[None, :, :, None, None, None, None].to(fflow.dtype)
+    return torch.stack([tj.expand(shape), ph[:, :, :, :, None].expand(shape),
+                        pw[:, :, :, None].expand(shape)], dim=0)

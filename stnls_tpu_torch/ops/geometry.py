@@ -19,6 +19,16 @@ def reflect_bounds(val, lim):
     return torch.where(val > (lim - 1), 2 * (lim - 1) - val, out)
 
 
+def reflect_bounds_clip(val, lim):
+    """Reflection with a fallback clip for |val| >= lim: a value that one
+    reflection leaves outside [0, lim-1] goes to the nearest border."""
+    below = torch.where(-val > (lim - 1), torch.zeros_like(val), -val)
+    over = 2 * (lim - 1) - val
+    above = torch.where(over < 0, torch.full_like(val, lim - 1), over)
+    out = torch.where(val < 0, below, val)
+    return torch.where(val > (lim - 1), above, out)
+
+
 def in_interval(val, lower, upper):
     """lower <= val <= upper-1 (inclusive of upper-1)."""
     return (val >= lower) & (val <= (upper - 1))
@@ -31,6 +41,15 @@ def in_bounds(val, upper):
 def num_queries(H, W, stride0):
     """Query-grid size along each axis for a given stride (nH, nW)."""
     return (H - 1) // stride0 + 1, (W - 1) // stride0 + 1
+
+
+def pixel_grid(T, nH, nW, stride, H, W, device=None):
+    """Reference pixel locations of the query grid: int64 tensors
+    (t [T], h [nH], w [nW]) with h = (i * stride) % H (the modulo is a
+    no-op for legal grids)."""
+    return (torch.arange(T, device=device),
+            (torch.arange(nH, device=device) * stride) % H,
+            (torch.arange(nW, device=device) * stride) % W)
 
 
 def time_window_frames(T, wt):
@@ -103,3 +122,13 @@ def bilinear_gather(frame, hi, wi, H, W):
             term = torch.where(valid, wgt, torch.zeros_like(wgt)) * pix
             out = term if out is None else out + term
     return out
+
+
+def flat_gather(frames_flat, idx, fill=0.0, valid=None):
+    """Gather along the flattened last axis, `fill` where `valid` is
+    False. frames_flat [..., N]; idx an integer tensor of the same leading
+    dims."""
+    took = torch.gather(frames_flat, -1, idx.long())
+    if valid is not None:
+        took = torch.where(valid, took, torch.full_like(took, fill))
+    return took

@@ -17,8 +17,13 @@ and `query_t0` / `T_global` place the queries in the whole sequence, so
 that the boundary-shifted windows are the whole video's (`chunk_frames`,
 `window_tables`). `nls_search_volume_chunk` is the chunk volume.
 
-Only what the search's main path runs is ported: pt=1, no query offsets
-(off_Hq/off_Wq), no ws_interior and no refine volumes.
+`lattice_search` also takes what the search kernels do not: pt > 1,
+reflect_bounds=False, a query grid of its own (strideQ, off_Hq/off_Wq),
+the int path's ws_interior and the refine's skipped offsets; these are
+the plain "lattice" route of the searches, on every device, as in
+stnls_tpu. `refine_search_volume` is the RefineSearch volume (a wr x wr
+lattice around given offsets) and `nls_search_core` the volume in the
+reference's layout.
 """
 
 import numpy as np
@@ -31,6 +36,8 @@ from stnls_tpu_torch.ops.geometry import (
 # dist_type menu
 DIST_PROD = 0
 DIST_L2 = 1
+
+INVALID_IND = -1e8
 
 
 def dist_type_select(dist_type):
@@ -132,33 +139,56 @@ def _rows(vid):
 
 
 def lattice_search(vid0, vid1, ctr_t, ctr_h, ctr_w, *, ws, stride1,
-                   ref_h, ref_w, dist_type, ps, dilation=1, patch_offset=0,
-                   reflect_bounds_=True, full_ws=True, is_int=False,
-                   query_t=None):
+                   ref_h, ref_w, dist_type, ps, dilation=1, pt=1,
+                   patch_offset=0, reflect_bounds_=True, full_ws=True,
+                   off_Hq=0, off_Wq=0, is_int=False, cell_mask=None,
+                   edge_valid=None, G=None, query_t=None, base_h=None,
+                   base_w=None, with_inds=False):
     """Shared search engine.
 
     ctr_t: int frame index per (b,hd,t,g,[nh,nw]), broadcastable to
     [B,HD,T,G,nH,nW]; ctr_h/ctr_w: reflected centre coordinates of that
     broadcast shape (int in the int path, float otherwise). ref_h/ref_w:
-    [nH]/[nW] int query pixel grids. query_t: optional int tensor [T_q] of
-    the query frames' indices into vid0 (default arange(T)); time sharding
-    sets it to the interior of halo-padded videos (pt = 1 only).
+    [nH]/[nW] int query pixel grids (patch reads on vid0, shifted by
+    off_Hq/off_Wq); base_h/base_w: the grids the offsets are relative to
+    (default ref_h/ref_w). pt > 1 adds the patch's later frames, reflected
+    in time. cell_mask: optional (off_h, off_w, mask8) window offsets and
+    searched-cell mask precomputed by the caller (ws_interior);
+    edge_valid: optional bool mask per (b,hd,t,g,nh,nw), False entries
+    get init-valued dists and -1e8 offsets (the refine's 1e8 skip).
+    query_t: optional int tensor [T_q] of the query frames' indices into
+    vid0 (default arange(T)); time sharding sets it to the interior of
+    halo-padded videos (pt = 1 only).
 
-    Returns dists [B,HD,T_q,G,ws,ws,nH,nW]. The offsets of the cells are
-    separable and come from ops.nls_k.search_aux.
+    Returns dists [B,HD,T_q,G,ws,ws,nH,nW], and with `with_inds` also the
+    cells' offsets inds3 [3, ...same...] (dt, dh, dw; int32 in the int
+    path). The search's own routes take the separable offsets of
+    ops.nls_k.search_aux instead.
     """
     B, HD, T, F, qH, qW = vid0.shape
     kH, kW = vid1.shape[-2:]
     nH, nW = ref_h.shape[0], ref_w.shape[0]
-    G = ctr_h.shape[3]
+    G = ctr_h.shape[3] if G is None else G
     dev = vid0.device
     cdtype = torch.int32 if is_int else vid0.dtype
+    if not float(dilation).is_integer():
+        # the query patch is read at integer pixels, as in stnls_tpu's
+        # lattice, whose gather refuses the float index too
+        raise TypeError(f"dilation={dilation}: the query patch's taps must "
+                        "be integer pixels")
+    dilation = int(dilation)
     t_ids = torch.arange(T, device=dev) if query_t is None \
         else query_t.to(dev).long()
     T_q = t_ids.shape[0]
+    if query_t is not None and pt != 1:
+        raise ValueError("query_t (time sharding) requires pt == 1")
 
-    off_h, off_w = search_offsets(ctr_h, ctr_w, stride1, ws, kH, kW,
-                                  full_ws, is_int)
+    if cell_mask is None:
+        off_h, off_w = search_offsets(ctr_h, ctr_w, stride1, ws, kH, kW,
+                                      full_ws, is_int)
+        mask8 = None
+    else:
+        off_h, off_w, mask8 = cell_mask
     cells = torch.arange(ws, device=dev, dtype=cdtype)
     # lattice positions [B,HD,T,G,ws,nH,nW]
     prop_h = ctr_h[..., None, :, :] + stride1 * (cells[:, None, None]
@@ -177,101 +207,159 @@ def lattice_search(vid0, vid1, ctr_t, ctr_h, ctr_w, *, ws, stride1,
     ctr_t8 = ctr_t.long()[..., None, None, :, :]
 
     acc = torch.zeros(cell_shape, dtype=vid0.dtype, device=dev)
-    for pi in range(ps):
-        dH = dilation * (pi + patch_offset)
-        rh = ref_h + dH
-        ph = prop_h[..., :, None, :, :] + dH
-        if reflect_bounds_:
-            rh = reflect_bounds(rh, qH)
-            ph = reflect_bounds(ph, kH)
-        for pj in range(ps):
-            dW = dilation * (pj + patch_offset)
-            rw = ref_w + dW
-            pw = prop_w[..., None, :, :, :] + dW
+    for pk in range(pt):
+        rt = reflect_bounds(t_ids + pk, T)
+        ptj = reflect_bounds(ctr_t8 + pk, T)
+        for pi in range(ps):
+            dH = dilation * (pi + patch_offset)
+            rh = ref_h + off_Hq + dH
+            ph = prop_h[..., :, None, :, :] + dH
             if reflect_bounds_:
-                rw = reflect_bounds(rw, qW)
-                pw = reflect_bounds(pw, kW)
-            # reference pixel (always an integer read)
-            v_ref = in_bounds(rh, qH)[:, None] & in_bounds(rw, qW)[None, :]
-            ridx = ((bh.reshape(B, HD, 1, 1, 1) * T
-                     + t_ids[None, None, :, None, None]) * qH
-                    + rh.clamp(0, qH - 1)[:, None]) * qW \
-                + rw.clamp(0, qW - 1)[None, :]          # [B,HD,T,nH,nW]
-            p0 = v0_rows[ridx][:, :, :, None, None, None]  # [..,1,1,1,nH,nW,F]
-            v_prop = in_bounds(ph, kH) & in_bounds(pw, kW)
-            fbase = (bh * T + ctr_t8) * kH
-            if is_int:
-                idx = (fbase + ph.clamp(0, kH - 1).long()) * kW \
-                    + pw.clamp(0, kW - 1).long()
-                p1 = v1_rows[idx]
-            else:
-                h0 = torch.floor(ph)
-                w0 = torch.floor(pw)
-                p1 = 0.
-                for di in (0, 1):
-                    for dj in (0, 1):
-                        hc = h0 + di
-                        wc = w0 + dj
-                        wgt = (torch.clamp(1. - torch.abs(hc - ph), min=0.)
-                               * torch.clamp(1. - torch.abs(wc - pw), min=0.))
-                        wgt = torch.where(in_bounds(hc, kH) & in_bounds(wc, kW),
-                                          wgt, torch.zeros_like(wgt))
-                        ci = (fbase + hc.clamp(0, kH - 1).long()) * kW \
-                            + wc.clamp(0, kW - 1).long()
-                        p1 = p1 + wgt[..., None] * v1_rows[ci]
-            pair_ok = v_prop & v_ref
-            if dist_type == "prod":
-                contrib = _sum_channels(p0 * p1)
-            else:
-                diff = p0 - p1
-                contrib = _sum_channels(diff * diff)
-            acc = acc + torch.where(pair_ok, contrib,
-                                    torch.zeros_like(contrib))
+                rh = reflect_bounds(rh, qH)
+                ph = reflect_bounds(ph, kH)
+            for pj in range(ps):
+                dW = dilation * (pj + patch_offset)
+                rw = ref_w + off_Wq + dW
+                pw = prop_w[..., None, :, :, :] + dW
+                if reflect_bounds_:
+                    rw = reflect_bounds(rw, qW)
+                    pw = reflect_bounds(pw, kW)
+                # reference pixel (always an integer read)
+                v_ref = in_bounds(rh, qH)[:, None] & in_bounds(rw, qW)[None, :]
+                ridx = ((bh.reshape(B, HD, 1, 1, 1) * T
+                         + rt[None, None, :, None, None]) * qH
+                        + rh.clamp(0, qH - 1)[:, None]) * qW \
+                    + rw.clamp(0, qW - 1)[None, :]        # [B,HD,T,nH,nW]
+                p0 = v0_rows[ridx][:, :, :, None, None, None]
+                v_prop = in_bounds(ph, kH) & in_bounds(pw, kW)
+                fbase = (bh * T + ptj) * kH
+                if is_int:
+                    idx = (fbase + ph.clamp(0, kH - 1).long()) * kW \
+                        + pw.clamp(0, kW - 1).long()
+                    p1 = v1_rows[idx]
+                else:
+                    h0 = torch.floor(ph)
+                    w0 = torch.floor(pw)
+                    p1 = 0.
+                    for di in (0, 1):
+                        for dj in (0, 1):
+                            hc = h0 + di
+                            wc = w0 + dj
+                            wgt = (torch.clamp(1. - torch.abs(hc - ph), min=0.)
+                                   * torch.clamp(1. - torch.abs(wc - pw),
+                                                 min=0.))
+                            wgt = torch.where(in_bounds(hc, kH)
+                                              & in_bounds(wc, kW),
+                                              wgt, torch.zeros_like(wgt))
+                            ci = (fbase + hc.clamp(0, kH - 1).long()) * kW \
+                                + wc.clamp(0, kW - 1).long()
+                            p1 = p1 + wgt[..., None] * v1_rows[ci]
+                pair_ok = v_prop & v_ref
+                if dist_type == "prod":
+                    contrib = _sum_channels(p0 * p1)
+                else:
+                    diff = p0 - p1
+                    contrib = _sum_channels(diff * diff)
+                acc = acc + torch.where(pair_ok, contrib,
+                                        torch.zeros_like(contrib))
 
     _, _, init_val = dist_type_select(dist_type)
-    return torch.where(valid_patch, acc, torch.full_like(acc, init_val))
+    keep = valid_patch
+    if mask8 is not None:
+        keep = keep & mask8
+    if edge_valid is not None:
+        keep = keep & edge_valid[..., None, None, :, :]
+    dists = torch.where(keep, acc, torch.full_like(acc, init_val))
+    if not with_inds:
+        return dists
+
+    base_h = ref_h if base_h is None else base_h
+    base_w = ref_w if base_w is None else base_w
+    dt = (ctr_t8 - t_ids[:, None, None, None, None, None]).to(cdtype)
+    dh = (prop_h - base_h[:, None].to(cdtype))[..., :, None, :, :]
+    dw = (prop_w - base_w.to(cdtype))[..., None, :, :, :]
+    inds3 = torch.stack([x.to(cdtype).expand(cell_shape)
+                         for x in (dt, dh, dw)], dim=0)
+    fill = torch.tensor(-100000000 if is_int else INVALID_IND, dtype=cdtype,
+                        device=dev)
+    if mask8 is not None:
+        inds3 = torch.where(mask8, inds3, fill)
+    if edge_valid is not None:
+        inds3 = torch.where(edge_valid[..., None, None, :, :], inds3, fill)
+    return dists, inds3
 
 
 def search_centres(vid_shape, flows, *, wt, stride0, itype="float",
-                   T_global=None):
+                   T_global=None, base_stride=None):
     """Reflected search centres of the W_t window slots: the query grid
-    shifted by the flows. vid_shape (B,HD,T,F,H,W); flows
-    [B,HDf,T_q,W_t or W_t-1,2,nH,nW] (channel 0 = w, 1 = h; the reference
-    frame's slot is prepended with zero flow when missing), W_t =
-    min(2*wt+1, T_global) with T_global = T unless given (chunk mode).
-    Returns (ctr_h, ctr_w) float [B,HD,T_q,W_t,nH,nW], differentiable in
-    the flows (the reflection's sign included); integers in the int path,
-    whose flows are rounded."""
+    shifted by the flows. vid_shape (B,HD,T,F,H,W) (the key frames');
+    flows [B,HDf,T_q,W_t or W_t-1,2,nH,nW] (channel 0 = w, 1 = h; the
+    reference frame's slot is prepended with zero flow when missing), W_t =
+    min(2*wt+1, T_global) with T_global = T unless given (chunk mode). The
+    grid strides by base_stride (default stride0; the float path's strideQ
+    in ops.nls.nls_search_volume). Returns (ctr_h, ctr_w) float
+    [B,HD,T_q,W_t,nH,nW], differentiable in the flows (the reflection's
+    sign included); integers in the int path, whose flows are rounded."""
     B, HD, T, F, H, W = vid_shape
     T = T if T_global is None else T_global
     dev = flows.device
     nH, nW = num_queries(H, W, stride0)
+    stride = stride0 if base_stride is None else base_stride
     flows = _expand_flow_heads(flows, HD)
     if itype == "int":
         flows = torch.round(flows)
     fH, fW = _slot_flows(flows, min(2 * wt + 1, T))
-    ref_h = (torch.arange(nH, device=dev) * stride0) % H
-    ref_w = (torch.arange(nW, device=dev) * stride0) % W
+    ref_h = (torch.arange(nH, device=dev) * stride) % H
+    ref_w = (torch.arange(nW, device=dev) * stride) % W
     ctr_h = reflect_bounds(ref_h[:, None].float() + fH, H)
     ctr_w = reflect_bounds(ref_w[None, :].float() + fW, W)
     return ctr_h, ctr_w
 
 
+def _interior_mask(ctr_h, ctr_w, *, ws, ws_interior, stride1, H, W,
+                   full_ws):
+    """The int path's per-query window (ws_interior): queries in the last
+    row or column search ws x ws, the others ws_interior x ws_interior
+    cells of the ws x ws lattice. Returns lattice_search's cell_mask
+    (off_h, off_w, mask8)."""
+    nH, nW = ctr_h.shape[-2:]
+    dev = ctr_h.device
+    btm_right = ((torch.arange(nH, device=dev) == nH - 1)[:, None]
+                 | (torch.arange(nW, device=dev) == nW - 1)[None, :])
+    ws_eff = torch.where(btm_right, ws, ws_interior)
+    full, inner = (search_offsets(ctr_h, ctr_w, stride1, w, H, W, full_ws,
+                                  True) for w in (ws, ws_interior))
+    off_h = torch.where(btm_right, full[0], inner[0])
+    off_w = torch.where(btm_right, full[1], inner[1])
+    cells = torch.arange(ws, device=dev)
+    mask8 = ((cells[:, None, None, None] < ws_eff)
+             & (cells[None, :, None, None] < ws_eff))
+    return off_h, off_w, mask8
+
+
 def volume_at_centres(vid0, vid1, ctr_h, ctr_w, *, ws, wt, ps, stride0,
                       stride1, dist_type="l2", dilation=1,
                       reflect_bounds_=True, full_ws=True, use_adj=False,
-                      itype="float", query_t0=None, T_global=None):
+                      itype="float", query_t0=None, T_global=None,
+                      strideQ=None, pt=1, off_Hq=0, off_Wq=0, ws_interior=0,
+                      with_inds=False):
     """The search volume at given reflected centres: `lattice_search` over
     the W_t window frames. vid0/vid1 [B,HD,T,F,H,W]; ctr_h, ctr_w
     [B,HD,T,W_t,nH,nW] (`search_centres`). Returns dists
-    [B,HD,T,W_t,ws,ws,nH,nW]. In chunk mode (query_t0, T_global) the
-    videos hold T_q + 2*halo frames and the centres T_q (`chunk_frames`),
-    and the output covers the T_q query frames. The plain version of B5
-    (ops/nls_vol_cuda.py)."""
-    (H, W), T_q = vid0.shape[-2:], ctr_h.shape[2]
+    [B,HD,T,W_t,ws,ws,nH,nW] (and with `with_inds` the cells' offsets
+    inds3 [3, ...same...]). In chunk mode (query_t0, T_global) the videos
+    hold T_q + 2*halo frames and the centres T_q (`chunk_frames`), and
+    the output covers the T_q query frames. The query patches are read at
+    the strideQ grid (default stride0) shifted by off_Hq/off_Wq; in the
+    int path ws_interior > 0 narrows the window of all but the last row
+    and column of queries. With the defaults this is the plain version of
+    B5 (ops/nls_vol_cuda.py)."""
+    (qH, qW), (kH, kW) = vid0.shape[-2:], vid1.shape[-2:]
+    T_q = ctr_h.shape[2]
     dev = vid0.device
     is_int = (itype == "int")
-    nH, nW = num_queries(H, W, stride0)
+    nH, nW = num_queries(kH, kW, stride0)
+    strideQ = stride0 if strideQ is None else strideQ
     t0, T_g, halo = chunk_frames(T_q, vid0.shape[2], wt, query_t0, T_global)
     if is_int:
         stride1 = max(1, int(stride1))
@@ -279,39 +367,123 @@ def volume_at_centres(vid0, vid1, ctr_h, ctr_w, *, ws, wt, ps, stride0,
     else:
         stride1 = float(stride1)
         ctr_h, ctr_w = ctr_h.to(vid0.dtype), ctr_w.to(vid0.dtype)
+    ref_h = (torch.arange(nH, device=dev) * strideQ) % qH
+    ref_w = (torch.arange(nW, device=dev) * strideQ) % qW
+    if is_int:
+        # the window anchors stride by stride0 over the key frames
+        base_h = (torch.arange(nH, device=dev) * stride0) % kH
+        base_w = (torch.arange(nW, device=dev) * stride0) % kW
+    else:
+        base_h, base_w = ref_h, ref_w
+    cell_mask = None
+    if is_int and 0 < ws_interior != ws:
+        cell_mask = _interior_mask(ctr_h, ctr_w, ws=ws,
+                                   ws_interior=ws_interior, stride1=stride1,
+                                   H=kH, W=kW, full_ws=full_ws)
     tj_tab, _ = window_tables(T_q, wt, t0=t0, T_global=T_g, halo=halo,
                               device=dev)
     return lattice_search(
         vid0, vid1, tj_tab[None, None, :, :, None, None], ctr_h, ctr_w,
-        ws=ws, stride1=stride1,
-        ref_h=(torch.arange(nH, device=dev) * stride0) % H,
-        ref_w=(torch.arange(nW, device=dev) * stride0) % W,
-        dist_type=dist_type, ps=ps, dilation=dilation,
+        ws=ws, stride1=stride1, ref_h=ref_h, ref_w=ref_w,
+        dist_type=dist_type, ps=ps, dilation=dilation, pt=pt,
         patch_offset=0 if use_adj else -(ps // 2),
-        reflect_bounds_=reflect_bounds_, full_ws=full_ws, is_int=is_int,
+        reflect_bounds_=reflect_bounds_, full_ws=full_ws, off_Hq=off_Hq,
+        off_Wq=off_Wq, is_int=is_int, cell_mask=cell_mask,
         query_t=None if query_t0 is None else
-        halo + torch.arange(T_q, device=dev))
+        halo + torch.arange(T_q, device=dev),
+        base_h=base_h, base_w=base_w, with_inds=with_inds)
 
 
 def nls_search_volume(vid0, vid1, flows, *, ws, wt, ps, stride0, stride1,
-                      dist_type="l2", dilation=1, reflect_bounds_=True,
-                      full_ws=True, use_adj=False, itype="float",
-                      query_t0=None, T_global=None):
+                      strideQ=None, dist_type="l2", dilation=1, pt=1,
+                      reflect_bounds_=True, full_ws=True, use_adj=False,
+                      off_Hq=0, off_Wq=0, itype="float", ws_interior=0,
+                      query_t0=None, T_global=None, with_inds=False):
     """Exhaustive NonLocalSearch volume: `volume_at_centres` at the flows'
     `search_centres`.
 
     vid0/vid1 [B,HD,T,F,H,W]; flows [B,HDf,T,W_t or W_t-1,2,nH,nW].
-    Returns dists [B,HD,T,W_t,ws,ws,nH,nW]. In chunk mode (query_t0,
-    T_global; `chunk_frames`) the flows and the output cover the query
-    frames, the videos those plus their halos.
+    Returns dists [B,HD,T,W_t,ws,ws,nH,nW], and with `with_inds` also the
+    cells' offsets inds3 [3, ...same...], as stnls_tpu's returns both. In
+    chunk mode (query_t0, T_global; `chunk_frames`) the flows and the
+    output cover the query frames, the videos those plus their halos.
     """
-    ctr_h, ctr_w = search_centres(vid0.shape, flows, wt=wt, stride0=stride0,
-                                  itype=itype, T_global=T_global)
+    strideQ = stride0 if strideQ is None else strideQ
+    key_shape = vid0.shape[:4] + vid1.shape[-2:]
+    ctr_h, ctr_w = search_centres(
+        key_shape, flows, wt=wt, stride0=stride0, itype=itype,
+        T_global=T_global,
+        base_stride=stride0 if itype == "int" else strideQ)
     return volume_at_centres(
         vid0, vid1, ctr_h, ctr_w, ws=ws, wt=wt, ps=ps, stride0=stride0,
         stride1=stride1, dist_type=dist_type, dilation=dilation,
         reflect_bounds_=reflect_bounds_, full_ws=full_ws, use_adj=use_adj,
-        itype=itype, query_t0=query_t0, T_global=T_global)
+        itype=itype, query_t0=query_t0, T_global=T_global, strideQ=strideQ,
+        pt=pt, off_Hq=off_Hq, off_Wq=off_Wq, ws_interior=ws_interior,
+        with_inds=with_inds)
+
+
+def refine_search_volume(vid0, vid1, flows_k, *, ws, wr, ps, stride0,
+                         stride1, strideQ=None, dist_type="l2", dilation=1,
+                         pt=1, reflect_bounds_=True, full_ws=True,
+                         use_adj=False, off_Hq=0, off_Wq=0, itype="float",
+                         restricted_radius=False, rows=None):
+    """RefineSearch volume: a wr x wr lattice (spacing stride1) around each
+    of the Ks given per-query offsets.
+
+    vid0/vid1 [B,HD,T,F,H,W]; flows_k [B,HDf,T,nH,nW,Ks,3] relative
+    offsets (dt, dh, dw); an offset with |dh| or |dw| >= 1e8 (the
+    search's invalid fill) is skipped: init-valued dists, -1e8 offsets.
+    `rows`, a slice of query rows, restricts the output to them (the
+    refine's selection runs in bands of rows). Returns (dists
+    [B,HD,T,Ks,wr,wr,nH,nW], inds3 [3, ...same...]), the offsets relative
+    to the query grid.
+
+    `restricted_radius` is accepted and ignored, as in stnls_tpu and the
+    reference's kernels; `ws` exists only to bound that dead option.
+    """
+    del ws, restricted_radius
+    B, HD, T, F, qH, qW = vid0.shape
+    kH, kW = vid1.shape[-2:]
+    dev = vid0.device
+    is_int = (itype == "int")
+    nH, nW = num_queries(qH, qW, stride0)
+    Ks = flows_k.shape[-2]
+    strideQ = stride0 if strideQ is None else strideQ
+    if is_int:
+        stride1 = max(1, int(stride1))
+        flows_k = torch.round(flows_k).to(torch.int32)
+    else:
+        stride1 = float(stride1)
+    cdtype = torch.int32 if is_int else vid0.dtype
+    ref_h = (torch.arange(nH, device=dev) * strideQ) % qH
+    ref_w = (torch.arange(nW, device=dev) * strideQ) % qW
+    flows_k = _expand_flow_heads(flows_k, HD)
+    if rows is not None:
+        ref_h, flows_k = ref_h[rows], flows_k[:, :, :, rows]
+    # [B,HD,T,nH,nW,Ks,3] -> group-major [B,HD,T,Ks,nH,nW,3]
+    fk = flows_k.movedim(5, 3)
+    t_ids = torch.arange(T, device=dev)[None, None, :, None, None, None]
+    dt = fk[..., 0].long() if is_int else torch.floor(fk[..., 0] + 0.5).long()
+    ctr_t = reflect_bounds(t_ids + dt, T)
+    ctr_h = reflect_bounds(ref_h[:, None].to(cdtype) + fk[..., 1], kH)
+    ctr_w = reflect_bounds(ref_w.to(cdtype) + fk[..., 2], kW)
+    edge_valid = (fk[..., 1].abs() < 1e8) & (fk[..., 2].abs() < 1e8)
+    return lattice_search(
+        vid0, vid1, ctr_t, ctr_h, ctr_w, ws=wr, stride1=stride1,
+        ref_h=ref_h, ref_w=ref_w, dist_type=dist_type, ps=ps,
+        dilation=dilation, pt=pt, patch_offset=0 if use_adj else -(ps // 2),
+        reflect_bounds_=reflect_bounds_, full_ws=full_ws, off_Hq=off_Hq,
+        off_Wq=off_Wq, is_int=is_int, edge_valid=edge_valid, G=Ks,
+        with_inds=True)
+
+
+def nls_search_core(vid0, vid1, flows, **kw):
+    """Reference-layout volume: dists [B,HD,T,nH,nW,W_t,ws,ws] and inds
+    [B,HD,T,nH,nW,W_t,ws,ws,3], from `nls_search_volume`'s keywords."""
+    dists, inds3 = nls_search_volume(vid0, vid1, flows, with_inds=True, **kw)
+    return (dists.permute(0, 1, 2, 6, 7, 3, 4, 5),
+            inds3.permute(1, 2, 3, 7, 8, 4, 5, 6, 0))
 
 
 def nls_search_volume_chunk(vid0_pad, vid1_pad, flows, *, t0, T_global, halo,

@@ -1,6 +1,5 @@
 """String-menu construction of search ops (PyTorch port of
-stnls_tpu/search/api.py). Only the ported entries resolve; the others
-raise NotImplementedError."""
+stnls_tpu/search/api.py)."""
 
 import importlib
 
@@ -18,7 +17,6 @@ MENU = ConfigDict({
     "rand_inds": "rand_inds",
     "n3mm": "n3mm_search",
 })
-PORTED = ("non_local_search",)
 
 
 def from_search_menu(name):
@@ -27,10 +25,6 @@ def from_search_menu(name):
 
 def _module(search_name):
     pkg_name = from_search_menu(search_name)
-    if pkg_name not in PORTED:
-        raise NotImplementedError(
-            f"search {search_name!r} ({pkg_name}) is not yet ported, "
-            "see ROADMAP")
     return importlib.import_module(f"stnls_tpu_torch.search.{pkg_name}")
 
 

@@ -1,8 +1,14 @@
 """NonLocalSearch: the centrepiece search op (PyTorch port of
 stnls_tpu/search/non_local_search.py).
 
-Two routes, as in the JAX package, chosen by `search_route` from the
+Three routes, as in the JAX package, chosen by `search_route` from the
 config and the video shape alone:
+  * the lattice (`lattice_only`: pt > 1, reflect_bounds=False, strideQ !=
+    stride0, off_Hq/off_Wq, ws_interior > 0, fractional dilation): the
+    plain differentiable lattice of ops/nls.nls_search_volume with every
+    cell's offsets, then the self_action and top-K menu, on every device,
+    as stnls_tpu runs these through its lattice engine (its Pallas
+    kernels do not take them either);
   * lazy top-K (self_action in {None, "anchor", "anchor_self"},
     topk_mode="all", k > 0, grad "auto"/"sparse_k", at most KMAX = 64
     ranked slots): the fused top-K
@@ -24,10 +30,10 @@ On CPU tensors every kernel runs its plain version. `nls_pipeline` also
 runs one temporal chunk of a time-sharded search (query_t0, T_global:
 ops/nls.chunk_frames), the rank body of stnls_tpu_torch/parallel.
 
-Ported: every self_action and topk_mode, with pt=1, reflect_bounds=True,
-no query offsets (strideQ, off_Hq/off_Wq), no ws_interior, integer
-dilation, and the k_agg/normalize_bwd gradient policy. Other
-configurations raise NotImplementedError. The TPU-only knobs (impl,
+Every self_action and topk_mode, every configuration, and the
+k_agg/normalize_bwd gradient policy. Fractional dilation raises
+TypeError at the call, as stnls_tpu's lattice does (the query patch is
+read at integer pixels). The TPU-only knobs (impl,
 flow_budget, spread_budget, cv_tile, qchunk, band_dtype, mx_precision)
 are accepted and do nothing: the kernels are exact for any flow.
 """
@@ -38,7 +44,7 @@ import torch
 from stnls_tpu_torch.utils.config import extract_pairs
 from stnls_tpu_torch.ops import anchor as anchor_ops
 from stnls_tpu_torch.ops import topk as topk_ops
-from stnls_tpu_torch.ops.nls import dist_type_select
+from stnls_tpu_torch.ops.nls import dist_type_select, nls_search_volume
 from stnls_tpu_torch.ops.nls_cuda import nls_topk, search_dists, KMAX, \
     ranked_slots
 from stnls_tpu_torch.ops.nls_k import cells_geometry, search_aux, aux_to_inds3
@@ -171,17 +177,16 @@ def _lazy_topk_ok(cfg):
             and cfg["topk_mode"] == "all" and cfg["k"] > 0)
 
 
-def _not_ported(cfg):
-    """Why the port cannot run `cfg` yet, or None."""
-    if cfg["pt"] != 1 or not cfg["reflect_bounds"]:
-        return "pt != 1 or reflect_bounds=False"
-    if cfg["strideQ"] not in (None, cfg["stride0"]):
-        return "strideQ != stride0"
-    if cfg["off_Hq"] != 0 or cfg["off_Wq"] != 0 or cfg["ws_interior"] > 0:
-        return "off_Hq/off_Wq/ws_interior"
-    if not float(cfg["dilation"]).is_integer():
-        return "fractional dilation"
-    return None
+def lattice_only(cfg):
+    """The configurations the search kernels (B1/B2, B5/B6) do not take,
+    nor stnls_tpu's Pallas kernels: pt > 1, reflect_bounds=False, a query
+    grid of its own (strideQ != stride0, off_Hq/off_Wq), ws_interior > 0
+    and fractional dilation. They run the plain lattice on every device."""
+    return (cfg["pt"] != 1 or not cfg["reflect_bounds"]
+            or cfg["strideQ"] not in (None, cfg["stride0"])
+            or cfg["off_Hq"] != 0 or cfg["off_Wq"] != 0
+            or cfg["ws_interior"] > 0
+            or not float(cfg["dilation"]).is_integer())
 
 
 def _sparse_k_pad_ok(cfg, vid_shape):
@@ -194,9 +199,13 @@ def _sparse_k_pad_ok(cfg, vid_shape):
 def search_route(cfg, vid_shape, T_global=None):
     """The route nls_pipeline takes for `cfg` on videos of vid_shape
     [B,HD,T,F,H,W] (a chunk of a sequence of T_global frames when given),
-    on every device: "topk" (B1 selects, B2 backward) or "volume" (B5/B6
-    and the menu). A lazy top-K with more ranked slots than B1 keeps takes
-    the volume: both give the exact top-K of the same volume."""
+    on every device: "lattice" (the plain differentiable lattice, for
+    what the kernels do not take, `lattice_only`), "topk" (B1 selects, B2
+    backward) or "volume" (B5/B6 and the menu). A lazy top-K with more
+    ranked slots than B1 keeps takes the volume: both give the exact
+    top-K of the same volume."""
+    if lattice_only(cfg):
+        return "lattice"
     T = vid_shape[2] if T_global is None else T_global
     n_cells = min(2 * cfg["wt"] + 1, T) * cfg["ws"] ** 2
     lazy = (_lazy_topk_ok(cfg)
@@ -242,21 +251,30 @@ def _sparse_assemble(vid0, vid1, flows, d_sel, cells, cfg, chunk):
     return d, inds
 
 
-def _volume_search(vid0, vid1, flows, cfg, chunk):
-    """The full volume (B5, backward B6) at the flows' centres, the
-    offsets of every cell, then the self_action and top-K menu."""
+def volume_with_inds(vid0, vid1, flows, cfg, chunk=None):
+    """The whole search volume and every cell's offsets, (dists
+    [B,HD,T,W_t,ws,ws,nH,nW], inds3 [3, ...same...]), before the
+    self_action and top-K menu: the plain lattice for a `lattice_only`
+    cfg, else the volume kernel (B5, backward B6) at the flows' centres
+    with the separable offsets of ops/nls_k.search_aux."""
+    chunk = chunk or dict(query_t0=None, T_global=None)
     kw = dict(ws=cfg["ws"], wt=cfg["wt"], stride0=cfg["stride0"],
               stride1=cfg["stride1"], full_ws=cfg["full_ws"],
               itype=cfg["itype"], **chunk)
+    if lattice_only(cfg):
+        return nls_search_volume(
+            vid0, vid1, flows, ps=cfg["ps"], strideQ=cfg["strideQ"],
+            dist_type=cfg["dist_type"], dilation=cfg["dilation"],
+            pt=cfg["pt"], reflect_bounds_=cfg["reflect_bounds"],
+            use_adj=cfg["use_adj"], off_Hq=cfg["off_Hq"],
+            off_Wq=cfg["off_Wq"], ws_interior=cfg["ws_interior"],
+            with_inds=True, **kw)
     aux = search_aux(vid0.shape, flows, **kw)
     dists = search_volume(
         vid0, vid1, aux["ctr_h"], aux["ctr_w"], ps=cfg["ps"],
         dist_type=cfg["dist_type"], dilation=int(cfg["dilation"]),
         use_adj=cfg["use_adj"], **kw)
-    return _self_action_topk(
-        dists, aux_to_inds3(aux, dists.shape),
-        self_action=cfg["self_action"], topk_mode=cfg["topk_mode"],
-        k=cfg["k"], wt=cfg["wt"], dist_type=cfg["dist_type"])
+    return dists, aux_to_inds3(aux, dists.shape)
 
 
 def nls_pipeline(vid0, vid1, flows, cfg, query_t0=None, T_global=None):
@@ -267,13 +285,12 @@ def nls_pipeline(vid0, vid1, flows, cfg, query_t0=None, T_global=None):
     inds [B,HD,T,nH,nW,K,3]). With query_t0 and T_global, one temporal
     chunk: the videos hold the flows' T query frames plus a halo on each
     side, and the outputs cover the query frames."""
-    why = _not_ported(cfg)
-    if why is not None:
-        raise NotImplementedError(
-            f"NonLocalSearch with {why} is not yet ported, see ROADMAP")
     chunk = dict(query_t0=query_t0, T_global=T_global)
-    if search_route(cfg, vid0.shape, T_global) == "volume":
-        return _volume_search(vid0, vid1, flows, cfg, chunk)
+    if search_route(cfg, vid0.shape, T_global) != "topk":
+        return _self_action_topk(
+            *volume_with_inds(vid0, vid1, flows, cfg, chunk),
+            self_action=cfg["self_action"], topk_mode=cfg["topk_mode"],
+            k=cfg["k"], wt=cfg["wt"], dist_type=cfg["dist_type"])
     with torch.no_grad():
         d_sel, cells = _select_cells(vid0.detach(), vid1.detach(),
                                      flows.detach(), cfg, chunk)
@@ -368,10 +385,6 @@ class NonLocalSearch(torch.nn.Module):
             mx_precision=mx_precision)
         for key, val in self.cfg.items():
             setattr(self, key, val)
-        why = _not_ported(self.cfg)
-        if why is not None:
-            raise NotImplementedError(
-                f"NonLocalSearch with {why} is not yet ported, see ROADMAP")
         self._fn = _make_grad_policy_fn(self.cfg)
 
     def forward(self, *args):

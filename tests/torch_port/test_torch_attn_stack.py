@@ -105,10 +105,27 @@ def test_stack_matches_flax(rng, agg_name, share_kv):
 
 @pytest.mark.parametrize("search_name", ["refine", "rand_inds"])
 def test_stack_unported_searches_raise(search_name):
+    """The refine and rand_inds branches build and run now (the refine
+    state path against flax is in test_torch_search_flavors.py): no
+    NotImplementedError; the refine branch takes ref_itype."""
     attn_cfg, search_cfg, normz_cfg, agg_cfg = _cfgs(ref_itype="int")
     search_cfg = dict(search_cfg, search_name=search_name)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        NonLocalAttentionStack(attn_cfg, search_cfg, normz_cfg, agg_cfg)
+    model = NonLocalAttentionStack(attn_cfg, search_cfg, normz_cfg, agg_cfg)
+    if search_name == "refine":
+        assert model.search.itype == "int"
+    vid, ff, bf = _inputs(np.random.default_rng(0))
+    flows = ConfigDict(fflow=to_torch(ff), bflow=to_torch(bf))
+    state = None
+    if search_name == "refine":
+        # the previous call's offsets in the state layout
+        nls = NonLocalAttentionStack(attn_cfg, dict(
+            _cfgs()[1], use_state_update=True), normz_cfg, agg_cfg)
+        with torch.no_grad():
+            _, state = nls(to_torch(vid), flows, state=[torch.zeros(()),
+                                                        None])
+    with torch.no_grad():
+        out, _ = model(to_torch(vid), flows, state=state)
+    assert out.shape == (B, T, 8, H, W) and bool(torch.isfinite(out).all())
 
 
 def test_state_layout_round_trip(rng):

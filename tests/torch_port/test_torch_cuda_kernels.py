@@ -1132,3 +1132,88 @@ def test_volume_kernel_bodies_match_plain(dev, ps, F, extra, cotangent,
             assert_grad_close(a[off], b[off], name)
     into1, into0, stores, n_active = stats.tolist()
     assert n_active == active and into1 > 0 and into0 > 0 and stores == 0
+
+
+# search_bench's arguments (benchmarks/search_bench.py: ps 7, F 9 a head,
+# ws 21, wt 3 over T 3, K 10 anchored) on small frames
+SEARCH_BENCH_KW = dict(ws=21, wt=3, ps=7, stride0=1, stride1=1, k=10,
+                       anchor=True, dist_type="l2")
+
+
+@pytest.mark.parametrize("itype", ["float", "int"])
+def test_search_kernels_at_search_bench_arguments(dev, itype):
+    """B1 (bitwise) and B2 (seeded cotangent) at search_bench's (ps 7,
+    F 9, ws 21, W_t 3), the run-time body, against their plain versions."""
+    rng = np.random.default_rng(14)
+    Hs = 40
+
+    def t(x):
+        return torch.from_numpy(x.astype(np.float32)).to(dev)
+
+    v0 = t(rng.standard_normal((1, 3, 3, 9, Hs, Hs)))
+    v1 = t(rng.standard_normal((1, 3, 3, 9, Hs, Hs)))
+    flows = t(rng.standard_normal((1, 1, 3, 2, 2, Hs, Hs)) + 0.3)
+    kw = dict(SEARCH_BENCH_KW, itype=itype)
+    d, cells = nls_cuda.nls_topk(v0, v1, flows, **kw)
+    d_p, cells_p = nls_cuda.nls_topk_plain(v0, v1, flows, **kw)
+    assert torch.equal(d, d_p) and torch.equal(cells, cells_p)
+    geo = cells_geometry(flows, cells, H=Hs, W=Hs, ws=21, wt=3, stride0=1,
+                         stride1=1, itype=itype)
+    g_d = t(rng.standard_normal(tuple(d.shape)))
+    args = (v0, v1, geo["prop_h"], geo["prop_w"], geo["tj_k"],
+            geo["valid"], g_d, dict(ps=7, stride0=1, dist_type="l2",
+                                    dilation=1, use_adj=False, itype=itype))
+    g_k = nls_cuda.nls_topk_bwd(*args)
+    g_p = nls_cuda.nls_topk_bwd_plain(*args)
+    off = ((geo["prop_h"] % 1 > 1e-3) & (geo["prop_h"] % 1 < 1 - 1e-3)
+           & (geo["prop_w"] % 1 > 1e-3) & (geo["prop_w"] % 1 < 1 - 1e-3))
+    for a, b, name in zip(g_k, g_p, ("g_vid0", "g_vid1", "g_h", "g_w")):
+        if name in ("g_h", "g_w"):
+            if itype == "int":
+                assert not a.any() and not b.any()
+                continue
+            a, b = a[off], b[off]
+        assert_grad_close(a, b, name)
+
+
+@pytest.mark.parametrize("itype", ["float", "int"])
+def test_refine_backward_kernel_matches_plain_lattice(dev, itype):
+    """RefineSearch on the card (selection in bands, B2 for the winners'
+    gradient) against the whole plain lattice under autograd: dists,
+    offsets and the gradients into the video and the given offsets."""
+    from stnls_tpu_torch.search import RefineSearch, refinement
+    rng = np.random.default_rng(15)
+    Hs, K = 24, 5
+    vid = rng.standard_normal((1, 3, 2 * 9, Hs, Hs)).astype(np.float32)
+    fk = np.empty((1, 2, 3, Hs, Hs, K, 3), np.float32)
+    fk[..., 0] = rng.integers(-1, 2, fk.shape[:-1])
+    fk[..., 1:] = np.round(2 * rng.standard_normal(fk.shape[:-1] + (2,))) \
+        + (0.3 if itype == "float" else 0.)
+    refine = RefineSearch(21, 3, 3, 10, ps=7, nheads=2, stride0=1,
+                          self_action="anchor", itype=itype)
+    outs = {}
+    for route in ("kernels", "lattice"):
+        v = torch.from_numpy(vid).to(dev).requires_grad_()
+        f = torch.from_numpy(fk).to(dev).requires_grad_()
+        n0 = nls_cuda.nls_topk_bwd.launches
+        if route == "kernels":
+            saved = refinement.SELECT_CELLS
+            refinement.SELECT_CELLS = 2 * 3 * Hs * K * 9 * 5   # 5 rows
+            try:
+                d, i = refine(v, v, f)
+            finally:
+                refinement.SELECT_CELLS = saved
+        else:
+            v6 = v.reshape(1, 3, 2, 9, Hs, Hs).transpose(1, 2)
+            d, i = refinement._lattice_route(v6, v6, f, refine.cfg)
+        w = torch.arange(1, d.shape[-1] + 1, device=dev)
+        g = torch.autograd.grad((torch.where(d.isfinite(), d, 0.) * w).sum()
+                                + i.float().sum(), (v, f),
+            allow_unused=True, materialize_grads=True)
+        outs[route] = (d, i, g, nls_cuda.nls_topk_bwd.launches - n0)
+    (d, i, g, n), (d_p, i_p, g_p, n_p) = outs["kernels"], outs["lattice"]
+    assert n == 1 and n_p == 0
+    assert_close(d, d_p, "dists")
+    assert_close(i, i_p, "offsets")
+    for a, b, name in zip(g, g_p, ("g_vid", "g_offsets")):
+        assert_grad_close(a, b, name)

@@ -138,13 +138,15 @@ def test_volume_plain_and_its_backward_match_jax_vjp(rng, ps, itype,
 
 
 def test_unported_and_small_frame_configs():
-    """Configurations still left raise; the lazy route's configs on frames
-    too small for its reflect pad take the full volume, as in the JAX
-    package."""
+    """The configurations the kernels do not take run the lattice route
+    (tests/torch_port/test_torch_search_configs.py holds them to JAX);
+    the lazy route's configs on frames too small for its reflect pad take
+    the full volume, as in the JAX package."""
+    from stnls_tpu_torch.search.non_local_search import search_route
     for kw in ({"pt": 2}, {"reflect_bounds": False}, {"ws_interior": 3},
                {"dilation": 1.5}, {"off_Hq": 1}):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            stnls_tpu_torch.search.NonLocalSearch(3, 1, k=4, **kw)
+        search = stnls_tpu_torch.search.NonLocalSearch(3, 1, k=4, **kw)
+        assert search_route(search.cfg, (1, 1, 4, 2, 16, 16)) == "lattice"
     rng = np.random.default_rng(3)
     vid = rng.standard_normal((1, 2, 4, 4, 4)).astype(np.float32)
     kw = dict(self_action="anchor", stride1=0.5)
