@@ -133,15 +133,33 @@ Phases, in order; any failure raises and exits non-zero:
      lattice route (pt 2, reflect_bounds=False) at 16^2 on the card
      against the CPU; (e) NonLocalAttentionStack's two stages at the
      slice's widths, the second a refine with ref_itype="int", through
-     B1-B4 against plain_route().
+     B1-B4 against plain_route();
+ 17. the scatter path at the slice's widths (B 1, T 5, 2 heads of F 8,
+     128^2, smooth flows rounded to integers): NonLocalSearch (ws 5, wt 2,
+     ps 3, K 10, stride1 1, anchored, itype "int": B1), w = softmax(-10 d),
+     graph_opts.scatter_labels, NonLocalScatter (S = labels.max()+1),
+     scatter_tensor and gather_tensor of w and run_topk, and the gradient
+     of mean(stack.sum(2)^2) into the video (B2 and autograd), through
+     the kernels (B1 and B2 once each, no plain backward) and through
+     plain_route(): offsets, labels, names, mask and the top-K's labels
+     equal, the stack, the scattered and gathered weights and the gradient
+     at 1e-4 * max|ref| and non-zero; its times, peak memory and S against
+     slot_bound; B1's and B2's times, plain times and bounds there;
+ 18. the twin of benchmarks/agg_bench.py (stnls_tpu_torch/agg_bench.py)
+     at its published 512^2, ps 7 (B 1, 2 heads of F 8, T 3, K 10):
+     each aggregator's time a call and peak memory from the port's
+     RecordIt, the launches of B3, B7 and B9, each output against its
+     plain version at TOL, and B3's, B7's and B9's times, plain times and
+     bounds there.
 B2's, B3's, B5's, B6's and B7-B10's times are printed with those of
 their previous design in parentheses (EARLIER_MS).
 The line before the last is a JSON object of the kernels (B1, B2, B5 and
 B6 with a "chunk" entry of their chunk mode, B6 with a "stats" entry of
 its global atomics at the slice, B1-B4 with a "config6" entry at config
 6's arguments, B1 and B2 with a "search_bench" entry at the search
-twin's); the last line is {"ok": true, "device": {...}}. The
-script imports nothing of JAX.
+twin's and a "scatter_path" entry at phase 17's, B3, B7 and B9 with an
+"agg_bench" entry at phase 18's); the last line is {"ok": true,
+"device": {...}}. The script imports nothing of JAX.
 """
 
 import contextlib
@@ -1100,6 +1118,16 @@ def agg_cases(torch, dev, labels=None):
     return out
 
 
+def sp_forward_bound(key, terms, vid, weights, flows, out):
+    """The bound of B7 or B9 (key) with output `out`: inputs and output
+    moved once, FLOPS_PER_TAP per (query, slot, step, tap, channel) of
+    the `terms` with a live weight (agg_terms), and B9's division once
+    per output element."""
+    ops = terms * vid.shape[3] * FLOPS_PER_TAP[key]
+    return bound_ms(nb(vid, weights, flows, out),
+                    ops + (out.numel() if key == "B9" else 0))
+
+
 def agg_terms(torch, plain, vid, live, flows, cfg):
     """The (query, slot, frame step, tap) terms a ScatterAdd or Pool
     computes on this run's data: its plain version on a one-channel video
@@ -1173,17 +1201,14 @@ def agg_kernel_phase(torch, dev, name, inputs, scfg, pcfg):
         require(not g_k[2].any() and not g_p[2].any(),
                 f"{kb} {name}: the offsets' gradient is not 0")
         in_bytes = nb(vid, weights, flows)
+        bounds[kf] = sp_forward_bound(kf, terms, vid, weights, flows, out)
         if kf == "B7":
             in_frame = agg_terms(torch, plain, vid, torch.ones_like(live),
                                  flows, cfg)
-            bounds["B7"] = bound_ms(in_bytes + nb(out),
-                                    terms * F * FLOPS_PER_TAP["B7"])
             bounds["B8"] = bound_ms(in_bytes + nb(g, *g_k[:2]),
                                     (terms + in_frame) * F
                                     * FLOPS_PER_TAP["B8"])
         else:
-            bounds["B9"] = bound_ms(in_bytes + nb(out), terms * F
-                                    * FLOPS_PER_TAP["B9"] + out.numel())
             bounds["B10"] = bound_ms(in_bytes + nb(g, *g_k[:2]), terms * F
                                      * FLOPS_PER_TAP["B10"] + g.numel())
         args[kf], args[kb] = (inputs, cfg), b_args
@@ -3132,6 +3157,307 @@ def search_bench_phase(torch, dev, smi_line, data):
                 stack=stack, seconds=secs, errs={"B2": crop["B2 err"]})
 
 
+# Phase 17: the scatter path (graph_opts and NonLocalScatter on an int
+# search) at the slice's widths: B 1, T 5, 2 heads of F 8, 128^2, ws 5,
+# wt 2, ps 3, K 10 and, as the slot labels need an integer key grid,
+# stride1 1; smooth flows rounded to integers. The video's scale keeps
+# the dists near 1, so that softmax(-10 d) spreads its weight over the
+# slots and B2 gets a cotangent that is not 0 (at scale 1 the dists of a
+# normal video are ~144 and every weight but the anchor's underflows)
+SCATTER = dict(B=1, T=5, HD=2, F=8, H=128, W=128, ws=5, wt=2, ps=3, k=10)
+SCATTER_SCALE = 0.03
+
+
+def scatter_inputs(torch, dev):
+    """The seeded video [B,T,HD*F,H,W] and the rounded search flows
+    [B,T,W_t-1,2,H,W] of smooth fflow and bflow."""
+    from stnls_tpu_torch.attn_step import smooth_flows
+    from stnls_tpu_torch.nn.flow import search_flow
+    c = SCATTER
+    rng = np.random.default_rng(SEED + 20)
+    B, T, H, W = c["B"], c["T"], c["H"], c["W"]
+    vid = torch.from_numpy((SCATTER_SCALE * rng.standard_normal(
+        (B, T, c["HD"] * c["F"], H, W))).astype(np.float32))
+    fflow, bflow = (torch.from_numpy(smooth_flows(rng, (B, T, 2, H, W)))
+                    for _ in range(2))
+    flows = search_flow(fflow, bflow, c["wt"], 1).round()
+    return vid.to(dev), flows.contiguous().to(dev)
+
+
+def scatter_search():
+    from stnls_tpu_torch.search import NonLocalSearch
+    c = SCATTER
+    return NonLocalSearch(ws=c["ws"], wt=c["wt"], ps=c["ps"], k=c["k"],
+                          nheads=c["HD"], stride0=1, stride1=1,
+                          self_action="anchor", itype="int")
+
+
+def scatter_step(torch, search, vid, flows):
+    """The int search, w = softmax(-10 d), the slot labels, NonLocalScatter
+    (S = labels.max()+1), the weights scattered to and gathered from the
+    slots, their top-K, and the loss mean(stack.sum(2)^2)."""
+    from stnls_tpu_torch.graph_opts import scatter_labels, scatter_tensor, \
+        gather_tensor
+    from stnls_tpu_torch.agg import NonLocalScatter
+    c = SCATTER
+    B, HD, T, H, W, K = c["B"], c["HD"], c["T"], c["H"], c["W"], c["k"]
+    d, inds = search(vid, vid, flows)
+    w = torch.softmax(-10. * d, -1)
+    names, labels = scatter_labels.run(flows, inds, c["ws"], c["wt"], 1, 1,
+                                       H, W, True)
+    stack, mask = NonLocalScatter(ps=c["ps"], stride0=1)(vid, w, inds,
+                                                         labels)
+    args = (inds, labels, 1, 1, H, W)
+    s_w = scatter_tensor.run(w, *args)
+    s_i = scatter_tensor.run(inds, *args, invalid=0)
+    s_l = scatter_tensor.run(labels.reshape(B, HD, T, H, W, K), *args,
+                             invalid=-1)
+    g_w = gather_tensor.run(w, *args)
+    top = scatter_tensor.run_topk(s_w, s_i, s_l, K)
+    loss = stack.sum(2).pow(2).mean()
+    return dict(d=d, inds=inds, w=w, names=names, labels=labels,
+                stack=stack, mask=mask, s_w=s_w, g_w=g_w, top=top,
+                loss=loss)
+
+
+def scatter_phase(torch, dev, smi_line):
+    """Phase 17. The scatter step forward and backward into the video
+    through the kernels (B1 once, B2 once, no plain backward; the
+    scatter's backward is autograd's), then through plain_route(): offsets,
+    labels, names, mask and the top-K's labels equal, B1's dists at TOL,
+    the stack, the scattered and gathered weights and the top-K weights at
+    1e-4 * max|ref|, the video gradient at 1e-4 * max|ref| and non-zero. Its
+    times, peak memory, S against slot_bound, and B1's and B2's times and
+    bounds at its arguments. Returns the JSON fields and B1's and B2's
+    "scatter_path" entries for the kernels line."""
+    from stnls_tpu_torch.attn_step import cuda_ms
+    from stnls_tpu_torch.graph_opts import scatter_labels
+    from stnls_tpu_torch.ops import nls_cuda
+    from stnls_tpu_torch.search.non_local_search import search_route
+    from stnls_tpu_torch.search.utils import shape_vids
+    c = SCATTER
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    vid, flows = scatter_inputs(torch, dev)
+    search = scatter_search()
+    route = search_route(search.cfg, tuple(shape_vids(c["HD"], [vid])[0]
+                                           .shape))
+    require(route == "topk", f"scatter path: the search's route is {route}")
+    res = {}
+    for name in ("kernels", "plain"):
+        ctx = plain_route() if name == "plain" else contextlib.nullcontext()
+        v = vid.clone().requires_grad_()
+        reset_counts()
+        with ctx:
+            out = scatter_step(torch, search, v, flows)
+            g, = torch.autograd.grad(out["loss"], v)
+        torch.cuda.synchronize()
+        out = {k: tuple(x.detach() for x in o) if isinstance(o, tuple)
+               else o.detach() for k, o in out.items()}
+        res[name] = (out, g, read_counts())
+    out, g, (launches, plain) = res["kernels"]
+    ref, g_ref, (p_launches, _) = res["plain"]
+    require(launches["nls_topk_fwd"] == 1 and launches["nls_topk_bwd"] == 1
+            and sum(launches.values()) == 2 and not any(plain.values()),
+            f"scatter path: launches {launches}, plain calls {plain}")
+    require(not any(p_launches.values()),
+            f"scatter path: the plain route launched {p_launches}")
+    for key in ("inds", "labels", "names", "mask"):
+        require(torch.equal(out[key], ref[key]),
+                f"scatter path: {key} differ from the plain route's")
+    require(torch.equal(out["top"][2], ref["top"][2]) and
+            torch.equal(out["top"][1], ref["top"][1]),
+            "scatter path: run_topk's labels or offsets differ")
+    errs = {"dists": close(out["d"], ref["d"], "scatter path dists")}
+    for key, a, b in (("stack", out["stack"], ref["stack"]),
+                      ("scattered weights", out["s_w"], ref["s_w"]),
+                      ("gathered weights", out["g_w"], ref["g_w"]),
+                      ("top-K weights", out["top"][0], ref["top"][0]),
+                      ("g_vid", g, g_ref)):
+        fin = b.isfinite()
+        require(torch.equal(fin, a.isfinite()),
+                f"scatter path {key}: the empty slots differ")
+        errs[key], scale = grad_close(a[fin], b[fin], f"scatter path {key}")
+        require(scale > 0, f"scatter path {key}: 0")
+    S = int(out["labels"].max()) + 1
+    bound = scatter_labels.slot_bound(c["ws"], c["wt"], 1, c["T"], True)
+    require(S <= bound and tuple(out["stack"].shape) == (
+        c["B"], c["HD"], S, c["T"], c["F"], c["H"], c["W"]),
+        f"scatter path: S {S} (slot_bound {bound}) or stack shape "
+        f"{tuple(out['stack'].shape)}")
+    log(f"[scatter] route {route}; launches {launches}; S = {S} slots "
+        f"(slot_bound {bound}); stack {tuple(out['stack'].shape)}; offsets, "
+        "labels, names, mask and top-K labels equal to the plain route's; "
+        + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+        + " (max|kernels-plain|)")
+    del res, out, ref, g, g_ref
+
+    def fwd():
+        with torch.no_grad():
+            scatter_step(torch, search, vid, flows)
+
+    def fwd_bwd():
+        v = vid.clone().requires_grad_()
+        torch.autograd.grad(scatter_step(torch, search, v, flows)["loss"],
+                            v)
+
+    ms_f = cuda_ms(fwd, n=5, warm=1)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ms_fb = cuda_ms(fwd_bwd, n=5, warm=1)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    calls = {}
+    with captured_kernel_args(calls):
+        fwd_bwd()
+    (a1, kw1, (d1, c1)), = calls["B1"]
+    a2, = calls["B2"]
+    live = float((a2[6] != 0).float().mean())
+    require(live > 0.5, f"scatter path: B2's cotangent is 0 at {1 - live:.2%}"
+            " of the (query, slot) pairs")
+    with torch.no_grad():
+        t_b1 = cuda_ms(lambda: nls_cuda.nls_topk(*a1, **kw1), n=5)
+        t_b1p = cuda_ms(lambda: nls_cuda.nls_topk_plain(*a1, **kw1), n=3,
+                        warm=1)
+    t_b2 = cuda_ms(lambda: nls_cuda.nls_topk_bwd(*a2), n=5)
+    t_b2p = cuda_ms(lambda: nls_cuda.nls_topk_bwd_plain(*a2), n=3, warm=1)
+    b1b = bound_ms(*b1_work(*a1, d1, c1, ws=kw1["ws"], wt=kw1["wt"],
+                            ps=kw1["ps"]))
+    b2b = bound_ms(*b2_work(a2))
+    secs = time.perf_counter() - t0
+    log(f"[times] {smi_line}: scatter path forward {ms_f:.3f} ms, fwd+bwd "
+        f"{ms_fb:.3f} ms (peak {peak:.3f} GB; S {S}); B1 {t_b1:.3f} ms "
+        f"(plain {t_b1p:.3f}, bound {b1b[0]:.4f} by {b1b[1]}); B2 "
+        f"{t_b2:.3f} ms (plain {t_b2p:.3f}, bound {b2b[0]:.4f} by "
+        f"{b2b[1]}; its cotangent non-zero at {live:.2%} of the (query, "
+        f"slot) pairs); phase 17 took {secs:.1f} s")
+    entry = {"B1": dict(ms=t_b1, plain_ms=t_b1p, launches=1,
+                        max_abs_err=errs["dists"],
+                        bound_ms=b1b[0], bound_by=b1b[1], library_ms=None),
+             "B2": dict(ms=t_b2, plain_ms=t_b2p, launches=1,
+                        max_abs_err=errs["g_vid"], bound_ms=b2b[0],
+                        bound_by=b2b[1], library_ms=None)}
+    return dict(fields=dict(forward_ms=ms_f, fwd_bwd_ms=ms_fb, peak_gb=peak,
+                            slots=S, slot_bound=bound, route=route,
+                            b2_live_share=live, max_abs_err=errs,
+                            phase_seconds=secs),
+                entry=entry)
+
+
+def agg_bench_phase(torch, dev, smi_line):
+    """Phase 18. The twin of benchmarks/agg_bench.py at its published size
+    (512^2, ps 7) through the kernels: each aggregator's time a call and
+    peak memory from the port's RecordIt, the launches of B3 (three
+    aggregators), B7 and B9 (one warm-up and 5 calls each) and no other;
+    each output against its plain version on the same inputs at TOL (the
+    gathers' plain stack slot by slot, which keeps its patch table within
+    memory, and GatherAdd against the sum of those slots); B3's, B7's and
+    B9's times, plain times and bounds at these arguments. Returns the
+    JSON fields and the kernels' "agg_bench" entries."""
+    from stnls_tpu_torch import agg_bench
+    from stnls_tpu_torch.attn_step import cuda_ms
+    from stnls_tpu_torch.ops import agg_cuda, agg_sp_cuda as sp
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    reset_counts()
+    res = agg_bench.run(device=dev, log=lambda line: log(
+        f"[agg_bench] {smi_line}: {line}"))
+    torch.cuda.synchronize()
+    launches, plain = read_counts()
+    calls = 6
+    want = {"gather": "B3", "gather_int": "B3", "gather_add": "B3",
+            "scatter_add": "B7", "pool": "B9"}
+    for name, key in want.items():
+        got = res[name]["launches"]
+        require(got[key] == calls and sum(got.values()) == calls,
+                f"agg_bench {name}: launches {got}")
+    require(launches["agg_gather_fwd"] == 3 * calls and
+            launches["agg_scatter_add_fwd"] == calls and
+            launches["agg_pool_fwd"] == calls and
+            sum(launches.values()) == 5 * calls and not any(plain.values()),
+            f"agg_bench: launches {launches}, plain calls {plain}")
+    d = res["data"]
+    vid, w, fl, outs, cfg = d["vid"], d["weights"], d["flows"], d["outs"], \
+        d["cfg"]
+    ps, K = cfg["ps"], cfg["K"]
+    errs, plain_ms = {}, {}
+    with torch.no_grad():
+        for name, itype in (("gather", "float"), ("gather_int", "int")):
+            total, err, ms = 0., 0., 0.
+            for k in range(K):
+                wk = w[..., k:k + 1].contiguous()
+                fk = fl[..., k:k + 1, :].contiguous()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                ref = agg_cuda.nl_gather_stack_plain(vid, wk, fk, ps=ps,
+                                                     stride0=1, itype=itype)
+                end.record()
+                end.synchronize()
+                ms += start.elapsed_time(end)
+                err = max(err, close(outs[name][:, :, k], ref[:, :, 0],
+                                     f"agg_bench {name} slot {k}"))
+                if name == "gather":
+                    total = total + ref[:, :, 0]
+                del ref
+            errs[name], plain_ms[name] = err, ms
+            if name == "gather":
+                errs["gather_add"] = close(outs["gather_add"], total,
+                                           "agg_bench gather_add")
+                del total
+        with plain_route():
+            for name in ("scatter_add", "pool"):
+                ref = d["menu"][name](vid, w, fl)
+                errs[name] = close(outs[name], ref, f"agg_bench {name}")
+                del ref
+    for name, out in outs.items():
+        require(bool(out.isfinite().all()) and float(out.abs().max()) > 0,
+                f"agg_bench {name}: non-finite or 0")
+    log(f"[agg_bench] outputs vs their plain versions: " + ", ".join(
+        f"{k} {e:.3e}" for k, e in errs.items()))
+    scfg = dict(ps=ps, strideIn=1, strideOut=1)
+    pcfg = dict(ps=ps, stride0=1)
+    with torch.no_grad():
+        t = {"B3": cuda_ms(lambda: agg_cuda.nl_gather_stack(
+                 vid, w, fl, ps=ps, stride0=1), n=5),
+             "B7": cuda_ms(lambda: sp.nl_scatter_add(vid, w, fl, **scfg),
+                           n=5),
+             "B9": cuda_ms(lambda: sp.nl_pool(vid, w, fl, **pcfg), n=5)}
+        plain_ms["B7"] = cuda_ms(lambda: sp.nl_scatter_add_plain(
+            vid, w, fl, **scfg), n=3, warm=1)
+        plain_ms["B9"] = cuda_ms(lambda: sp.nl_pool_plain(vid, w, fl,
+                                                          **pcfg), n=3,
+                                 warm=1)
+        terms = {"B7": agg_terms(torch, sp.nl_scatter_add_plain, vid,
+                                 w != 0, fl, scfg),
+                 "B9": agg_terms(torch, sp.nl_pool_plain, vid, w >= 1e-8,
+                                 fl, pcfg)}
+        bounds = {"B3": bound_ms(*b3_work(vid, w, fl, ps)),
+                  "B7": sp_forward_bound("B7", terms["B7"], vid, w, fl,
+                                         outs["scatter_add"]),
+                  "B9": sp_forward_bound("B9", terms["B9"], vid, w, fl,
+                                         outs["pool"])}
+    plain_ms["B3"] = plain_ms["gather"]
+    secs = time.perf_counter() - t0
+    log(f"[times] {smi_line}: agg_bench at {cfg['H']}^2, ps {ps}: " + "; "
+        .join(f"{key} {t[key]:.3f} ms (plain {plain_ms[key]:.3f}"
+              + (" in K slot calls" if key == "B3" else "")
+              + f", bound {bounds[key][0]:.4f} by {bounds[key][1]})"
+              for key in t) + f"; phase 18 took {secs:.1f} s")
+    err_of = {"B3": max(errs[n] for n in ("gather", "gather_int",
+                                          "gather_add")),
+              "B7": errs["scatter_add"], "B9": errs["pool"]}
+    name_of = {"B3": "agg_gather_fwd", "B7": "agg_scatter_add_fwd",
+               "B9": "agg_pool_fwd"}
+    entry = {key: dict(ms=t[key], plain_ms=plain_ms[key],
+                       launches=launches[name_of[key]],
+                       max_abs_err=err_of[key], bound_ms=bounds[key][0],
+                       bound_by=bounds[key][1], library_ms=None)
+             for key in t}
+    lines = {name: {k: r[k] for k in ("ms", "mem_gb", "peak_gb")}
+             for name, r in res.items() if name != "data"}
+    return dict(fields=dict(lines=lines, max_abs_err=errs,
+                            phase_seconds=secs), entry=entry)
+
+
 T_START = time.perf_counter()
 
 
@@ -3454,8 +3780,15 @@ def main():
     torch.cuda.empty_cache()
     sbp = search_bench_phase(torch, dev, smi_line, data)
 
+    # 17. the scatter path: an int search (B1, backward B2), slot labels,
+    # NonLocalScatter and graph_opts at the slice's widths
+    scat = scatter_phase(torch, dev, smi_line)
+
+    # 18. benchmarks/agg_bench.py's twin at 512^2, ps 7 (B3, B7, B9)
+    abp = agg_bench_phase(torch, dev, smi_line)
+
     require("jax" not in sys.modules, "JAX was imported")
-    log(f"[chip_smoke] phases 1-16 took {time.perf_counter() - T_START:.1f} "
+    log(f"[chip_smoke] phases 1-18 took {time.perf_counter() - T_START:.1f} "
         "s")
     rows = (("B1", "nls_topk_fwd", "nls_pallas.py:761", t_b1, t_b1p),
             ("B2", "nls_topk_bwd", "nls_pallas_bwd.py:675", t_b2, t_b2p),
@@ -3517,6 +3850,14 @@ def main():
             # W_t 3, ps 7, K 10; B2 at its refine's winners), launches in
             # its sequence, and on a crop against the plain versions
             entry["search_bench"] = sbp["entry"][key]
+        if key in scat["entry"]:
+            # phase 17: at the scatter step's arguments (int search, 128^2,
+            # 2 heads of F 8, ws 5, W_t 5, ps 3, K 10), launches a step
+            entry["scatter_path"] = scat["entry"][key]
+        if key in abp["entry"]:
+            # phase 18: at agg_bench's arguments (512^2, 2 heads of F 8,
+            # T 3, K 10, ps 7), launches in its sequence
+            entry["agg_bench"] = abp["entry"][key]
         if key in t_chunk:
             entry["chunk"] = dict(t_chunk[key],
                                   launches=chunk_launches[name],
@@ -3574,6 +3915,8 @@ def main():
                          "flavours": sbp["flavours"],
                          "stack_refine": sbp["stack"],
                          "phase_seconds": sbp["seconds"]},
+        "scatter_path": scat["fields"],
+        "agg_bench": abp["fields"],
         "script_seconds": time.perf_counter() - T_START}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

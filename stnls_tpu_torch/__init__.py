@@ -10,11 +10,15 @@ version. This package never imports JAX.
 
 __version__ = "0.1.0"
 
-from stnls_tpu_torch import utils
 from stnls_tpu_torch import ops
 from stnls_tpu_torch import search
-from stnls_tpu_torch import normz
 from stnls_tpu_torch import agg
 from stnls_tpu_torch import nn
+from stnls_tpu_torch import normz
+from stnls_tpu_torch import graph_opts
+from stnls_tpu_torch import utils
+from stnls_tpu_torch import testing
+from stnls_tpu_torch import flow
+from stnls_tpu_torch import parallel
 from stnls_tpu_torch import models
 from stnls_tpu_torch import misc

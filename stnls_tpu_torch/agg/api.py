@@ -1,7 +1,6 @@
 """String-menu construction of aggregation ops (PyTorch port of
 stnls_tpu/agg/api.py). The default "wpsum" resolves to PooledPatchSum, as
-in the JAX package. Every entry resolves but "scatter" (NonLocalScatter),
-which raises NotImplementedError."""
+in the JAX package."""
 
 import importlib
 
@@ -19,7 +18,6 @@ MENU = ConfigDict({
     "scatter_add": "scatter_add",
     "stack_conv": "stack_conv",
 })
-PORTED = ("gather", "gather_add", "scatter_add", "pool", "stack_conv")
 
 
 def from_agg_menu(name):
@@ -27,11 +25,8 @@ def from_agg_menu(name):
 
 
 def _module(agg_name):
-    pkg_name = from_agg_menu(agg_name)
-    if pkg_name not in PORTED:
-        raise NotImplementedError(
-            f"agg {agg_name!r} ({pkg_name}) is not yet ported, see ROADMAP")
-    return importlib.import_module(f"stnls_tpu_torch.agg.{pkg_name}")
+    return importlib.import_module(
+        f"stnls_tpu_torch.agg.{from_agg_menu(agg_name)}")
 
 
 def extract_config(_cfg, restrict=True):

@@ -159,6 +159,9 @@ def nl_gather_stack(vid, weights, flows, *, ps, stride0, pt=1, dilation=1,
     ref_w = torch.arange(nW, device=dev) * stride0
     nl_t, nl_h, nl_w = _km_centers(f_km, ref_t, ref_h, ref_w, T, H, W,
                                    is_int)
+    # a frame that one reflection leaves outside [0, T) is clamped to it,
+    # as B3 does (the JAX engine's flat clip has no per-frame meaning)
+    nl_t = nl_t.clamp(0, T - 1)
 
     pad = dilation * (ps - 1) + 2
     if pad > min(H, W) - 1:
@@ -172,7 +175,8 @@ def nl_gather_stack(vid, weights, flows, *, ps, stride0, pt=1, dilation=1,
 
     stack = vid.new_zeros((B, HD, F, K, T, H, W))
     for pk in range(pt):
-        tj = reflect_bounds(nl_t + pk, T).expand(B, HD, K, T, nH, nW)
+        tj = reflect_bounds(nl_t + pk, T).clamp(0, T - 1) \
+            .expand(B, HD, K, T, nH, nW)
         P = patch_gather(vp, (tj, oi, oj), (S, Tp, Hp, Wp))
         for pi in range(ps):
             dHp = dilation * (pi + patch_offset)

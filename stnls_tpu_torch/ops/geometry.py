@@ -132,3 +132,30 @@ def flat_gather(frames_flat, idx, fill=0.0, valid=None):
     if valid is not None:
         took = torch.where(valid, took, torch.full_like(took, fill))
     return took
+
+
+def put_dropped(out, index, values, sizes):
+    """out.index_put(index, values) with the JAX package's
+    .at[].set(mode="drop") semantics, deterministic on every device: an
+    entry whose index falls outside `sizes` is dropped (a negative one
+    counts from the end, down to -size; torch's index_put raises there on
+    the CPU and faults on the card), and of several entries that set one
+    element the last in order wins, as XLA's scatter on the CPU applies
+    them (torch's index_put keeps an unspecified one on the card). The
+    index tensors broadcast to one shape, the leading dims of `values`;
+    `out` is not modified."""
+    lead = torch.broadcast_shapes(*(i.shape for i in index))
+    keep = torch.ones(lead, dtype=torch.bool, device=out.device)
+    flat = torch.zeros(lead, dtype=torch.long, device=out.device)
+    for i, n in zip(index, sizes):
+        i = i.expand(lead).long()
+        i = torch.where(i < 0, i + n, i)
+        keep &= (i >= 0) & (i < n)
+        flat = flat * n + i
+    flat, values = flat[keep], values[keep]
+    ordered, perm = torch.sort(flat, stable=True)
+    last = torch.ones_like(ordered, dtype=torch.bool)
+    last[:-1] = ordered[1:] != ordered[:-1]
+    sel = perm[last]
+    target = out.reshape((-1,) + tuple(out.shape[len(sizes):]))
+    return target.index_put((flat[sel],), values[sel]).reshape(out.shape)

@@ -274,7 +274,7 @@ def test_gather_add_routes_agree(rng):
 
 def test_menu_resolves_every_ported_name():
     for name in ("wpsum", "pool", "gather", "nlgather", "nlstack",
-                 "gather_add", "scatter_add", "scatter_sum"):
+                 "gather_add", "scatter_add", "scatter_sum", "scatter"):
         stnls_tpu_torch.agg.init({"agg_name": name})
     # stack_conv builds its Conv3d from the stack's width: the v1 defaults
     # (-1) give none, so the config names it
@@ -282,7 +282,7 @@ def test_menu_resolves_every_ported_name():
                                     "nheads": 2, "inner_mult": 1,
                                     "k_agg": 2, "ps": 3})
     assert isinstance(agg, stnls_tpu_torch.agg.StackConv)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        stnls_tpu_torch.agg.init({"agg_name": "scatter"})
+    assert isinstance(stnls_tpu_torch.agg.init({"agg_name": "scatter"}),
+                      stnls_tpu_torch.agg.NonLocalScatter)
     assert stnls_tpu_torch.agg.WeightedPatchSum is \
         stnls_tpu_torch.agg.PooledPatchSum

@@ -1217,3 +1217,62 @@ def test_refine_backward_kernel_matches_plain_lattice(dev, itype):
     assert_close(i, i_p, "offsets")
     for a, b, name in zip(g, g_p, ("g_vid", "g_offsets")):
         assert_grad_close(a, b, name)
+
+
+def test_scatter_path_on_the_card_matches_the_cpu(dev):
+    """The int search (B1), its slot labels, NonLocalScatter and the
+    gradient of mean(stack.sum(2)^2) into the video (B2 and autograd) at
+    64^2 on the card against the same steps on the CPU: offsets and labels
+    equal, stack and mask at 1e-4 (the card's index_add_ adds with
+    atomics), the gradient at 1e-4 * max|ref|. The video's scale, 2^-5,
+    keeps the dists near 0.1, so that the dists' cotangent is non-zero at
+    most (query, slot) pairs and B2 is held to the plain backward."""
+    from stnls_tpu_torch.search import NonLocalSearch
+    from stnls_tpu_torch.graph_opts import scatter_labels
+    from stnls_tpu_torch.agg import NonLocalScatter
+    rng = np.random.default_rng(3)
+    n, T_, HD_, F_ = 64, 4, 2, 4
+    vid = (2. ** -5 * rng.standard_normal((1, T_, HD_ * F_, n, n))) \
+        .astype(np.float32)
+    flows = np.round(2 * rng.standard_normal((1, T_, 2, 2, n, n))) \
+        .astype(np.float32)
+    search = NonLocalSearch(5, 1, 3, 8, nheads=HD_, self_action="anchor",
+                            itype="int")
+    res = {}
+    for where in ("cpu", dev):
+        v = torch.from_numpy(vid).to(where).requires_grad_()
+        fl = torch.from_numpy(flows).to(where)
+        n0 = nls_cuda.nls_topk.launches, nls_cuda.nls_topk_bwd.launches
+        d, i = search(v, v, fl)
+        _, lab = scatter_labels.run(fl, i, 5, 1, 1, 1, n, n, True)
+        stack, mask = NonLocalScatter(ps=3, stride0=1)(
+            v, torch.softmax(-10. * d, -1), i, lab)
+        g, g_d = torch.autograd.grad(stack.sum(2).pow(2).mean(), (v, d))
+        assert float((g_d != 0).float().mean()) > 0.5
+        res[str(where)] = [x.detach().cpu() for x in (i, lab, stack, mask,
+                                                      g)]
+        launched = (nls_cuda.nls_topk.launches - n0[0],
+                    nls_cuda.nls_topk_bwd.launches - n0[1])
+    assert launched == (1, 1)
+    i_c, lab_c, stack_c, mask_c, g_c = res["cpu"]
+    i_g, lab_g, stack_g, mask_g, g_g = res[str(dev)]
+    assert torch.equal(i_g, i_c) and torch.equal(lab_g, lab_c)
+    assert_close(stack_g, stack_c, "stack")
+    assert torch.equal(mask_g, mask_c)
+    assert float(g_c.abs().max()) > 0
+    assert_grad_close(g_g, g_c, "g_vid")
+
+
+def test_gather_kernel_clamps_frames_beyond_one_reflection(dev):
+    """agg_bench's offsets (round(3 * normal) at T = 3) send many frames
+    outside the video after one reflection: B3 clamps them into it, and
+    so does its plain version."""
+    from stnls_tpu_torch import agg_bench
+    cfg = dict(agg_bench.SMALL, H=48, W=48)
+    vid, weights, flows = agg_bench.make_inputs(cfg, dev)
+    for itype in ("float", "int"):
+        out = agg_cuda.nl_gather_stack(vid, weights, flows, ps=3, stride0=1,
+                                       itype=itype)
+        ref = agg_cuda.nl_gather_stack_plain(vid, weights, flows, ps=3,
+                                             stride0=1, itype=itype)
+        assert_close(out, ref, f"B3 {itype}")

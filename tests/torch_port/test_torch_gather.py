@@ -78,5 +78,5 @@ def test_non_local_gather_module(rng):
     out = stnls_tpu_torch.agg.init(cfg)(to_torch(vid5), to_torch(weights),
                                         to_torch(flows))
     assert_close(out, ref, "NonLocalGather")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        stnls_tpu_torch.agg.init({"agg_name": "scatter"})
+    assert isinstance(stnls_tpu_torch.agg.init({"agg_name": "scatter"}),
+                      stnls_tpu_torch.agg.NonLocalScatter)

@@ -188,11 +188,15 @@ def test_vnlb_matches_jax_end_to_end(davis):
 
 
 def test_port_source_imports_no_jax_pil_or_cv2():
-    """No module of stnls_tpu_torch imports jax, flax, the JAX package,
-    PIL or cv2 (the card's machine has none of them)."""
-    banned = re.compile(r"^\s*(import|from)\s+(jax|flax|stnls_tpu|PIL|cv2)"
+    """No module of stnls_tpu_torch imports jax, flax or the JAX package,
+    and none imports PIL or cv2 when it is imported (the card's machine
+    has none of them): those two only inside a function or a guarded try
+    (flow, testing.data, utils.vid_io), as in the JAX package."""
+    banned = re.compile(r"^\s*(import|from)\s+(jax|flax|stnls_tpu)"
                         r"(\.|\s|$)", re.M)
+    top_level = re.compile(r"^(import|from)\s+(PIL|cv2)(\.|\s|$)", re.M)
     files = sorted(PORT.rglob("*.py"))
     assert len(files) > 40
-    bad = [str(f) for f in files if banned.search(f.read_text())]
+    bad = [str(f) for f in files if banned.search(f.read_text())
+           or top_level.search(f.read_text())]
     assert not bad, bad
