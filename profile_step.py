@@ -12,9 +12,8 @@ timer of chip_smoke.py's phase 6) and the peak memory of each of: the
 bench attention step's forward, its forward + backward, and
 NonLocalAttention's forward + backward. Then:
   - forward: host ms a step under torch.profiler over 5 steps, device ms
-    a step (the sum of the device self times), the device's idle share
-    (against the untraced median), the number of device launches a
-    step, and the top device ops;
+    a step (the sum of the device self times), the number of device
+    launches a step, and the top device ops;
   - forward + backward: the same of one traced step;
 and the same forward + backward for NonLocalAttention
 (attn_step.attention_module, seed 1, as chip_smoke.py drives it), whose
@@ -98,11 +97,11 @@ def summarise(rows, steps, label):
     memcpy, memset); the top device rows and the top host ops by the
     device time of the kernels they launched. The port's own kernels are
     launched through ctypes, under no host op: they show among the
-    device rows only. The attention modules' stage ranges
-    (torch.profiler.record_function: qkv, search, normz, agg, proj) are
-    user annotations, which the profiler also gives device rows spanning
-    their kernels: they are left out of the device rows, lest those
-    kernels count twice, and show among the host op rows."""
+    device rows only. The package's spans (utils/spans: stnls.attn.*,
+    stnls.search.*, stnls.agg.*) are user annotations, which the profiler
+    also gives device rows spanning their kernels: they are left out of
+    the device rows, lest those kernels count twice, and show among the
+    host op rows."""
     from torch.autograd import DeviceType
     dev_rows = [r for r in rows if r.device_type == DeviceType.CUDA
                 and not getattr(r, "is_user_annotation", False)]
@@ -146,16 +145,12 @@ def timed(torch, dev, fn, T, label):
 
 
 def fwd_bwd_breakdown(torch, dev, fn, T, label, ms, peak):
-    """The device breakdown of one traced run of fn, against its untraced
-    median `ms`."""
+    """The device breakdown of one traced run of fn, beside its untraced
+    median `ms` and peak memory."""
     _, rows = trace(torch, fn, 1, dev)
     dev_ms, launches, top = summarise(rows, 1, label)
-    idle = 1. - dev_ms / ms
-    print(f"[{label}] device idle share {idle} (traced device ms over the "
-          "median wall ms)", flush=True)
     return {"ms": ms, "frames_per_s": T / (ms / 1e3), "peak_bytes": peak,
-            "device_ms": dev_ms, "idle_share": idle, "launches": launches,
-            "top": top}
+            "device_ms": dev_ms, "launches": launches, "top": top}
 
 
 def profile(torch, dev, mesh, H=128):
@@ -228,13 +223,11 @@ def profile(torch, dev, mesh, H=128):
     fwd_ms = untraced["forward"][0]
     host_ms, rows = trace(torch, fwd, STEPS, dev)
     dev_ms, launches, top = summarise(rows, STEPS, "forward")
-    idle = 1. - dev_ms / fwd_ms
-    print(f"[forward] host {host_ms:.3f} ms a step under the profiler; "
-          f"device idle share {idle} (traced device ms over the median "
-          "wall ms)", flush=True)
+    print(f"[forward] host {host_ms:.3f} ms a step under the profiler",
+          flush=True)
     return {"forward": {"ms": fwd_ms, "host_ms": host_ms,
-                        "device_ms": dev_ms, "idle_share": idle,
-                        "launches": launches, "top": top},
+                        "device_ms": dev_ms, "launches": launches,
+                        "top": top},
             "fwd_bwd": fwd_bwd_breakdown(torch, dev, fwd_bwd, T, "fwd+bwd",
                                          *untraced["fwd+bwd"]),
             **{key: fwd_bwd_breakdown(torch, dev, fn, frames.get(label, T),

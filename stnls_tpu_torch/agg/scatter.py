@@ -23,6 +23,7 @@ Differentiable in vid and weights through autograd.
 import torch
 
 from stnls_tpu_torch.utils.config import extract_pairs
+from stnls_tpu_torch.utils.spans import span
 from stnls_tpu_torch.ops.geometry import reflect_bounds as _reflect, \
     in_bounds, num_queries
 from stnls_tpu_torch.ops.agg import patch_overlap_counts
@@ -131,10 +132,11 @@ class NonLocalScatter(torch.nn.Module):
         self.S = S
 
     def forward(self, vid, weights, flows_k, labels):
-        return non_local_scatter(vid, weights, flows_k, labels, self.ps,
-                                 self.stride0, self.pt, self.reflect_bounds,
-                                 self.dilation, self.use_adj, self.itype,
-                                 S=self.S)
+        with span("stnls.agg.scatter"):
+            return non_local_scatter(vid, weights, flows_k, labels, self.ps,
+                                     self.stride0, self.pt,
+                                     self.reflect_bounds, self.dilation,
+                                     self.use_adj, self.itype, S=self.S)
 
 
 def _apply(vid, weights, flows, labels, ps=1, stride0=1, pt=1,

@@ -7,8 +7,8 @@ menu-dispatched search (a refinement search consumes the recurrent
 1x1 projection, as torch.nn.Modules. The recurrent `state` is threaded
 through the call as in the JAX module. Each of the five stages (qkv,
 search, normz, agg, proj) runs under a `_StageTimer`
-(nn/non_local_attn_stack.py): a profiler range of the stage's name, or
-with attn_timer its wall time in `module._times`.
+(nn/non_local_attn_stack.py): the span `stnls.attn.<stage>`, and with
+attn_timer its wall time in `module._times` too.
 `params_from_jax` (stnls_tpu_torch.convert) carries flax parameters over.
 """
 

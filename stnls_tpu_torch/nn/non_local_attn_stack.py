@@ -23,6 +23,7 @@ import torch
 
 from stnls_tpu_torch.utils import config
 from stnls_tpu_torch.utils.config import optional
+from stnls_tpu_torch.utils.spans import span
 from stnls_tpu_torch.nn.non_local_attn import NonLocalAttention, \
     default_pairs
 from stnls_tpu_torch.agg.gather import NonLocalGather
@@ -84,13 +85,13 @@ class NonLocalAttentionStack(NonLocalAttention):
 
 
 class _StageTimer:
-    """Per-stage timing honouring attn_timer. Enabled (and not under
-    torch.compile), each stage's wall time in seconds goes into `times`;
-    on a CUDA tensor the device is synchronised before each clock read,
-    else the times would be those of the launches only. Disabled, each
-    stage runs under torch.profiler.record_function(name), the
-    counterpart of jax.named_scope: profiler traces carry the stage
-    names."""
+    """Per-stage spans, and timing honouring attn_timer. Each stage runs
+    under the span `stnls.attn.<name>` (utils/spans, the counterpart of
+    jax.named_scope), so that profiler traces carry the stage. Enabled
+    (and not under torch.compile), each stage's wall time in seconds also
+    goes into `times` under its bare name; on a CUDA tensor the device is
+    synchronised before each clock read, else the times would be those of
+    the launches only."""
 
     def __init__(self, enabled, probe):
         self.eager = enabled and not torch.compiler.is_compiling()
@@ -103,13 +104,14 @@ class _StageTimer:
 
     def __call__(self, name):
         if not self.eager:
-            return torch.profiler.record_function(name)
+            return span(f"stnls.attn.{name}")
 
         @contextlib.contextmanager
         def timed():
-            self._sync()
-            t0 = time.perf_counter()
-            yield
-            self._sync()
-            self.times[name] = time.perf_counter() - t0
+            with span(f"stnls.attn.{name}"):
+                self._sync()
+                t0 = time.perf_counter()
+                yield
+                self._sync()
+                self.times[name] = time.perf_counter() - t0
         return timed()

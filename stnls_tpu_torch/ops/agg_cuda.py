@@ -18,6 +18,7 @@ import torch
 from stnls_tpu_torch.ops import cuda_lib
 from stnls_tpu_torch.ops.agg import nl_gather_stack as _nl_gather_stack
 from stnls_tpu_torch.ops.geometry import num_queries
+from stnls_tpu_torch.utils.spans import span
 
 
 def nl_gather_stack_plain(vid, weights, flows, *, ps, stride0, pt=1,
@@ -140,38 +141,40 @@ def nl_gather_stack_bwd(vid, weights, flows, g_stack, cfg, needs,
     counts added (csrc/agg_gather_bwd.cu: the flush's global atomics, the
     global atomics of the entries whose frame got no shared-memory box,
     those (query, slot) entries, and all of them)."""
-    if vid.device.type == "cpu":
-        return _gather_bwd_plain(vid, weights, flows, g_stack, cfg, needs)
-    _check(vid, weights, flows, ps=cfg["ps"], stride0=cfg["stride0"],
-           pt=cfg["pt"], reflect_bounds=cfg["reflect_bounds"],
-           dilation=cfg["dilation"], itype=cfg["itype"])
-    B, HD, T, F, H, W = vid.shape
-    nH, nW = num_queries(H, W, cfg["stride0"])
-    K = flows.shape[-2]
-    if tuple(g_stack.shape) != (B, HD, K, T, F, H, W) or \
-            g_stack.dtype != torch.float32 or g_stack.device != vid.device:
-        raise ValueError("nl_gather_stack_bwd: g_stack must be float32 "
-                         f"[B,HD,K,T,F,H,W] on vid's device, got "
-                         f"{tuple(g_stack.shape)} {g_stack.dtype}")
-    g_stack = g_stack.contiguous()
-    g_vid = torch.zeros_like(vid)
-    g_weights = torch.empty_like(weights)
-    g_flows = torch.empty_like(flows)
-    lib = cuda_lib.load()
-    with torch.cuda.device(vid.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.stnls_agg_gather_bwd(
-            vid.data_ptr(), weights.data_ptr(), flows.data_ptr(),
-            g_stack.data_ptr(), g_vid.data_ptr(), g_weights.data_ptr(),
-            g_flows.data_ptr(), cuda_lib.stats_ptr(stats, vid.device,
-                                              "nl_gather_stack_bwd"),
-            B, HD, K, T, F, H, W, nH, nW, cfg["ps"], cfg["stride0"],
-            cfg["pt"], int(cfg["dilation"]), int(bool(cfg["use_adj"])),
-            int(cfg["itype"] == "int"), stream)
-    cuda_lib.check_launch(err, "nl_gather_stack_bwd")
-    nl_gather_stack_bwd.launches += 1
-    return tuple(g if n else None
-                 for g, n in zip((g_vid, g_weights, g_flows), needs))
+    with span("stnls.agg.gather.bwd"):
+        if vid.device.type == "cpu":
+            return _gather_bwd_plain(vid, weights, flows, g_stack, cfg,
+                                     needs)
+        _check(vid, weights, flows, ps=cfg["ps"], stride0=cfg["stride0"],
+               pt=cfg["pt"], reflect_bounds=cfg["reflect_bounds"],
+               dilation=cfg["dilation"], itype=cfg["itype"])
+        B, HD, T, F, H, W = vid.shape
+        nH, nW = num_queries(H, W, cfg["stride0"])
+        K = flows.shape[-2]
+        if tuple(g_stack.shape) != (B, HD, K, T, F, H, W) or \
+                g_stack.dtype != torch.float32 or g_stack.device != vid.device:
+            raise ValueError("nl_gather_stack_bwd: g_stack must be float32 "
+                             f"[B,HD,K,T,F,H,W] on vid's device, got "
+                             f"{tuple(g_stack.shape)} {g_stack.dtype}")
+        g_stack = g_stack.contiguous()
+        g_vid = torch.zeros_like(vid)
+        g_weights = torch.empty_like(weights)
+        g_flows = torch.empty_like(flows)
+        lib = cuda_lib.load()
+        with torch.cuda.device(vid.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.stnls_agg_gather_bwd(
+                vid.data_ptr(), weights.data_ptr(), flows.data_ptr(),
+                g_stack.data_ptr(), g_vid.data_ptr(), g_weights.data_ptr(),
+                g_flows.data_ptr(), cuda_lib.stats_ptr(stats, vid.device,
+                                                  "nl_gather_stack_bwd"),
+                B, HD, K, T, F, H, W, nH, nW, cfg["ps"], cfg["stride0"],
+                cfg["pt"], int(cfg["dilation"]), int(bool(cfg["use_adj"])),
+                int(cfg["itype"] == "int"), stream)
+        cuda_lib.check_launch(err, "nl_gather_stack_bwd")
+        nl_gather_stack_bwd.launches += 1
+        return tuple(g if n else None
+                     for g, n in zip((g_vid, g_weights, g_flows), needs))
 
 
 nl_gather_stack_bwd.launches = 0
@@ -184,13 +187,14 @@ def nl_gather_stack(vid, weights, flows, *, ps, stride0, pt=1, dilation=1,
     count-normalised. Differentiable in vid, weights and (float) flows."""
     cfg = dict(ps=ps, stride0=stride0, pt=pt, dilation=dilation,
                reflect_bounds=reflect_bounds, use_adj=use_adj, itype=itype)
-    if vid.device.type == "cpu":
-        return nl_gather_stack_plain(vid, weights, flows, **cfg)
-    if itype == "int":
-        flows = torch.round(flows)
-    _check(vid, weights, flows, ps=ps, stride0=stride0, pt=pt,
-           reflect_bounds=reflect_bounds, dilation=dilation, itype=itype)
-    return _GatherStack.apply(vid, weights, flows, cfg)
+    with span("stnls.agg.gather"):
+        if vid.device.type == "cpu":
+            return nl_gather_stack_plain(vid, weights, flows, **cfg)
+        if itype == "int":
+            flows = torch.round(flows)
+        _check(vid, weights, flows, ps=ps, stride0=stride0, pt=pt,
+               reflect_bounds=reflect_bounds, dilation=dilation, itype=itype)
+        return _GatherStack.apply(vid, weights, flows, cfg)
 
 
 nl_gather_stack.launches = 0

@@ -36,6 +36,7 @@ from stnls_tpu_torch.ops import cuda_lib
 from stnls_tpu_torch.ops.geometry import num_queries
 from stnls_tpu_torch.ops.nls import nls_search_volume, chunk_frames
 from stnls_tpu_torch.ops.nls_k import search_aux, dists_at_positions
+from stnls_tpu_torch.utils.spans import span
 
 # B1 takes its body with ps and F compiled in (the query patch in
 # registers, csrc/nls_common.cuh) for the pairs csrc/nls_topk_fwd.cu lists,
@@ -268,8 +269,9 @@ class _SearchDists(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_d):
         vid0, vid1, prop_h, prop_w, tj_k, valid = ctx.saved_tensors
-        grads = nls_topk_bwd(vid0, vid1, prop_h, prop_w, tj_k, valid, g_d,
-                             ctx.cfg, *ctx.chunk)
+        with span("stnls.search.dists.bwd"):
+            grads = nls_topk_bwd(vid0, vid1, prop_h, prop_w, tj_k, valid,
+                                 g_d, ctx.cfg, *ctx.chunk)
         return grads + (None,) * 5
 
 

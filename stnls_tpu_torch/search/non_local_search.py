@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from stnls_tpu_torch.utils.config import extract_pairs
+from stnls_tpu_torch.utils.spans import span
 from stnls_tpu_torch.ops import anchor as anchor_ops
 from stnls_tpu_torch.ops import topk as topk_ops
 from stnls_tpu_torch.ops.nls import dist_type_select, nls_search_volume
@@ -220,35 +221,40 @@ def _select_cells(vid0, vid1, flows, cfg, chunk):
     """Selected dists and flat window-cell ids [B,HD,T,nH,nW,K] (f32,
     int32), from the search kernel. Callers pass detached inputs under
     no_grad: selection is not differentiable."""
-    return nls_topk(
-        vid0.contiguous(), vid1.contiguous(), flows.contiguous(),
-        ws=cfg["ws"], wt=cfg["wt"], ps=cfg["ps"], stride0=cfg["stride0"],
-        stride1=cfg["stride1"], k=cfg["k"],
-        anchor=cfg["self_action"] is not None, dist_type=cfg["dist_type"],
-        dilation=int(cfg["dilation"]), full_ws=cfg["full_ws"],
-        use_adj=cfg["use_adj"], itype=cfg["itype"], **chunk)
+    with span("stnls.search.select"):
+        return nls_topk(
+            vid0.contiguous(), vid1.contiguous(), flows.contiguous(),
+            ws=cfg["ws"], wt=cfg["wt"], ps=cfg["ps"],
+            stride0=cfg["stride0"], stride1=cfg["stride1"], k=cfg["k"],
+            anchor=cfg["self_action"] is not None,
+            dist_type=cfg["dist_type"], dilation=int(cfg["dilation"]),
+            full_ws=cfg["full_ws"], use_adj=cfg["use_adj"],
+            itype=cfg["itype"], **chunk)
 
 
 def _sparse_assemble(vid0, vid1, flows, d_sel, cells, cfg, chunk):
     """The selected dists with their gradient (B2) and the cells'
     offsets, both differentiable in the flows through the geometry."""
     H, W = vid0.shape[-2:]
-    geo = cells_geometry(flows, cells, H=H, W=W, ws=cfg["ws"], wt=cfg["wt"],
-                         stride0=cfg["stride0"], stride1=cfg["stride1"],
-                         full_ws=cfg["full_ws"], itype=cfg["itype"],
-                         halo=(vid0.shape[2] - cells.shape[2]) // 2, **chunk)
-    d = search_dists(vid0, vid1, geo["prop_h"], geo["prop_w"], d_sel,
-                     geo["tj_k"], geo["valid"], ps=cfg["ps"],
-                     stride0=cfg["stride0"], dist_type=cfg["dist_type"],
-                     dilation=int(cfg["dilation"]), use_adj=cfg["use_adj"],
-                     itype=cfg["itype"], **chunk)
-    inds = torch.stack([geo["dt"], geo["dh"], geo["dw"]], dim=-1)
-    if cfg["self_action"] in ("anchor", "anchor_self"):
-        # anchored slot-0 offsets are exact zeros; its dist is the self
-        # cell's, with its gradient through the positions
-        inds = torch.cat([torch.zeros_like(inds[..., :1, :]),
-                          inds[..., 1:, :]], dim=-2)
-    return d, inds
+    with span("stnls.search.geometry"):
+        geo = cells_geometry(
+            flows, cells, H=H, W=W, ws=cfg["ws"], wt=cfg["wt"],
+            stride0=cfg["stride0"], stride1=cfg["stride1"],
+            full_ws=cfg["full_ws"], itype=cfg["itype"],
+            halo=(vid0.shape[2] - cells.shape[2]) // 2, **chunk)
+        d = search_dists(vid0, vid1, geo["prop_h"], geo["prop_w"], d_sel,
+                         geo["tj_k"], geo["valid"], ps=cfg["ps"],
+                         stride0=cfg["stride0"], dist_type=cfg["dist_type"],
+                         dilation=int(cfg["dilation"]),
+                         use_adj=cfg["use_adj"], itype=cfg["itype"],
+                         **chunk)
+        inds = torch.stack([geo["dt"], geo["dh"], geo["dw"]], dim=-1)
+        if cfg["self_action"] in ("anchor", "anchor_self"):
+            # anchored slot-0 offsets are exact zeros; its dist is the
+            # self cell's, with its gradient through the positions
+            inds = torch.cat([torch.zeros_like(inds[..., :1, :]),
+                              inds[..., 1:, :]], dim=-2)
+        return d, inds
 
 
 def volume_with_inds(vid0, vid1, flows, cfg, chunk=None):
@@ -287,10 +293,11 @@ def nls_pipeline(vid0, vid1, flows, cfg, query_t0=None, T_global=None):
     side, and the outputs cover the query frames."""
     chunk = dict(query_t0=query_t0, T_global=T_global)
     if search_route(cfg, vid0.shape, T_global) != "topk":
-        return _self_action_topk(
-            *volume_with_inds(vid0, vid1, flows, cfg, chunk),
-            self_action=cfg["self_action"], topk_mode=cfg["topk_mode"],
-            k=cfg["k"], wt=cfg["wt"], dist_type=cfg["dist_type"])
+        with span("stnls.search.volume"):
+            return _self_action_topk(
+                *volume_with_inds(vid0, vid1, flows, cfg, chunk),
+                self_action=cfg["self_action"], topk_mode=cfg["topk_mode"],
+                k=cfg["k"], wt=cfg["wt"], dist_type=cfg["dist_type"])
     with torch.no_grad():
         d_sel, cells = _select_cells(vid0.detach(), vid1.detach(),
                                      flows.detach(), cfg, chunk)
@@ -390,18 +397,21 @@ class NonLocalSearch(torch.nn.Module):
     def forward(self, *args):
         if self.ws <= 0 or self.wt < 0:
             raise ValueError("need ws > 0 and wt >= 0")
-        vid0, vid1 = args[:2]
-        if len(args) == 4:
-            from stnls_tpu_torch.nn.flow import search_flow
-            flows = search_flow(args[2], args[3], self.wt, self.stride0)
-        elif len(args) == 3:
-            flows = args[2]
-        else:
-            vid0s = shape_vids(self.nheads, [vid0])[0]
-            flows = empty_flows(vid0s, self.wt, self.stride0)
-        vid0, vid1 = shape_vids(self.nheads, [vid0, vid1])
-        flows = shape_flows(self.nheads, flows)
-        return self._fn(vid0, vid1, flows)
+        with span("stnls.search"):
+            vid0, vid1 = args[:2]
+            if len(args) == 4:
+                from stnls_tpu_torch.nn.flow import search_flow
+                with span("stnls.search.flow"):
+                    flows = search_flow(args[2], args[3], self.wt,
+                                        self.stride0)
+            elif len(args) == 3:
+                flows = args[2]
+            else:
+                vid0s = shape_vids(self.nheads, [vid0])[0]
+                flows = empty_flows(vid0s, self.wt, self.stride0)
+            vid0, vid1 = shape_vids(self.nheads, [vid0, vid1])
+            flows = shape_flows(self.nheads, flows)
+            return self._fn(vid0, vid1, flows)
 
     def flops(self, T, F, H, W):
         """Useful-work flop model of the JAX package's NonLocalSearch: the

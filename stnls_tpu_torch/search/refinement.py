@@ -29,6 +29,7 @@ the reference's kernels.
 import torch
 
 from stnls_tpu_torch.utils.config import extract_pairs
+from stnls_tpu_torch.utils.spans import span
 from stnls_tpu_torch.ops import anchor as anchor_ops
 from stnls_tpu_torch.ops import topk as topk_ops
 from stnls_tpu_torch.ops.geometry import (
@@ -250,14 +251,15 @@ class RefineSearch(torch.nn.Module):
             setattr(self, key, val)
 
     def forward(self, vid0, vid1, flows):
-        vid0, vid1 = shape_vids(self.nheads, [vid0, vid1])
-        B, HD, T, F, H, W = vid0.shape
-        nH, nW = num_queries(H, W, self.stride0)
-        if flows.ndim == 5:  # [B,HD,Q,K,3]
-            flows = flows.reshape(flows.shape[0], flows.shape[1], T, nH, nW,
-                                  flows.shape[-2], 3)
-        flows = filter_k(flows, self.kr)
-        return refine_pipeline(vid0, vid1, flows, self.cfg)
+        with span("stnls.search.refine"):
+            vid0, vid1 = shape_vids(self.nheads, [vid0, vid1])
+            B, HD, T, F, H, W = vid0.shape
+            nH, nW = num_queries(H, W, self.stride0)
+            if flows.ndim == 5:  # [B,HD,Q,K,3]
+                flows = flows.reshape(flows.shape[0], flows.shape[1], T, nH,
+                                      nW, flows.shape[-2], 3)
+            flows = filter_k(flows, self.kr)
+            return refine_pipeline(vid0, vid1, flows, self.cfg)
 
     def paired_vids(self, vid0, vid1, flows, wt, skip_self=False):
         from stnls_tpu_torch.search.utils import paired_vids

@@ -234,8 +234,8 @@ def test_proj_menu_v1_and_errors():
                                     "NonLocalAttentionStack"])
 def test_attn_timer_times_five_stages(rng, module):
     """attn_timer=True: the wall time of each of the five stages in
-    `_times`; off, `_times` is empty and the stages run under profiler
-    ranges of their names."""
+    `_times`, under the stages' bare names; off, `_times` is empty and the
+    stages run under the spans stnls.attn.<stage>."""
     cls = {"NonLocalAttention": NonLocalAttention,
            "NonLocalAttentionStack": NonLocalAttentionStack}[module]
     vid, ff, bf = _inputs(rng)
@@ -248,4 +248,5 @@ def test_attn_timer_times_five_stages(rng, module):
     with torch.profiler.profile() as prof:
         quiet(to_torch(vid), flows)
     assert quiet._times == {}
-    assert STAGES <= {evt.key for evt in prof.key_averages()}
+    assert {f"stnls.attn.{s}" for s in STAGES} <= \
+        {evt.key for evt in prof.key_averages()}

@@ -1276,3 +1276,39 @@ def test_gather_kernel_clamps_frames_beyond_one_reflection(dev):
         ref = agg_cuda.nl_gather_stack_plain(vid, weights, flows, ps=3,
                                              stride0=1, itype=itype)
         assert_close(out, ref, f"B3 {itype}")
+
+
+def test_spans_open_around_the_kernels_forward_and_backward(dev):
+    """On CUDA tensors the search and the gather open their spans
+    (utils/spans) around B1-B4: the lazy route's stages, the gather
+    stack, and the explicit backwards of the search and of the gather."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from stnls_tpu_torch.agg.gather import NonLocalGather
+    from stnls_tpu_torch.search.non_local_search import NonLocalSearch
+    rng = np.random.default_rng(4)
+
+    def t(shape, scale=1.):
+        return torch.from_numpy(
+            (scale * rng.standard_normal(shape)).astype(np.float32)).to(dev)
+
+    vid = t((B, T, HD * F, H, W)).requires_grad_()
+    fflow, bflow = t((B, T, 2, H, W), 1.5), t((B, T, 2, H, W), 1.5)
+    search = NonLocalSearch(5, 1, ps=3, k=4, nheads=HD, self_action="anchor")
+    gather = NonLocalGather(ps=3, stride0=1)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        dists, inds = search(vid, vid, fflow, bflow)
+        v6 = vid.reshape(B, T, HD, F, H, W).transpose(1, 2)
+        stack = gather(v6, torch.softmax(-10. * dists, -1), inds)
+        stack.pow(2).mean().backward()
+        torch.cuda.synchronize(dev)
+    names = {e.name for e in prof.events()}
+    assert {"stnls.search", "stnls.search.flow", "stnls.search.select",
+            "stnls.search.geometry", "stnls.search.dists.bwd",
+            "stnls.agg.gather", "stnls.agg.gather.bwd"} <= names
+    kernels = {r.key for r in prof.key_averages()
+               if r.device_type == DeviceType.CUDA}
+    for base in ("nls_topk_kernel", "nls_topk_bwd_query_kernel",
+                 "agg_gather_fwd_pixel_kernel", "agg_gather_bwd_tile_kernel"):
+        assert any(base in k for k in kernels), (base, sorted(kernels))
