@@ -25,9 +25,10 @@ Phases, in order; any failure raises and exits non-zero:
   5. the training path at full width: forward and backward of the bench
      step and of NonLocalAttention into the video, the flows and the
      parameters, then 3 SGD steps of NonLocalAttention towards a fixed
-     target, through the kernels (launch counts of B1-B4, no plain
-     backward called), through the plain backwards on the kernels'
-     forward and through the plain route; gradients and each parameter's
+     target, through the kernels (launch counts of B1-B4 and of the
+     geometry kernels G1 and G2, no plain backward called), through the
+     plain backwards on the kernels' forward and through the plain route
+     (which swaps G1 and G2 too); gradients and each parameter's
      SGD update compared at 1e-4 * max|ref|, or at 1e-3 where the failing
      element's own queries show a softmax near-tie (near_tie); elements
      of a video or flow in reach of a query whose cells differ between
@@ -103,7 +104,7 @@ Phases, in order; any failure raises and exits non-zero:
  15. the model layer: (a) benchmarks/matrix.py's config 6, the
      NonLocalDenoiser train step (stnls_tpu_torch/matrix_steps.py,
      parameters from a seeded torch.Generator) at its published 540x960,
-     T 3: one step through the kernels (one launch each of B1-B4, no
+     T 3: one step through the kernels (one launch each of B1-B4 and G1, no
      plain backward), the output and every parameter's gradient finite
      and non-zero, 3 SGD steps lowering the loss, its time, frames/s and
      peak memory, and B1-B4's times and bounds at the arguments the step
@@ -140,7 +141,7 @@ Phases, in order; any failure raises and exits non-zero:
      graph_opts.scatter_labels, NonLocalScatter (S = labels.max()+1),
      scatter_tensor and gather_tensor of w and run_topk, and the gradient
      of mean(stack.sum(2)^2) into the video (B2 and autograd), through
-     the kernels (B1 and B2 once each, no plain backward) and through
+     the kernels (B1, B2 and G1 once each, no plain backward) and through
      plain_route(): offsets, labels, names, mask and the top-K's labels
      equal, the stack, the scattered and gathered weights and the gradient
      at 1e-4 * max|ref| and non-zero; its times, peak memory and S against
@@ -150,10 +151,18 @@ Phases, in order; any failure raises and exits non-zero:
      each aggregator's time a call and peak memory from the port's
      RecordIt, the launches of B3, B7 and B9, each output against its
      plain version at TOL, and B3's, B7's and B9's times, plain times and
-     bounds there.
+     bounds there;
+ 19. the lazy route's geometry kernels at the arguments that config 7's
+     step (1080p, 2 heads, T 10, W_t 7, K 10) and config 6's (540x960, 2
+     heads, T 3, W_t 3, K 8) give G1: G1's positions, frames, validity
+     and offsets bitwise equal to its plain version's (cells_geometry,
+     the stacked offsets, the anchored slot) on the same card, G2's flow
+     gradient from seeded cotangents at 1e-4 * max|ref| against autograd
+     through that plain version, their times, plain times and bounds.
 B2's, B3's, B5's, B6's and B7-B10's times are printed with those of
 their previous design in parentheses (EARLIER_MS).
-The line before the last is a JSON object of the kernels (B1, B2, B5 and
+The line before the last is a JSON object of the kernels (G1 and G2 at
+config 7's arguments, with a "config6" entry at config 6's; B1, B2, B5 and
 B6 with a "chunk" entry of their chunk mode, B6 with a "stats" entry of
 its global atomics at the slice, B1-B4 with a "config6" entry at config
 6's arguments, B1 and B2 with a "search_bench" entry at the search
@@ -213,6 +222,11 @@ HBM_BYTES_S, F32_FLOP_S = 3.35e12, 67e12
 # for those terms, plus the cotangent's division once per element.
 FLOPS_PER_TAP = {"B1": 10, "B2": 26, "B3": 9, "B4": 17, "B5": 10, "B6": 26,
                  "B7": 2, "B8": 2, "B9": 2, "B10": 4}
+# G1 and G2 read no video: per selected cell, G1 adds the flow to the
+# query, forms the lattice position (subtract, multiply, add) and the
+# offset (subtract), on each axis (10); G2 adds the position's and the
+# offset's cotangents into its slot, on each axis (4)
+FLOPS_PER_CELL = {"G1": 10, "G2": 4}
 # B2's, B3's, B5's, B6's and B7-B10's times before their redesign
 # (B7-B10 at the agg example's 128^2, a call), as PERF.md
 # section 6 records them (chip_smoke.py's CUDA events and, "device",
@@ -324,12 +338,14 @@ def build_phase(cuda_lib):
 
 
 def counters():
-    """The launch counts of the ten kernels and the call counts of the
+    """The launch counts of the twelve kernels and the call counts of the
     plain backwards, by name."""
     from stnls_tpu_torch.ops import nls_cuda, nls_vol_cuda, agg_cuda, \
-        agg_sp_cuda as sp
+        agg_sp_cuda as sp, nls_geometry_cuda as geo
     return {"nls_topk_fwd": nls_cuda.nls_topk,
             "nls_topk_bwd": nls_cuda.nls_topk_bwd,
+            "nls_geometry_fwd": geo.nls_geometry,
+            "nls_geometry_bwd": geo.nls_geometry_bwd,
             "agg_gather_fwd": agg_cuda.nl_gather_stack,
             "agg_gather_bwd": agg_cuda.nl_gather_stack_bwd,
             "nls_vol_fwd": nls_vol_cuda.nls_volume,
@@ -339,6 +355,7 @@ def counters():
             "agg_pool_fwd": sp.nl_pool,
             "agg_pool_bwd": sp.nl_pool_bwd}, \
         {"nls_topk_bwd_plain": nls_cuda.nls_topk_bwd_plain,
+         "nls_geometry_bwd_plain": geo.nls_geometry_bwd_plain,
          "_gather_bwd_plain": agg_cuda._gather_bwd_plain,
          "nls_volume_bwd_plain": nls_vol_cuda.nls_volume_bwd_plain,
          "_scatter_add_bwd_plain": sp._scatter_add_bwd_plain,
@@ -364,17 +381,19 @@ def plain_route(forward=True):
     """The reference route on the card: the search and the aggregators
     call their kernels' plain versions instead of the kernels while
     inside. Swaps the names the main paths call (the backwards
-    nls_cuda.nls_topk_bwd, nls_vol_cuda.nls_volume_bwd,
-    agg_cuda.nl_gather_stack_bwd, agg_sp_cuda.nl_scatter_add_bwd and
-    agg_sp_cuda.nl_pool_bwd and, with `forward`, non_local_search.nls_topk,
+    nls_cuda.nls_topk_bwd, nls_geometry_cuda.nls_geometry_bwd,
+    nls_vol_cuda.nls_volume_bwd, agg_cuda.nl_gather_stack_bwd,
+    agg_sp_cuda.nl_scatter_add_bwd and agg_sp_cuda.nl_pool_bwd and, with
+    `forward`, non_local_search.nls_topk, non_local_search.nls_geometry,
     nls_vol_cuda.nls_volume, gather.nl_gather_stack,
     gather_add.nl_gather_stack, scatter_add.nl_scatter_add and
     pool.nl_pool) and checks that none of the swapped kernels launched."""
     from stnls_tpu_torch.search import non_local_search
     from stnls_tpu_torch.agg import gather, gather_add, scatter_add, pool
     from stnls_tpu_torch.ops import nls_cuda, nls_vol_cuda, agg_cuda, \
-        agg_sp_cuda as sp
+        agg_sp_cuda as sp, nls_geometry_cuda as geo
     names = [(nls_cuda, "nls_topk_bwd", nls_cuda.nls_topk_bwd_plain),
+             (geo, "nls_geometry_bwd", geo.nls_geometry_bwd_plain),
              (nls_vol_cuda, "nls_volume_bwd",
               nls_vol_cuda.nls_volume_bwd_plain),
              (agg_cuda, "nl_gather_stack_bwd", agg_cuda._gather_bwd_plain),
@@ -382,6 +401,7 @@ def plain_route(forward=True):
              (sp, "nl_pool_bwd", sp._pool_bwd_plain)]
     if forward:
         names += [(non_local_search, "nls_topk", nls_cuda.nls_topk_plain),
+                  (non_local_search, "nls_geometry", geo.nls_geometry_plain),
                   (nls_vol_cuda, "nls_volume",
                    nls_vol_cuda.nls_volume_plain),
                   (gather, "nl_gather_stack",
@@ -401,7 +421,7 @@ def plain_route(forward=True):
             setattr(mod, name, fn)
     after = read_counts()[0]
     swapped = after if forward else {k: after[k] for k in (
-        "nls_topk_bwd", "nls_vol_bwd", "agg_gather_bwd",
+        "nls_topk_bwd", "nls_geometry_bwd", "nls_vol_bwd", "agg_gather_bwd",
         "agg_scatter_add_bwd", "agg_pool_bwd")}
     require(all(after[k] == before[k] for k in swapped),
             "a swapped kernel launched on the plain route")
@@ -1527,8 +1547,8 @@ def matrix_phase(torch, dev):
                 f"matrix {name}: shapes {tuple(d.shape)}")
         require(all(bool(x.isfinite().all()) for x in res.values()),
                 f"matrix {name}: non-finite output")
-        wanted = ["nls_topk_fwd"] + (["nls_topk_bwd"] if cfg["backward"]
-                                     else [])
+        wanted = ["nls_topk_fwd", "nls_geometry_fwd"] + (
+            ["nls_topk_bwd"] if cfg["backward"] else [])
         if cfg["config"] == 1:
             wanted += ["agg_gather_fwd", "agg_gather_bwd"]
         require(all(launches[k] > 0 for k in wanted) and
@@ -2200,6 +2220,7 @@ def time_sharded_phase(torch, dev, mesh, matrix, smi_line, H=128):
     peak = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
     launches, plain_calls = read_counts()
     require(launches["nls_topk_fwd"] > 0 and launches["nls_topk_bwd"] > 0
+            and launches["nls_geometry_fwd"] == launches["nls_topk_fwd"]
             and launches["nls_vol_fwd"] == 0 and not any(plain_calls.values()),
             f"time-sharded config 7: launches {launches}, plain calls "
             f"{plain_calls}")
@@ -2396,13 +2417,14 @@ def denoiser_search(torch, model, inputs):
 @contextlib.contextmanager
 def captured_kernel_args(calls):
     """Record into `calls` (name -> list) the arguments of each call of
-    B1-B4 while inside: nls_topk's (args, kwargs, result), B2's and B4's
-    argument tuples (from their autograd Functions' backward), B3's (vid,
-    weights, flows, cfg). The wrappers and their launch counts are not
-    touched."""
+    B1-B4 and G1 while inside: nls_topk's (args, kwargs, result), B2's and
+    B4's argument tuples (from their autograd Functions' backward), B3's
+    (vid, weights, flows, cfg), nls_geometry's (flows, cells, kwargs). The
+    wrappers and their launch counts are not touched."""
     from stnls_tpu_torch.search import non_local_search
     from stnls_tpu_torch.ops import nls_cuda, agg_cuda
     b1_fn = non_local_search.nls_topk
+    g1_fn = non_local_search.nls_geometry
     b2_fn = nls_cuda._SearchDists.__dict__["backward"]
     b4_fn = agg_cuda._GatherStack.__dict__["backward"]
     apply = agg_cuda._GatherStack.apply
@@ -2411,6 +2433,10 @@ def captured_kernel_args(calls):
         out = b1_fn(*args, **kw)
         calls.setdefault("B1", []).append((args, kw, out))
         return out
+
+    def g1(flows, cells, **kw):
+        calls.setdefault("G1", []).append((flows.detach(), cells, kw))
+        return g1_fn(flows, cells, **kw)
 
     def b2(ctx, g_d):
         calls.setdefault("B2", []).append(
@@ -2427,6 +2453,7 @@ def captured_kernel_args(calls):
         return b4_fn.__func__(ctx, g_stack)
 
     non_local_search.nls_topk = b1
+    non_local_search.nls_geometry = g1
     nls_cuda._SearchDists.backward = staticmethod(b2)
     agg_cuda._GatherStack.apply = b3
     agg_cuda._GatherStack.backward = staticmethod(b4)
@@ -2434,6 +2461,7 @@ def captured_kernel_args(calls):
         yield calls
     finally:
         non_local_search.nls_topk = b1_fn
+        non_local_search.nls_geometry = g1_fn
         nls_cuda._SearchDists.backward = b2_fn
         agg_cuda._GatherStack.backward = b4_fn
         del agg_cuda._GatherStack.apply
@@ -2450,7 +2478,7 @@ def config6_kernels(torch, smi_line, inputs):
     with captured_kernel_args(calls):
         step(*inputs)
     require({k: len(v) for k, v in calls.items()} ==
-            {"B1": 1, "B2": 1, "B3": 1, "B4": 1},
+            {"B1": 1, "B2": 1, "B3": 1, "B4": 1, "G1": 1},
             f"config 6: kernel calls a step {calls.keys()}")
     (a1, kw1, (d1, c1)), = calls["B1"]
     a2, = calls["B2"]
@@ -2505,13 +2533,12 @@ def denoiser_phase(torch, dev, smi_line):
     log(f"[denoiser] config 6 at {cfg['H']}x{cfg['W']}, T {cfg['T']}: "
         f"launches {launches}, plain backward calls {plain_calls}, peak "
         f"{peak:.3f} GB")
-    require(all(launches[k] == 1 for k in ("nls_topk_fwd", "nls_topk_bwd",
-                                           "agg_gather_fwd",
-                                           "agg_gather_bwd")) and
-            not any(v for k, v in launches.items() if k not in (
-                "nls_topk_fwd", "nls_topk_bwd", "agg_gather_fwd",
-                "agg_gather_bwd")),
-            f"config 6: launches a step {launches}, not one each of B1-B4")
+    one_each = ("nls_topk_fwd", "nls_topk_bwd", "nls_geometry_fwd",
+                "agg_gather_fwd", "agg_gather_bwd")
+    require(all(launches[k] == 1 for k in one_each) and
+            not any(v for k, v in launches.items() if k not in one_each),
+            f"config 6: launches a step {launches}, not one each of B1-B4 "
+            "and G1")
     require(not any(plain_calls.values()),
             "config 6: a plain backward ran on the kernel route")
     require(tuple(res["out"].shape) == tuple(inputs[0].shape) and
@@ -2619,8 +2646,9 @@ def stack_phase(torch, dev, smi_line, data, step):
         launches = check_routes(
             torch, label, lambda m=module: attn_train_path(torch, m, data,
                                                            lr=STACK_LR),
-            ("nls_topk_fwd", "nls_topk_bwd", "agg_gather_fwd",
-             "agg_gather_bwd"), module, step, data,
+            ("nls_topk_fwd", "nls_topk_bwd", "nls_geometry_fwd",
+             "nls_geometry_bwd", "agg_gather_fwd", "agg_gather_bwd"),
+            module, step, data,
             dict(wt=step.search.wt, ps=step.search.ps))
 
         def fwd_bwd(m=module):
@@ -2689,8 +2717,9 @@ def vnlb_phase(torch, dev, smi_line):
     t_all = start.elapsed_time(end)
     launches = read_counts()[0]
     require(launches["nls_topk_fwd"] == cfg["nsteps"] and
-            sum(launches.values()) == cfg["nsteps"],
-            f"vnlb: launches {launches}, not one B1 a step")
+            launches["nls_geometry_fwd"] == cfg["nsteps"] and
+            sum(launches.values()) == 2 * cfg["nsteps"],
+            f"vnlb: launches {launches}, not one B1 and one G1 a step")
     search = NonLocalSearch(cfg["ws"], cfg["wt"], cfg["ps"], cfg["k"],
                             stride0=cfg["stride0"], self_action="anchor",
                             itype="int")
@@ -2780,6 +2809,7 @@ def search_bench_run(torch, dev, smi_line):
             f"launches in {calls} backwards")
     # the sequence's own search for the refine's offsets is one more B1
     require(launches["nls_topk_fwd"] == 2 * calls + 1 and
+            launches["nls_geometry_fwd"] == 2 * calls + 1 and
             launches["nls_topk_bwd"] == calls and
             not any(plain.values()),
             f"search_bench: launches {launches}, plain calls {plain}")
@@ -3258,7 +3288,8 @@ def scatter_phase(torch, dev, smi_line):
     out, g, (launches, plain) = res["kernels"]
     ref, g_ref, (p_launches, _) = res["plain"]
     require(launches["nls_topk_fwd"] == 1 and launches["nls_topk_bwd"] == 1
-            and sum(launches.values()) == 2 and not any(plain.values()),
+            and launches["nls_geometry_fwd"] == 1
+            and sum(launches.values()) == 3 and not any(plain.values()),
             f"scatter path: launches {launches}, plain calls {plain}")
     require(not any(p_launches.values()),
             f"scatter path: the plain route launched {p_launches}")
@@ -3461,6 +3492,102 @@ def agg_bench_phase(torch, dev, smi_line):
 T_START = time.perf_counter()
 
 
+GEO_NAMES = ("prop_h", "prop_w", "tj_k", "valid", "inds")
+
+
+def geometry_case(torch, smi_line, label, step, inputs):
+    """G1 and G2 at the arguments that one call of step(*inputs) gives G1:
+    G1's outputs bitwise equal to nls_geometry_plain's on the card (its
+    stride1 a power of two, where torch's division by it is exact too),
+    G2's flow gradient from seeded cotangents at TOL * max|ref| against
+    nls_geometry_bwd_plain (autograd through the plain version); the
+    CUDA-event times of both and of their plain versions, and their bounds
+    from the bytes each reads and writes."""
+    import math
+    from stnls_tpu_torch.attn_step import cuda_ms
+    from stnls_tpu_torch.ops import nls_geometry_cuda as geo
+    calls = {}
+    with captured_kernel_args(calls):
+        step(*inputs)
+    (flows, cells, kw), = calls["G1"]
+    del calls
+    require(math.frexp(kw["stride1"])[0] == 0.5,
+            f"G1 {label}: stride1 {kw['stride1']} is not a power of two")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reset_counts()
+    with torch.no_grad():
+        out = geo.nls_geometry(flows, cells, **kw)
+        ref = geo.nls_geometry_plain(flows, cells, **kw)
+    require(read_counts()[0]["nls_geometry_fwd"] == 1,
+            f"G1 {label}: not one launch")
+    for a, b, name in zip(out, ref, GEO_NAMES):
+        b = b.to(a.dtype)                   # tj_k: int64 -> int32
+        same = torch.equal(a.view(torch.int32), b.view(torch.int32)) \
+            if a.dtype == torch.float32 else torch.equal(a, b)
+        require(same, f"G1 {label}: {name} differs from the plain version")
+    g1_bytes = nb(flows, cells, *out)
+    g1_bound = bound_ms(g1_bytes, cells.numel() * FLOPS_PER_CELL["G1"])
+    del out, ref
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        t_g1 = cuda_ms(lambda: geo.nls_geometry(flows, cells, **kw), n=5)
+        t_g1p = cuda_ms(lambda: geo.nls_geometry_plain(flows, cells, **kw),
+                        n=3, warm=1)
+
+    full = dict(dict(query_t0=None, T_global=None, halo=0, full_ws=True,
+                     itype="float", anchor=False), **kw)
+    gen = torch.Generator(flows.device).manual_seed(SEED + 19)
+    g_ph, g_pw = (torch.randn(cells.shape, device=flows.device,
+                              generator=gen) for _ in range(2))
+    g_inds = torch.randn(tuple(cells.shape) + (3,), device=flows.device,
+                         generator=gen)
+    g_args = (flows, cells, g_ph, g_pw, g_inds)
+    reset_counts()
+    g_k = geo.nls_geometry_bwd(*g_args, **full)
+    torch.cuda.synchronize()
+    g_p = geo.nls_geometry_bwd_plain(*g_args, **full)
+    err, scale = grad_close(g_k, g_p, f"G2 {label} g_flows")
+    require(scale > 0, f"G2 {label}: the flows' gradient is 0")
+    require(torch.equal(g_k, geo.nls_geometry_bwd(*g_args, **full)),
+            f"G2 {label}: two calls differ")
+    g2_bytes = nb(*g_args, g_k)
+    g2_bound = bound_ms(g2_bytes, cells.numel() * FLOPS_PER_CELL["G2"])
+    del g_k, g_p
+    torch.cuda.empty_cache()
+    t_g2 = cuda_ms(lambda: geo.nls_geometry_bwd(*g_args, **full), n=5)
+    t_g2p = cuda_ms(lambda: geo.nls_geometry_bwd_plain(*g_args, **full),
+                    n=2, warm=1)
+    log(f"[geometry] {label}: cells {tuple(cells.shape)}, flows "
+        f"{tuple(flows.shape)}, stride1 {kw['stride1']}: G1's "
+        f"{', '.join(GEO_NAMES)} bitwise equal to the plain version's; G2 "
+        f"max|g| {scale:.3e}, max|kernel-plain| {err:.3e}, two calls equal")
+    log(f"[times] {smi_line}: {label} G1 {t_g1:.3f} ms (plain {t_g1p:.3f}; "
+        f"bound {g1_bound[0]:.4f} by {g1_bound[1]}, {g1_bytes / 1e9:.2f} "
+        f"GB); G2 {t_g2:.3f} ms (plain {t_g2p:.3f}; bound "
+        f"{g2_bound[0]:.4f} by {g2_bound[1]}, {g2_bytes / 1e9:.2f} GB)")
+    del g_args, g_ph, g_pw, g_inds, flows, cells
+    torch.cuda.empty_cache()
+    return {"G1": dict(ms=t_g1, plain_ms=t_g1p, bound_ms=g1_bound[0],
+                       bound_by=g1_bound[1], max_abs_err=0.),
+            "G2": dict(ms=t_g2, plain_ms=t_g2p, bound_ms=g2_bound[0],
+                       bound_by=g2_bound[1], max_abs_err=err)}
+
+
+def geometry_phase(torch, dev, smi_line, matrix):
+    """Phase 19: geometry_case at config 7's and config 6's arguments."""
+    from stnls_tpu_torch import matrix_steps as ms
+    torch.cuda.empty_cache()
+    step, inputs, _, _ = matrix["align1080p_fwd+bwd"]
+    rows = {"config7": geometry_case(torch, smi_line, "config 7 1080p",
+                                     step, inputs)}
+    inputs = ms.make_inputs(DENOISER, SEED, device=dev)
+    rows["config6"] = geometry_case(
+        torch, smi_line, "config 6 540p",
+        ms.make_step(DENOISER, seed=SEED + 6), inputs)
+    return rows
+
+
 def main():
     here = Path(__file__).resolve().parent
     if not (here / "stnls_tpu_torch" / "csrc").is_dir():
@@ -3549,7 +3676,8 @@ def main():
     geo = dict(wt=step.search.wt, ps=step.search.ps)
     train_launches = check_routes(
         torch, "train", lambda: train_path(torch, attn, step, data),
-        ("nls_topk_fwd", "nls_topk_bwd", "agg_gather_fwd", "agg_gather_bwd"),
+        ("nls_topk_fwd", "nls_topk_bwd", "nls_geometry_fwd",
+         "nls_geometry_bwd", "agg_gather_fwd", "agg_gather_bwd"),
         attn, step, data, geo)
 
     # 6. the volume path: NonLocalAttention with per-frame top-K
@@ -3787,8 +3915,12 @@ def main():
     # 18. benchmarks/agg_bench.py's twin at 512^2, ps 7 (B3, B7, B9)
     abp = agg_bench_phase(torch, dev, smi_line)
 
+    # 19. the geometry kernels G1 and G2 at config 7's and config 6's
+    # arguments
+    geo_rows = geometry_phase(torch, dev, smi_line, matrix)
+
     require("jax" not in sys.modules, "JAX was imported")
-    log(f"[chip_smoke] phases 1-18 took {time.perf_counter() - T_START:.1f} "
+    log(f"[chip_smoke] phases 1-19 took {time.perf_counter() - T_START:.1f} "
         "s")
     rows = (("B1", "nls_topk_fwd", "nls_pallas.py:761", t_b1, t_b1p),
             ("B2", "nls_topk_bwd", "nls_pallas_bwd.py:675", t_b2, t_b2p),
@@ -3864,6 +3996,16 @@ def main():
                                   max_abs_err=chunk_errs[key],
                                   library_ms=None)
         kernels.append(entry)
+    # G1 and G2: the port's own kernels (the JAX package builds this
+    # geometry in XLA, with no pl.pallas_call), at config 7's arguments;
+    # launches from phase 5's kernel route
+    for key, name in (("G1", "nls_geometry_fwd"), ("G2", "nls_geometry_bwd")):
+        row = geo_rows["config7"][key]
+        kernels.append(dict({
+            "name": name, "route": "cuda",
+            "source": "stnls_tpu_torch/csrc/nls_geometry.cu",
+            "replaces": None, "launches": train_launches[name]},
+            **row, library_ms=None, config6=geo_rows["config6"][key]))
     print(json.dumps({"steps": {
         "forward_ms": t_step, "forward_plain_ms": t_stepp,
         "forward_frames_per_s": T / (t_step / 1e3),

@@ -41,6 +41,9 @@ SIGNATURES = {
     "stnls_agg_scatter_add_bwd": [_P] * 6 + [_I] * 23 + [_P],
     "stnls_agg_pool_fwd": [_P] * 4 + [_I] * 16 + [_P],
     "stnls_agg_pool_bwd": [_P] * 6 + [_I] * 20 + [_P],
+    "stnls_nls_geometry_fwd": [_P] * 7 + [_I] * 16 + [_F, _F] + [_I] * 3
+    + [_P],
+    "stnls_nls_geometry_bwd": [_P] * 6 + [_I] * 15 + [_P],
     "stnls_nls_topk_compiled": [_I, _I],
     "stnls_nls_vol_compiled": [_I, _I],
 }

@@ -4,8 +4,9 @@ stnls_tpu/ops/nls_k.py).
 Given the selected window cells (integer ids chosen under no_grad by the
 search kernel or its plain version), `cells_geometry` turns the flows and
 cells into the sampled key positions, target frames, validity and the
-offsets the gather reads: the part of the search that stays in torch and
-carries the flow gradient (reflection sign flips, head broadcast).
+offsets the gather reads, differentiable in the flows (reflection sign
+flips, head broadcast): the plain version of the geometry kernel G1
+(ops/nls_geometry_cuda), which takes its place on the card.
 `dists_at_positions` evaluates the K patch distances at those positions
 with plain differentiable torch; its autograd is the function of the
 search backward kernel (B2, ops/nls_cuda.py), which takes its place on

@@ -15,9 +15,10 @@ config and the video shape alone:
     kernel (ops/nls_cuda.nls_topk, B1) selects the K winning window cells
     and their distances under no_grad, as the JAX package's TPU route does
     with `nls_pallas_topk`. The cells' key positions and offsets come from
-    torch geometry (ops/nls_k.cells_geometry, differentiable in the
-    flows), and ops/nls_cuda.search_dists returns B1's distances with the
-    K-sparse backward kernel (B2) as their gradient;
+    the geometry kernel (ops/nls_geometry_cuda.nls_geometry, G1, whose
+    backward G2 gives the flows their gradient), and
+    ops/nls_cuda.search_dists returns B1's distances with the K-sparse
+    backward kernel (B2) as their gradient;
   * the full volume (every other self_action and topk_mode, k <= 0,
     grad="dense", more ranked slots than B1 keeps, and frames too small
     for the lazy route's reflect pad):
@@ -48,7 +49,8 @@ from stnls_tpu_torch.ops import topk as topk_ops
 from stnls_tpu_torch.ops.nls import dist_type_select, nls_search_volume
 from stnls_tpu_torch.ops.nls_cuda import nls_topk, search_dists, KMAX, \
     ranked_slots
-from stnls_tpu_torch.ops.nls_k import cells_geometry, search_aux, aux_to_inds3
+from stnls_tpu_torch.ops.nls_geometry_cuda import nls_geometry
+from stnls_tpu_torch.ops.nls_k import search_aux, aux_to_inds3
 from stnls_tpu_torch.ops.nls_vol_cuda import search_volume
 from stnls_tpu_torch.search.utils import shape_vids, shape_flows, empty_flows
 
@@ -234,26 +236,22 @@ def _select_cells(vid0, vid1, flows, cfg, chunk):
 
 def _sparse_assemble(vid0, vid1, flows, d_sel, cells, cfg, chunk):
     """The selected dists with their gradient (B2) and the cells'
-    offsets, both differentiable in the flows through the geometry."""
+    offsets, both differentiable in the flows through the geometry (G1,
+    backward G2)."""
     H, W = vid0.shape[-2:]
     with span("stnls.search.geometry"):
-        geo = cells_geometry(
+        prop_h, prop_w, tj_k, valid, inds = nls_geometry(
             flows, cells, H=H, W=W, ws=cfg["ws"], wt=cfg["wt"],
             stride0=cfg["stride0"], stride1=cfg["stride1"],
             full_ws=cfg["full_ws"], itype=cfg["itype"],
+            anchor=cfg["self_action"] in ("anchor", "anchor_self"),
             halo=(vid0.shape[2] - cells.shape[2]) // 2, **chunk)
-        d = search_dists(vid0, vid1, geo["prop_h"], geo["prop_w"], d_sel,
-                         geo["tj_k"], geo["valid"], ps=cfg["ps"],
-                         stride0=cfg["stride0"], dist_type=cfg["dist_type"],
+        d = search_dists(vid0, vid1, prop_h, prop_w, d_sel, tj_k, valid,
+                         ps=cfg["ps"], stride0=cfg["stride0"],
+                         dist_type=cfg["dist_type"],
                          dilation=int(cfg["dilation"]),
                          use_adj=cfg["use_adj"], itype=cfg["itype"],
                          **chunk)
-        inds = torch.stack([geo["dt"], geo["dh"], geo["dw"]], dim=-1)
-        if cfg["self_action"] in ("anchor", "anchor_self"):
-            # anchored slot-0 offsets are exact zeros; its dist is the
-            # self cell's, with its gradient through the positions
-            inds = torch.cat([torch.zeros_like(inds[..., :1, :]),
-                              inds[..., 1:, :]], dim=-2)
         return d, inds
 
 

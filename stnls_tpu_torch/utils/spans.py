@@ -17,8 +17,10 @@ Names are stnls.<layer>.<stage>:
   stnls.search               NonLocalSearch.forward, any route
   stnls.search.flow          search_flow inside it (nn/flow)
   stnls.search.select        the selecting kernel (B1) and its input copies
-  stnls.search.geometry      the lazy route's cells_geometry, its offsets
-                             and the anchored slot 0 (ops/nls_k)
+  stnls.search.geometry      the lazy route's geometry: its positions,
+                             frames and offsets with the anchored slot 0
+                             (ops/nls_geometry_cuda: the kernel G1 on the
+                             card, ops/nls_k.cells_geometry on the CPU)
   stnls.search.volume        the volume or lattice route: the volume and the
                              self_action and top-K menu (ops/anchor,
                              ops/topk)

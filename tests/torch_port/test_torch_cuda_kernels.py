@@ -5,13 +5,15 @@ imports no JAX, so it runs on a machine without it:
     python -m pytest --noconftest -m cuda tests/torch_port/test_torch_cuda_kernels.py
 """
 
+import math
 import sys
 
 import numpy as np
 import pytest
 import torch
 
-from stnls_tpu_torch.ops import agg_cuda, agg_sp_cuda, nls_cuda, nls_vol_cuda
+from stnls_tpu_torch.ops import agg_cuda, agg_sp_cuda, nls_cuda, \
+    nls_geometry_cuda, nls_vol_cuda
 from stnls_tpu_torch.ops.nls_k import nls_dists_at_cells, cells_geometry
 
 from torch_port_helpers import assert_close, assert_grad_close, \
@@ -1312,3 +1314,132 @@ def test_spans_open_around_the_kernels_forward_and_backward(dev):
     for base in ("nls_topk_kernel", "nls_topk_bwd_query_kernel",
                  "agg_gather_fwd_pixel_kernel", "agg_gather_bwd_tile_kernel"):
         assert any(base in k for k in kernels), (base, sorted(kernels))
+
+
+# -- the lazy route's geometry: G1 and its flow backward G2 --
+# one dict a case: the int path, stride1 1, full_ws off, flows for every
+# head (HDf = HD), W_t flow slots (the reference frame's included), no
+# anchor, a temporal chunk with its halo, flows that reach past the
+# frame's edges (reflected), a strided query grid, a stride1 that is not a
+# power of two
+GEO_CASES = [{}, dict(itype="int"), dict(stride1=1), dict(full_ws=False),
+             dict(hdf=HD), dict(slots="W_t"), dict(anchor=False),
+             dict(chunk=True), dict(amp=12.), dict(stride0=2),
+             dict(itype="int", anchor=False, full_ws=False, hdf=HD,
+                  slots="W_t"),
+             dict(itype="int", chunk=True, amp=12.),
+             dict(stride1=1, full_ws=False, chunk=True, hdf=HD, amp=12.),
+             dict(stride1=0.75), dict(stride1=0.75, amp=12., slots="W_t")]
+GEO_NAMES = ("prop_h", "prop_w", "tj_k", "valid", "inds")
+
+
+def _geometry_case(dev, itype="float", stride1=0.5, full_ws=True, hdf=1,
+                   slots="W_t-1", anchor=True, chunk=False, amp=3.,
+                   stride0=1, seed=9, K=7, wt=2, Tq=4):
+    """Seeded flows and uniform window cells on 24 x 20 frames, Tq query
+    frames (a chunk at t0 Tq of 2 Tq frames, halo Tq); the arguments of
+    nls_geometry."""
+    from stnls_tpu_torch.ops.geometry import num_queries
+    Hc, Wc = 24, 20
+    T_g = 2 * Tq if chunk else Tq
+    W_t = min(2 * wt + 1, T_g)
+    St = W_t if slots == "W_t" else W_t - 1
+    nH, nW = num_queries(Hc, Wc, stride0)
+    gen = torch.Generator(dev).manual_seed(seed)
+    flows = amp * torch.randn((B, hdf, Tq, St, 2, nH, nW), device=dev,
+                              generator=gen)
+    cells = torch.randint(0, W_t * 25, (B, HD, Tq, nH, nW, K), device=dev,
+                          generator=gen, dtype=torch.int32)
+    kw = dict(H=Hc, W=Wc, ws=5, wt=wt, stride0=stride0,
+              stride1=1 if itype == "int" else stride1, full_ws=full_ws,
+              itype=itype, anchor=anchor)
+    if chunk:
+        kw.update(query_t0=Tq, T_global=T_g, halo=Tq)
+    return flows, cells, kw
+
+
+def _bits(x):
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+@pytest.mark.parametrize("case", GEO_CASES)
+def test_geometry_kernel_matches_plain_bitwise(dev, case):
+    """G1's positions, frames, validity and offsets are the plain
+    composition's (cells_geometry, the stacked offsets, the anchored slot)
+    bit for bit, on the CPU and, where stride1 is a power of two, on the
+    card (torch divides a CUDA tensor by a scalar through its reciprocal);
+    its frames are int32."""
+    flows, cells, kw = _geometry_case(dev, **case)
+    n0 = nls_geometry_cuda.nls_geometry.launches
+    out = nls_geometry_cuda.nls_geometry(flows, cells, **kw)
+    assert nls_geometry_cuda.nls_geometry.launches == n0 + 1
+    assert out[2].dtype == torch.int32
+    refs = [nls_geometry_cuda.nls_geometry_plain(flows.cpu(), cells.cpu(),
+                                                 **kw)]
+    if math.frexp(kw["stride1"])[0] == 0.5:
+        refs.append(nls_geometry_cuda.nls_geometry_plain(flows, cells, **kw))
+    for ref in refs:
+        ref = ref[:2] + (ref[2].to(torch.int32),) + ref[3:]
+        for a, b, name in zip(out, ref, GEO_NAMES):
+            b = b.to(dev)
+            assert a.shape == b.shape and a.dtype == b.dtype, name
+            assert torch.equal(_bits(a), _bits(b)), name
+    assert out[3].any()
+    if kw["anchor"]:
+        assert not out[4][..., 0, :].any()
+
+
+@pytest.mark.parametrize("case", [{}, dict(anchor=False), dict(hdf=HD),
+                                  dict(slots="W_t"), dict(chunk=True),
+                                  dict(amp=12.), dict(inds_grad=False),
+                                  dict(itype="int"),
+                                  dict(wt=5, Tq=6, chunk=True, hdf=HD)])
+def test_geometry_backward_kernel_matches_autograd(dev, case):
+    """G2's flow gradient against autograd through the plain composition,
+    at 1e-4 * max|ref| (the sums over heads and cells run in another
+    order); zero in the int path. The last case's 11 slots take G2 two
+    passes over the cells."""
+    case = dict(case)
+    inds_grad = case.pop("inds_grad", True)
+    flows, cells, kw = _geometry_case(dev, **case)
+    gen = torch.Generator(dev).manual_seed(3)
+    g_pos = [torch.randn(cells.shape, device=dev, generator=gen)
+             for _ in range(2)]
+    g_inds = torch.randn(tuple(cells.shape) + (3,), device=dev, generator=gen)
+
+    def grad(fn):
+        f = flows.clone().requires_grad_()
+        ph, pw, _, _, inds = fn(f, cells, **kw)
+        loss = (ph * g_pos[0]).sum() + (pw * g_pos[1]).sum()
+        if inds_grad and inds.is_floating_point():
+            loss = loss + (inds * g_inds).sum()
+        return torch.autograd.grad(loss, f)[0]
+
+    n0 = nls_geometry_cuda.nls_geometry_bwd.launches
+    g_k = grad(nls_geometry_cuda.nls_geometry)
+    is_float = kw["itype"] == "float"
+    assert nls_geometry_cuda.nls_geometry_bwd.launches == n0 + is_float
+    g_p = grad(nls_geometry_cuda.nls_geometry_plain)
+    assert_grad_close(g_k, g_p, "g_flows")
+    assert bool(g_k.any()) == is_float
+    if is_float:
+        assert torch.equal(g_k, grad(nls_geometry_cuda.nls_geometry))
+
+
+def test_lazy_search_launches_the_geometry_kernel_once_a_call(dev):
+    """Each lazy-route search call launches G1 once, and its backward G2
+    once where the flows need a gradient."""
+    from stnls_tpu_torch.search.non_local_search import NonLocalSearch
+    v0, v1, flows = _inputs(dev, 2)
+    search = NonLocalSearch(5, 1, ps=3, k=6, nheads=HD,
+                            self_action="anchor", stride1=0.5)
+    n0 = nls_geometry_cuda.nls_geometry.launches
+    nb0 = nls_geometry_cuda.nls_geometry_bwd.launches
+    with torch.no_grad():
+        search(v0, v1, flows)
+    f = flows.clone().requires_grad_()
+    dists, inds = search(v0, v1, f)
+    assert nls_geometry_cuda.nls_geometry.launches == n0 + 2
+    (dists.pow(2).sum() + inds.pow(2).sum()).backward()
+    assert nls_geometry_cuda.nls_geometry_bwd.launches == nb0 + 1
+    assert f.grad.abs().max() > 0
