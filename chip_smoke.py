@@ -159,6 +159,14 @@ Phases, in order; any failure raises and exits non-zero:
      the stacked offsets, the anchored slot) on the same card, G2's flow
      gradient from seeded cotangents at 1e-4 * max|ref| against autograd
      through that plain version, their times, plain times and bounds.
+ 20. RVRT's alignment (models/rvrt.Align) at rvrt256's widths (2 clips
+     of 64^2 features, 12 heads of 32, ws 9, K 9, prod), forward and
+     backward: one launch each of B1, G1, B3, B4 and B2 (counted from
+     zero), B1's dists and offsets bitwise equal to the plain lazy
+     route's, the output at TOL and every gradient at 1e-4 * max|ref|
+     (or the median gradient's) against it, B2, B3 and B4 at their
+     arguments against their plain versions, and their times and bounds
+     there.
 B2's, B3's, B5's, B6's and B7-B10's times are printed with those of
 their previous design in parentheses (EARLIER_MS).
 The line before the last is a JSON object of the kernels (G1 and G2 at
@@ -167,7 +175,8 @@ B6 with a "chunk" entry of their chunk mode, B6 with a "stats" entry of
 its global atomics at the slice, B1-B4 with a "config6" entry at config
 6's arguments, B1 and B2 with a "search_bench" entry at the search
 twin's and a "scatter_path" entry at phase 17's, B3, B7 and B9 with an
-"agg_bench" entry at phase 18's); the last line is {"ok": true,
+"agg_bench" entry at phase 18's, B1-B4 and G1 with an "rvrt256" entry at
+phase 20's); the last line is {"ok": true,
 "device": {...}}. The script imports nothing of JAX.
 """
 
@@ -3588,6 +3597,167 @@ def geometry_phase(torch, dev, smi_line, matrix):
     return rows
 
 
+# RVRT's alignment at rvrt256's widths (bench_h100/configs/rvrt256.json):
+# a batch of 2 clips of 64^2 features (256^2 frames at 1/4 scale), 192
+# channels projected to 12 heads of 32, ws 9, K 9, prod distances; smooth
+# flows of amplitude 2
+RVRT_ALIGN = dict(B=2, h=64, w=64, C=192, heads=12, ws=9, k=9, flow_amp=2.)
+
+
+def rvrt_align_phase(torch, dev, smi_line):
+    """Phase 20: one RVRT alignment (models/rvrt.Align, its four (query
+    frame, key frame) pairs in one PairedSearch and one NonLocalGather
+    call) at RVRT_ALIGN, forward and the backward of a seeded cotangent
+    into its inputs and parameters. Through the kernels: one launch each
+    of B1, G1, B3, B4 and B2, counted from zero, and no plain backward.
+    Against the plain lazy route (plain_route) on the same inputs: B1's
+    dists and offsets (G1's geometry) bitwise equal, the aligned features
+    at TOL, every gradient at TOL times the larger of its max|ref| and
+    the median gradient's (k's bias has none but rounding). At the
+    alignment gave them: B2, B3 and B4 against their plain versions at
+    TOL * max|ref| (position and offset gradients off the integer
+    lattice). Returns {kernel: dict(ms, bound_ms, bound_by, launches,
+    max_abs_err)} with the CUDA-event time of each at those arguments."""
+    from stnls_tpu_torch.attn_step import cuda_ms, smooth_flows
+    from stnls_tpu_torch.models.rvrt import Align
+    from stnls_tpu_torch.ops import nls_cuda, agg_cuda, \
+        nls_geometry_cuda as geo
+    c = RVRT_ALIGN
+    B, h, w, C = c["B"], c["h"], c["w"], c["C"]
+    rng = np.random.default_rng(SEED + 20)
+    torch.manual_seed(SEED + 20)
+    align = Align(C, c["heads"], c["ws"], c["k"]).to(dev)
+    feats = [torch.from_numpy(rng.standard_normal((B, 2, h, w, C))
+                              .astype(np.float32)).to(dev) for _ in range(3)]
+    flows = torch.from_numpy(smooth_flows(rng, (B, 4, 2, h, w),
+                                          amp=c["flow_amp"])).to(dev) \
+        .reshape(B, 2, 2, 2, h, w)
+    g_out = torch.from_numpy(rng.standard_normal((B, 2, h, w, C))
+                             .astype(np.float32)).to(dev)
+    names = ["f_q", "f_k", "p"] + [n for n, _ in align.named_parameters()]
+
+    def run():
+        x = [f.clone().requires_grad_() for f in feats]
+        sel = []
+        o, _ = align(*x, flows, sel)
+        grads = torch.autograd.grad(o, x + list(align.parameters()), g_out)
+        return o.detach(), sel[0], grads
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reset_counts()
+    calls = {}
+    with captured_kernel_args(calls):
+        o_k, sel_k, g_k = run()
+    torch.cuda.synchronize()
+    launches, plain_calls = read_counts()
+    one_each = ("nls_topk_fwd", "nls_geometry_fwd", "agg_gather_fwd",
+                "agg_gather_bwd", "nls_topk_bwd")
+    require(all(launches[k] == 1 for k in one_each) and
+            not any(v for k, v in launches.items() if k not in one_each),
+            f"rvrt256 Align: launches {launches}, not one each of B1, G1, "
+            "B3, B4 and B2")
+    require(not any(plain_calls.values()),
+            "rvrt256 Align: a plain backward ran on the kernel route")
+    require({k: len(v) for k, v in calls.items()} ==
+            {k: 1 for k in ("B1", "G1", "B3", "B4", "B2")},
+            f"rvrt256 Align: kernel calls {calls.keys()}")
+    with plain_route():
+        o_p, sel_p, g_p = run()
+    for key in ("dists", "inds"):
+        require(torch.equal(sel_k[key], sel_p[key]), f"rvrt256 Align: the "
+                f"search's {key} differ from the plain lazy route's")
+    err_o = close(o_k, o_p, "rvrt256 Align output vs the plain route")
+    # each gradient at TOL times the larger of its own max|ref| and the
+    # median tensor's: k's bias has no gradient in exact arithmetic (it
+    # adds q . b to all 2K logits of a query), only rounding
+    scales = [float(b.abs().max()) for b in g_p]
+    median = sorted(scales)[len(scales) // 2]
+    err_g = 0.
+    for a, b, n, scale in zip(g_k, g_p, names, scales):
+        err = float((a - b).abs().max())
+        require(bool(a.isfinite().all()) and err <= TOL * max(scale, median),
+                f"rvrt256 Align grad {n} vs the plain route: max|err| "
+                f"{err:.3e} > 1e-4 * {max(scale, median):.3e}")
+        err_g = max(err_g, err / max(scale, median))
+    del o_p, g_p, sel_p, g_k
+
+    (a1, kw1, (d1, c1)), = calls["B1"]
+    (g1_flows, g1_cells, g1_kw), = calls["G1"]
+    a2, = calls["B2"]
+    a3, = calls["B3"]
+    a4, = calls["B4"]
+    errs = {"B1": 0., "G1": 0.}
+    g_b2 = nls_cuda.nls_topk_bwd(*a2)
+    torch.cuda.synchronize()
+    g_b2p = nls_cuda.nls_topk_bwd_plain(*a2)
+    off = off_integer(a2[2]) & off_integer(a2[3])
+    errs["B2"] = max(grad_close(
+        gk if mask is None else gk[mask], gp if mask is None else gp[mask],
+        f"B2 rvrt256 {what}")[0] for gk, gp, what, mask in zip(
+            g_b2, g_b2p, ("g_vid0", "g_vid1", "g_prop_h", "g_prop_w"),
+            (None, None, off, off)))
+    del g_b2, g_b2p
+    with torch.no_grad():
+        s_k = agg_cuda.nl_gather_stack(*a3[:3], **a3[3])
+        torch.cuda.synchronize()
+        s_p = agg_cuda.nl_gather_stack_plain(*a3[:3], **a3[3])
+    errs["B3"] = close(s_k, s_p, "B3 rvrt256 stack vs plain")
+    del s_k, s_p
+    g_b4 = agg_cuda.nl_gather_stack_bwd(*a4)
+    torch.cuda.synchronize()
+    g_b4p = agg_cuda._gather_bwd_plain(*a4)
+    off = off_integer(a4[2][..., 1]) & off_integer(a4[2][..., 2])
+    errs["B4"] = 0.
+    for gk, gp, what in zip(g_b4, g_b4p, ("g_vid", "g_weights", "g_flows")):
+        if gk is None:
+            require(gp is None, f"B4 rvrt256: {what} only on one side")
+            continue
+        if what == "g_flows":
+            gk, gp = gk[..., 1:][off], gp[..., 1:][off]
+        errs["B4"] = max(errs["B4"], grad_close(gk, gp,
+                                                f"B4 rvrt256 {what}")[0])
+    del g_b4, g_b4p
+    torch.cuda.empty_cache()
+
+    g1_out = geo.nls_geometry(g1_flows, g1_cells, **g1_kw)
+    bounds = {"B1": bound_ms(*b1_work(*a1, d1, c1, ws=kw1["ws"],
+                                      wt=kw1["wt"], ps=kw1["ps"])),
+              "G1": bound_ms(nb(g1_flows, g1_cells, *g1_out),
+                             g1_cells.numel() * FLOPS_PER_CELL["G1"]),
+              "B3": bound_ms(*b3_work(*a3[:3], a3[3]["ps"],
+                                      a3[3]["stride0"])),
+              "B2": bound_ms(*b2_work(a2)),
+              "B4": bound_ms(*b4_work(a4))}
+    del g1_out
+    with torch.no_grad():
+        t = {"B1": cuda_ms(lambda: nls_cuda.nls_topk(*a1, **kw1), n=5),
+             "G1": cuda_ms(lambda: geo.nls_geometry(g1_flows, g1_cells,
+                                                    **g1_kw), n=5),
+             "B3": cuda_ms(lambda: agg_cuda.nl_gather_stack(
+                 *a3[:3], **a3[3]), n=5),
+             "B2": cuda_ms(lambda: nls_cuda.nls_topk_bwd(*a2), n=5),
+             "B4": cuda_ms(lambda: agg_cuda.nl_gather_stack_bwd(*a4), n=5)}
+    kernel = dict(B1="nls_topk_fwd", G1="nls_geometry_fwd",
+                  B3="agg_gather_fwd", B2="nls_topk_bwd",
+                  B4="agg_gather_bwd")
+    log(f"[rvrt256] Align at {B} clips of {h}x{w}, {c['heads']} heads of "
+        f"{2 * C // c['heads']}, ws {c['ws']}, K {c['k']}, prod (video "
+        f"{tuple(a1[0].shape)}): launches {launches}; B1's dists and "
+        f"offsets bitwise equal to the plain lazy route's; output "
+        f"max|kernels-plain| {err_o:.3e}, gradients {err_g:.3e} of the "
+        "larger of max|ref| and the median tensor's; "
+        "max|kernel-plain| at its arguments " + ", ".join(
+            f"{k} {v:.3e}" for k, v in errs.items()))
+    log(f"[times] {smi_line}: rvrt256 Align: " + "; ".join(
+        f"{k} {t[k]:.3f} ms (bound {bounds[k][0]:.4f} by {bounds[k][1]})"
+        for k in t))
+    return {kernel[k]: dict(ms=t[k], bound_ms=bounds[k][0],
+                            bound_by=bounds[k][1],
+                            launches=launches[kernel[k]],
+                            max_abs_err=errs[k]) for k in t}
+
+
 def main():
     here = Path(__file__).resolve().parent
     if not (here / "stnls_tpu_torch" / "csrc").is_dir():
@@ -3919,8 +4089,12 @@ def main():
     # arguments
     geo_rows = geometry_phase(torch, dev, smi_line, matrix)
 
+    # 20. RVRT's alignment at rvrt256's widths: B1, G1, B3, B4 and B2 one
+    # launch each, against the plain lazy route and their plain versions
+    rvrt = rvrt_align_phase(torch, dev, smi_line)
+
     require("jax" not in sys.modules, "JAX was imported")
-    log(f"[chip_smoke] phases 1-19 took {time.perf_counter() - T_START:.1f} "
+    log(f"[chip_smoke] phases 1-20 took {time.perf_counter() - T_START:.1f} "
         "s")
     rows = (("B1", "nls_topk_fwd", "nls_pallas.py:761", t_b1, t_b1p),
             ("B2", "nls_topk_bwd", "nls_pallas_bwd.py:675", t_b2, t_b2p),
@@ -3990,6 +4164,10 @@ def main():
             # phase 18: at agg_bench's arguments (512^2, 2 heads of F 8,
             # T 3, K 10, ps 7), launches in its sequence
             entry["agg_bench"] = abp["entry"][key]
+        if name in rvrt:
+            # phase 20: at rvrt256's alignment (2 clips of 64^2, 12 heads
+            # of 32, ws 9, K 9, prod), launches an alignment
+            entry["rvrt256"] = rvrt[name]
         if key in t_chunk:
             entry["chunk"] = dict(t_chunk[key],
                                   launches=chunk_launches[name],
@@ -4006,6 +4184,8 @@ def main():
             "source": "stnls_tpu_torch/csrc/nls_geometry.cu",
             "replaces": None, "launches": train_launches[name]},
             **row, library_ms=None, config6=geo_rows["config6"][key]))
+        if name in rvrt:
+            kernels[-1]["rvrt256"] = rvrt[name]
     print(json.dumps({"steps": {
         "forward_ms": t_step, "forward_plain_ms": t_stepp,
         "forward_frames_per_s": T / (t_step / 1e3),

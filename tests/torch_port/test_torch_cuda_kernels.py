@@ -1443,3 +1443,28 @@ def test_lazy_search_launches_the_geometry_kernel_once_a_call(dev):
     (dists.pow(2).sum() + inds.pow(2).sum()).backward()
     assert nls_geometry_cuda.nls_geometry_bwd.launches == nb0 + 1
     assert f.grad.abs().max() > 0
+
+
+def test_rvrt_on_the_card_matches_the_reference(dev):
+    """RVRT at its small test size (torch_port_helpers.RVRT_SMALL) on the
+    card, forward and backward: each of its 8 alignments launches B1, G1
+    and B3 once, and its backward B4 and B2 once; out, the loss, every
+    gradient and the selection against the plain reference on the CPU,
+    judged at the card's selection. Tolerances as the CPU test's
+    (test_torch_rvrt.py), the card's cuBLAS and cuDNN summing in other
+    orders again."""
+    from bench_h100.reference import rvrt256 as rvrt_reference
+    from torch_port_helpers import rvrt_case, rvrt_train_step
+    cfg, params, clip = rvrt_case(8)
+    kernels = (nls_cuda.nls_topk, nls_geometry_cuda.nls_geometry,
+               agg_cuda.nl_gather_stack, agg_cuda.nl_gather_stack_bwd,
+               nls_cuda.nls_topk_bwd)
+    before = [k.launches for k in kernels]
+    run = rvrt_train_step(cfg, params, clip, dev)
+    n_align = 4 * (cfg["T"] // 2 - 1)
+    assert [k.launches - b for k, b in zip(kernels, before)] == \
+        [n_align] * len(kernels)
+    nums = rvrt_reference.judge(clip, run, params, cfg, "train")
+    tols = dict(out_err=3e-6, loss_err=1e-6, grad_err=1e-5,
+                dists_err=1e-4, inds_err=1e-4, flow_err=1e-5)
+    assert all(nums[k] <= tol for k, tol in tols.items()), nums

@@ -166,3 +166,67 @@ def test_refine_and_scatter_open_their_spans():
                                                        labels)
     assert _spans(prof) == {"stnls.agg.scatter": []}
     assert float(mask.sum()) == B * HD * T * H * W * K
+
+
+def _backward_spans(prof):
+    """{backward node name: {the stnls.* ranges around the forward op that
+    made it, innermost first}} of every autograd node the profile ran,
+    matched by sequence number (the last forward op recorded with it)."""
+    def chain(evt):
+        out, up = [], evt.cpu_parent
+        while up is not None:
+            if up.name.startswith("stnls."):
+                out.append(up.name)
+            up = up.cpu_parent
+        return tuple(out)
+
+    def in_backward(evt):
+        up = evt.cpu_parent
+        while up is not None:
+            if up.name.startswith("autograd::engine::evaluate_function"):
+                return True
+            up = up.cpu_parent
+        return False
+
+    maker = {}
+    for evt in sorted(prof.events(), key=lambda e: e.time_range.start):
+        if evt.sequence_nr >= 0 and not evt.name.startswith(
+                "autograd::engine") and not in_backward(evt):
+            maker[evt.sequence_nr] = chain(evt)
+    found = {}
+    prefix = "autograd::engine::evaluate_function: "
+    for evt in prof.events():
+        if evt.name.startswith(prefix) and evt.sequence_nr in maker:
+            found.setdefault(evt.name[len(prefix):], set()).add(
+                maker[evt.sequence_nr])
+    return found
+
+
+def test_rvrt_opens_its_spans_with_the_search_and_gather_inside_align():
+    """RVRT forward and backward at a small size (two clips): the Swin
+    layers, the alignment and the flow composition open their spans; the
+    search's and the gather's spans open inside stnls.rvrt.align, and
+    the backward nodes of the search (B2's, _SearchDistsBackward), of the
+    gather and of the Swin layers were made inside their spans."""
+    from stnls_tpu_torch.models import RVRT
+    from torch_port_helpers import RVRT_MODEL_KEYS, rvrt_case
+    cfg, params, clip = rvrt_case(0, T=4)
+    net = RVRT(k=cfg["K"], **{k: cfg[k] for k in RVRT_MODEL_KEYS})
+    net.load_state_dict(params)
+    with torch.profiler.profile() as prof:
+        out = net(clip["lq"], clip["fflow"], clip["bflow"])
+        out.pow(2).mean().backward()
+    spans = _spans(prof)
+    for name in ("swin", "align", "flow"):
+        assert spans[f"stnls.rvrt.{name}"] == [], name
+    for name in ("stnls.search.select", "stnls.search.geometry",
+                 "stnls.agg.gather"):
+        assert spans[name] == ["stnls.rvrt.align"], name
+    assert spans["stnls.search.dists.bwd"] == []
+    made = _backward_spans(prof)
+    assert made["_SearchDistsBackward"] == {
+        ("stnls.search.geometry", "stnls.rvrt.align")}
+    assert ("stnls.agg.gather", "stnls.rvrt.align") in \
+        set().union(*made.values())
+    assert made["SoftmaxBackward0"] == {("stnls.rvrt.swin",),
+                                        ("stnls.rvrt.align",)}

@@ -202,3 +202,62 @@ def parallel_jobs(rank, world, jobs):
         out.update({f"{name}/{key}": val.detach().numpy()
                     for key, val in res.items()})
     return out
+
+
+# RVRT at a small size: T 6 frames (three clips, so that the _2 branches
+# read the _1 branches' updated flows) of 32^2, RVRT's own groups, window
+# (2, 4, 4) over the 8^2 features
+RVRT_SMALL = dict(B=1, T=6, H=32, W=32, in_chans=4, embed_dim=24,
+                  num_heads=2, window_size=[2, 4, 4], num_blocks=[1, 2, 1],
+                  depth=2, mlp_ratio=2, inputconv_groups=[1, 3, 4, 6, 8, 4],
+                  attention_heads=2, ws=3, K=4)
+RVRT_MODEL_KEYS = ("in_chans", "embed_dim", "num_heads", "window_size",
+                   "num_blocks", "depth", "mlp_ratio", "inputconv_groups",
+                   "attention_heads", "ws")
+
+
+def rvrt_case(seed=0, **size):
+    """(cfg, params, clip) of RVRT at RVRT_SMALL (entries replaced by
+    `size`): weights uniform within 1/sqrt(fan-in) (relative-position
+    tables within 0.02, LayerNorms at 1 and 0) from a torch.Generator;
+    clip {lq [B,T,4,H,W], clean, fflow, bflow [B,T-1,2,H/4,W/4]}."""
+    from bench_h100.reference import rvrt256 as rvrt_reference
+    cfg = dict(RVRT_SMALL, **size)
+    gen = torch.Generator().manual_seed(seed)
+    params = {}
+    for name, (shape, init) in rvrt_reference.parameter_shapes(cfg).items():
+        if init[0] in ("one", "zero"):
+            params[name] = torch.full(shape, float(init[0] == "one"))
+            continue
+        bound = init[1] ** -0.5 if init[0] == "fan" else 0.02
+        params[name] = (torch.rand(shape, generator=gen) * 2 - 1) * bound
+    B, T, H, W = (cfg[k] for k in "BTHW")
+    clean = torch.randn((B, T, 3, H, W), generator=gen)
+    sigma = torch.rand((B, 1, 1, 1, 1), generator=gen) * 0.2
+    noisy = clean + sigma * torch.randn((B, T, 3, H, W), generator=gen)
+    flows = [2. * (torch.rand((B, T - 1, 2, H // 4, W // 4), generator=gen)
+                   * 2 - 1) for _ in range(2)]
+    clip = dict(lq=torch.cat([noisy, sigma.expand(B, T, 1, H, W)], 2),
+                clean=clean, fflow=flows[0], bflow=flows[1])
+    return cfg, params, clip
+
+
+def rvrt_train_step(cfg, params, clip, device):
+    """The port's RVRT on `device`: out, the loss mean((out - clean)^2),
+    every parameter's gradient and the alignments' selections, as the
+    reference's judge reads them (on the CPU)."""
+    from stnls_tpu_torch.models import RVRT
+    net = RVRT(k=cfg["K"], **{k: cfg[k] for k in RVRT_MODEL_KEYS})
+    net.load_state_dict(params)
+    net.to(device)
+    c = {k: v.to(device) for k, v in clip.items()}
+    selections = []
+    out = net(c["lq"], c["fflow"], c["bflow"], selections)
+    loss = (out.contiguous() - c["clean"]).pow(2).mean()
+    names, leaves = zip(*net.named_parameters())
+    grads = torch.autograd.grad(loss, leaves)
+    cpu = torch.device("cpu")
+    return dict(out=out.detach().to(cpu), loss=loss.detach().to(cpu),
+                grads={n: g.to(cpu) for n, g in zip(names, grads)},
+                align=[{k: v.to(cpu) for k, v in s.items()}
+                       for s in selections])
