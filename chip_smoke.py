@@ -21,14 +21,16 @@ Phases, in order; any failure raises and exits non-zero:
      corner): at least 8x fewer on the slice's dense cotangent;
   4. the forward path at full width (B=1, T=5, F=16, 128^2):
      NonLocalAttention and the bench attention step, through the kernels
-     and through the plain versions (`plain_route`), with launch counts;
+     and through the plain versions (`plain_route`), with launch counts
+     (one F1 a call);
   5. the training path at full width: forward and backward of the bench
      step and of NonLocalAttention into the video, the flows and the
      parameters, then 3 SGD steps of NonLocalAttention towards a fixed
-     target, through the kernels (launch counts of B1-B4 and of the
-     geometry kernels G1 and G2, no plain backward called), through the
-     plain backwards on the kernels' forward and through the plain route
-     (which swaps G1 and G2 too); gradients and each parameter's
+     target, through the kernels (launch counts of B1-B4, of the
+     geometry kernels G1 and G2 and of the flow walk F1 and F2, no plain
+     backward called), through the plain backwards on the kernels' forward
+     and through the plain route (which swaps G1, G2, F1 and F2 too);
+     gradients and each parameter's
      SGD update compared at 1e-4 * max|ref|, or at 1e-3 where the failing
      element's own queries show a softmax near-tie (near_tie); elements
      of a video or flow in reach of a query whose cells differ between
@@ -104,8 +106,8 @@ Phases, in order; any failure raises and exits non-zero:
  15. the model layer: (a) benchmarks/matrix.py's config 6, the
      NonLocalDenoiser train step (stnls_tpu_torch/matrix_steps.py,
      parameters from a seeded torch.Generator) at its published 540x960,
-     T 3: one step through the kernels (one launch each of B1-B4 and G1, no
-     plain backward), the output and every parameter's gradient finite
+     T 3: one step through the kernels (one launch each of B1-B4, G1 and
+     F1, no plain backward), the output and every parameter's gradient finite
      and non-zero, 3 SGD steps lowering the loss, its time, frames/s and
      peak memory, and B1-B4's times and bounds at the arguments the step
      gives them; (b) the same step and SGD steps on a 270x480 crop
@@ -166,11 +168,20 @@ Phases, in order; any failure raises and exits non-zero:
      route's, the output at TOL and every gradient at 1e-4 * max|ref|
      (or the median gradient's) against it, B2, B3 and B4 at their
      arguments against their plain versions, and their times and bounds
-     there.
+     there;
+ 21. the search-flow walk (F1, stnls_tpu_torch/csrc/search_flow.cu) and
+     its flow backward F2 at align1080p's arguments (config 7's 1080p
+     flows, T 10, wt 3) and config 6's (540x960, T 3, wt 1): F1 one launch,
+     its offsets bitwise equal to the plain walk's (flow_ops.
+     search_flow_plain) on the same card; F2 one launch, the flow
+     gradients of a seeded cotangent at 1e-5 * max|ref| against autograd
+     through the plain walk; the CUDA-event and device times of both and
+     of their plain versions, the plain versions' device launches, and
+     the bounds by bytes.
 B2's, B3's, B5's, B6's and B7-B10's times are printed with those of
 their previous design in parentheses (EARLIER_MS).
-The line before the last is a JSON object of the kernels (G1 and G2 at
-config 7's arguments, with a "config6" entry at config 6's; B1, B2, B5 and
+The line before the last is a JSON object of the kernels (G1, G2, F1 and
+F2 at config 7's arguments, with a "config6" entry at config 6's; B1, B2, B5 and
 B6 with a "chunk" entry of their chunk mode, B6 with a "stats" entry of
 its global atomics at the slice, B1-B4 with a "config6" entry at config
 6's arguments, B1 and B2 with a "search_bench" entry at the search
@@ -347,14 +358,16 @@ def build_phase(cuda_lib):
 
 
 def counters():
-    """The launch counts of the twelve kernels and the call counts of the
+    """The launch counts of the sixteen kernels and the call counts of the
     plain backwards, by name."""
     from stnls_tpu_torch.ops import nls_cuda, nls_vol_cuda, agg_cuda, \
-        agg_sp_cuda as sp, nls_geometry_cuda as geo
+        agg_sp_cuda as sp, nls_geometry_cuda as geo, flow_cuda
     return {"nls_topk_fwd": nls_cuda.nls_topk,
             "nls_topk_bwd": nls_cuda.nls_topk_bwd,
             "nls_geometry_fwd": geo.nls_geometry,
             "nls_geometry_bwd": geo.nls_geometry_bwd,
+            "search_flow_fwd": flow_cuda.search_flow,
+            "search_flow_bwd": flow_cuda.search_flow_bwd,
             "agg_gather_fwd": agg_cuda.nl_gather_stack,
             "agg_gather_bwd": agg_cuda.nl_gather_stack_bwd,
             "nls_vol_fwd": nls_vol_cuda.nls_volume,
@@ -365,6 +378,7 @@ def counters():
             "agg_pool_bwd": sp.nl_pool_bwd}, \
         {"nls_topk_bwd_plain": nls_cuda.nls_topk_bwd_plain,
          "nls_geometry_bwd_plain": geo.nls_geometry_bwd_plain,
+         "search_flow_bwd_plain": flow_cuda.search_flow_bwd_plain,
          "_gather_bwd_plain": agg_cuda._gather_bwd_plain,
          "nls_volume_bwd_plain": nls_vol_cuda.nls_volume_bwd_plain,
          "_scatter_add_bwd_plain": sp._scatter_add_bwd_plain,
@@ -391,18 +405,21 @@ def plain_route(forward=True):
     call their kernels' plain versions instead of the kernels while
     inside. Swaps the names the main paths call (the backwards
     nls_cuda.nls_topk_bwd, nls_geometry_cuda.nls_geometry_bwd,
+    flow_cuda.search_flow_bwd,
     nls_vol_cuda.nls_volume_bwd, agg_cuda.nl_gather_stack_bwd,
     agg_sp_cuda.nl_scatter_add_bwd and agg_sp_cuda.nl_pool_bwd and, with
     `forward`, non_local_search.nls_topk, non_local_search.nls_geometry,
+    flow_ops.search_flow,
     nls_vol_cuda.nls_volume, gather.nl_gather_stack,
     gather_add.nl_gather_stack, scatter_add.nl_scatter_add and
     pool.nl_pool) and checks that none of the swapped kernels launched."""
     from stnls_tpu_torch.search import non_local_search
     from stnls_tpu_torch.agg import gather, gather_add, scatter_add, pool
     from stnls_tpu_torch.ops import nls_cuda, nls_vol_cuda, agg_cuda, \
-        agg_sp_cuda as sp, nls_geometry_cuda as geo
+        agg_sp_cuda as sp, nls_geometry_cuda as geo, flow_cuda, flow_ops
     names = [(nls_cuda, "nls_topk_bwd", nls_cuda.nls_topk_bwd_plain),
              (geo, "nls_geometry_bwd", geo.nls_geometry_bwd_plain),
+             (flow_cuda, "search_flow_bwd", flow_cuda.search_flow_bwd_plain),
              (nls_vol_cuda, "nls_volume_bwd",
               nls_vol_cuda.nls_volume_bwd_plain),
              (agg_cuda, "nl_gather_stack_bwd", agg_cuda._gather_bwd_plain),
@@ -411,6 +428,7 @@ def plain_route(forward=True):
     if forward:
         names += [(non_local_search, "nls_topk", nls_cuda.nls_topk_plain),
                   (non_local_search, "nls_geometry", geo.nls_geometry_plain),
+                  (flow_ops, "search_flow", flow_ops.search_flow_plain),
                   (nls_vol_cuda, "nls_volume",
                    nls_vol_cuda.nls_volume_plain),
                   (gather, "nl_gather_stack",
@@ -430,8 +448,8 @@ def plain_route(forward=True):
             setattr(mod, name, fn)
     after = read_counts()[0]
     swapped = after if forward else {k: after[k] for k in (
-        "nls_topk_bwd", "nls_geometry_bwd", "nls_vol_bwd", "agg_gather_bwd",
-        "agg_scatter_add_bwd", "agg_pool_bwd")}
+        "nls_topk_bwd", "nls_geometry_bwd", "search_flow_bwd", "nls_vol_bwd",
+        "agg_gather_bwd", "agg_scatter_add_bwd", "agg_pool_bwd")}
     require(all(after[k] == before[k] for k in swapped),
             "a swapped kernel launched on the plain route")
 
@@ -1526,7 +1544,8 @@ def matrix_phase(torch, dev):
     """benchmarks/matrix.py configs 1, 4, 5 and 7 at their published sizes
     through the kernels (stnls_tpu_torch.matrix_steps): shapes, finite
     values, the launch counts (B1, with B2 for a backward, B3/B4 for config
-    1; no volume kernel, no plain backward) and peak memory; q = k, so the
+    1, F1 where the step walks flows; no volume kernel, no plain backward)
+    and peak memory; q = k, so the
     anchored slot 0 holds dist 0 exactly and slots 1.. ascend. Then the
     plain route (plain_route) on the same inputs, or on MATRIX_CROP of them
     for 5 and 7: dists, offsets and the loss at TOL, the video gradient
@@ -1557,7 +1576,8 @@ def matrix_phase(torch, dev):
         require(all(bool(x.isfinite().all()) for x in res.values()),
                 f"matrix {name}: non-finite output")
         wanted = ["nls_topk_fwd", "nls_geometry_fwd"] + (
-            ["nls_topk_bwd"] if cfg["backward"] else [])
+            ["nls_topk_bwd"] if cfg["backward"] else []) + (
+            ["search_flow_fwd"] if len(inputs) == 3 else [])
         if cfg["config"] == 1:
             wanted += ["agg_gather_fwd", "agg_gather_bwd"]
         require(all(launches[k] > 0 for k in wanted) and
@@ -2543,11 +2563,11 @@ def denoiser_phase(torch, dev, smi_line):
         f"launches {launches}, plain backward calls {plain_calls}, peak "
         f"{peak:.3f} GB")
     one_each = ("nls_topk_fwd", "nls_topk_bwd", "nls_geometry_fwd",
-                "agg_gather_fwd", "agg_gather_bwd")
+                "search_flow_fwd", "agg_gather_fwd", "agg_gather_bwd")
     require(all(launches[k] == 1 for k in one_each) and
             not any(v for k, v in launches.items() if k not in one_each),
-            f"config 6: launches a step {launches}, not one each of B1-B4 "
-            "and G1")
+            f"config 6: launches a step {launches}, not one each of B1-B4, "
+            "G1 and F1")
     require(not any(plain_calls.values()),
             "config 6: a plain backward ran on the kernel route")
     require(tuple(res["out"].shape) == tuple(inputs[0].shape) and
@@ -3758,6 +3778,143 @@ def rvrt_align_phase(torch, dev, smi_line):
                             max_abs_err=errs[k]) for k in t}
 
 
+# F1 and F2 read the flows and write the offsets (or read the cotangent
+# and add into the flows' gradients); the float arithmetic each needs per
+# (query, slot), not the kernels' own instruction mix. F1: the two
+# fractions (2), the four axis weights (sub, abs, sub: 12), the four
+# corner weights (4), each corner's product and sum on two channels (16),
+# the step (2) and the offsets (2). F2: F1's walk again (38), then per
+# corner the weight's gradient terms (2 mul-adds: 4) and their sums into
+# the axis weights (2 mul-adds: 4) and the two products added into the
+# flows' gradients (4), the weights' derivatives and the chain (6)
+FLOPS_PER_SLOT = {"F1": 38, "F2": 86}
+# the seeded cotangent's tolerance against autograd through the plain
+# walk: 1e-5 * max|ref| (F2 adds with atomics, in another order)
+FLOW_TOL = 1e-5
+
+
+def device_launches(torch, fn):
+    """The kernels, copies and memsets one call of fn launches on the card
+    (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import profile, ProfilerActivity
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(r.count for r in prof.key_averages()
+               if r.device_type == DeviceType.CUDA)
+
+
+def search_flow_case(torch, smi_line, label, fflow, bflow, wt, stride0):
+    """F1 and F2 at (fflow, bflow, wt, stride0): F1 one launch, its offsets
+    bitwise equal to flow_ops.search_flow_plain's on the card; F2's flow
+    gradients from a seeded cotangent at FLOW_TOL * max|ref| against
+    flow_cuda.search_flow_bwd_plain (autograd through the plain walk), one
+    launch; the CUDA-event and device times of both and of their plain
+    versions, the plain versions' device launches, and the bounds from the
+    bytes each reads and writes."""
+    from stnls_tpu_torch.attn_step import cuda_ms
+    from stnls_tpu_torch.ops import flow_cuda, flow_ops
+    from stnls_tpu_torch.variant_tools import device_ms
+    args = (fflow, bflow, wt, stride0)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reset_counts()
+    with torch.no_grad():
+        out = flow_cuda.search_flow(*args)
+        ref = flow_ops.search_flow_plain(*args)
+    require(read_counts()[0]["search_flow_fwd"] == 1,
+            f"F1 {label}: not one launch")
+    err1 = float((out - ref).abs().max())
+    require(torch.equal(out, ref) and err1 == 0.,
+            f"F1 {label}: the offsets differ from the plain walk's by {err1}")
+    B, T, S, _, nH, nW = out.shape
+    slots = B * T * S * nH * nW
+    f1_bytes = nb(fflow, bflow, out)
+    f1_bound = bound_ms(f1_bytes, slots * FLOPS_PER_SLOT["F1"])
+    del ref
+    gen = torch.Generator(fflow.device).manual_seed(SEED + 21)
+    g_out = torch.randn(out.shape, device=fflow.device, generator=gen)
+    del out
+    torch.cuda.empty_cache()
+    reset_counts()
+    g_k = flow_cuda.search_flow_bwd(fflow, bflow, g_out, wt, stride0)
+    require(read_counts()[0]["search_flow_bwd"] == 1,
+            f"F2 {label}: not one launch")
+    torch.cuda.synchronize()
+    g_p = flow_cuda.search_flow_bwd_plain(fflow, bflow, g_out, wt, stride0)
+    err2, scale = 0., 0.
+    for a, b, name in zip(g_k, g_p, ("g_fflow", "g_bflow")):
+        s = float(b.abs().max())
+        e = float((a - b).abs().max())
+        require(bool(a.isfinite().all()) and s > 0 and e <= FLOW_TOL * s,
+                f"F2 {label} {name}: max|err| {e:.3e} > {FLOW_TOL} * max|g| "
+                f"{s:.3e}")
+        err2, scale = max(err2, e), max(scale, s)
+    f2_bytes = nb(fflow, bflow, g_out, *g_k)
+    f2_bound = bound_ms(f2_bytes, slots * FLOPS_PER_SLOT["F2"])
+    del g_k, g_p
+    torch.cuda.empty_cache()
+
+    def f1():
+        return flow_cuda.search_flow(*args)
+
+    def f1_plain():
+        return flow_ops.search_flow_plain(*args)
+
+    def f2():
+        return flow_cuda.search_flow_bwd(fflow, bflow, g_out, wt, stride0)
+
+    def f2_plain():
+        return flow_cuda.search_flow_bwd_plain(fflow, bflow, g_out, wt,
+                                               stride0)
+
+    with torch.no_grad():
+        t = {"F1": (cuda_ms(f1), device_ms(torch, f1),
+                    cuda_ms(f1_plain, n=3, warm=1),
+                    device_ms(torch, f1_plain, n=2),
+                    device_launches(torch, f1_plain))}
+    t["F2"] = (cuda_ms(f2), device_ms(torch, f2),
+               cuda_ms(f2_plain, n=3, warm=1), device_ms(torch, f2_plain, n=2),
+               device_launches(torch, f2_plain))
+    bounds = {"F1": f1_bound, "F2": f2_bound}
+    log(f"[search_flow] {label}: flows {tuple(fflow.shape)}, wt {wt}, "
+        f"stride0 {stride0}, {S} slots: F1's offsets bitwise equal to the "
+        f"plain walk's (one launch); F2 max|g| {scale:.3e}, "
+        f"max|kernel-plain| {err2:.3e} (one launch)")
+    log(f"[times] {smi_line}: {label} " + "; ".join(
+        f"{k} {v[0]:.3f} ms, device {v[1]:.3f} (plain {v[2]:.3f}, device "
+        f"{v[3]:.3f} in {v[4]} device launches; bound {bounds[k][0]:.4f} "
+        f"by {bounds[k][1]})" for k, v in t.items())
+        + f"; bytes F1 {f1_bytes / 1e9:.3f} GB, F2 {f2_bytes / 1e9:.3f} GB")
+    del g_out
+    torch.cuda.empty_cache()
+    return {k: dict(ms=v[0], device_ms=v[1], plain_ms=v[2],
+                    plain_device_ms=v[3], plain_launches=v[4],
+                    bound_ms=bounds[k][0], bound_by=bounds[k][1],
+                    max_abs_err=err1 if k == "F1" else err2)
+            for k, v in t.items()}
+
+
+def search_flow_phase(torch, dev, smi_line):
+    """Phase 21: search_flow_case at align1080p's arguments (config 7's
+    1080p flows, wt 3) and config 6's (540x960, wt 1)."""
+    from stnls_tpu_torch import matrix_steps as ms
+    torch.cuda.empty_cache()
+    _, fflow, bflow = ms.make_inputs("align1080p_fwd", SEED, device=dev)
+    rows = {"config7": search_flow_case(
+        torch, smi_line, "align1080p", fflow, bflow,
+        ms.config("align1080p_fwd")["wt"], 1)}
+    del fflow, bflow
+    _, _, fflow, bflow = ms.make_inputs(DENOISER, SEED, device=dev)
+    rows["config6"] = search_flow_case(torch, smi_line, "config 6 540p",
+                                       fflow, bflow,
+                                       ms.config(DENOISER)["wt"], 1)
+    return rows
+
+
 def main():
     here = Path(__file__).resolve().parent
     if not (here / "stnls_tpu_torch" / "csrc").is_dir():
@@ -3826,8 +3983,10 @@ def main():
     fwd_launches = read_counts()[0]
     log(f"[forward] launches on the forward path: {fwd_launches}")
     require(fwd_launches["nls_topk_fwd"] > 0 and
-            fwd_launches["agg_gather_fwd"] > 0,
-            "a kernel of the forward path was never launched")
+            fwd_launches["agg_gather_fwd"] > 0 and
+            fwd_launches["search_flow_fwd"] == 2,
+            "a kernel of the forward path was never launched, or the flows "
+            "were not walked once a call")
     with torch.no_grad(), plain_route():
         ref_attn, _ = attn(vid, flows)
         ref_step = step(vid, fflow, bflow, proj_w, stack_w)
@@ -3847,7 +4006,8 @@ def main():
     train_launches = check_routes(
         torch, "train", lambda: train_path(torch, attn, step, data),
         ("nls_topk_fwd", "nls_topk_bwd", "nls_geometry_fwd",
-         "nls_geometry_bwd", "agg_gather_fwd", "agg_gather_bwd"),
+         "nls_geometry_bwd", "search_flow_fwd", "search_flow_bwd",
+         "agg_gather_fwd", "agg_gather_bwd"),
         attn, step, data, geo)
 
     # 6. the volume path: NonLocalAttention with per-frame top-K
@@ -3885,7 +4045,8 @@ def main():
             "the volume path's forward did not run through B5 and B3")
     vol_launches = check_routes(
         torch, "volume", lambda: attn_train_path(torch, vattn, data),
-        ("nls_vol_fwd", "nls_vol_bwd", "agg_gather_fwd", "agg_gather_bwd"),
+        ("nls_vol_fwd", "nls_vol_bwd", "search_flow_fwd", "search_flow_bwd",
+         "agg_gather_fwd", "agg_gather_bwd"),
         vattn, step, data, geo)
 
     # 7. times at the slice config
@@ -4093,8 +4254,12 @@ def main():
     # launch each, against the plain lazy route and their plain versions
     rvrt = rvrt_align_phase(torch, dev, smi_line)
 
+    # 21. the search-flow walk F1 and its backward F2 at align1080p's and
+    # config 6's arguments
+    flow_rows = search_flow_phase(torch, dev, smi_line)
+
     require("jax" not in sys.modules, "JAX was imported")
-    log(f"[chip_smoke] phases 1-20 took {time.perf_counter() - T_START:.1f} "
+    log(f"[chip_smoke] phases 1-21 took {time.perf_counter() - T_START:.1f} "
         "s")
     rows = (("B1", "nls_topk_fwd", "nls_pallas.py:761", t_b1, t_b1p),
             ("B2", "nls_topk_bwd", "nls_pallas_bwd.py:675", t_b2, t_b2p),
@@ -4186,6 +4351,16 @@ def main():
             **row, library_ms=None, config6=geo_rows["config6"][key]))
         if name in rvrt:
             kernels[-1]["rvrt256"] = rvrt[name]
+    # F1 and F2: the port's own kernels (the JAX package builds this walk
+    # in XLA, with no pl.pallas_call), at align1080p's arguments; launches
+    # from phase 5's kernel route
+    for key, name in (("F1", "search_flow_fwd"), ("F2", "search_flow_bwd")):
+        kernels.append(dict({
+            "name": name, "route": "cuda",
+            "source": "stnls_tpu_torch/csrc/search_flow.cu",
+            "replaces": None, "launches": train_launches[name]},
+            **flow_rows["config7"][key], library_ms=None,
+            config6=flow_rows["config6"][key]))
     print(json.dumps({"steps": {
         "forward_ms": t_step, "forward_plain_ms": t_stepp,
         "forward_frames_per_s": T / (t_step / 1e3),

@@ -44,6 +44,8 @@ SIGNATURES = {
     "stnls_nls_geometry_fwd": [_P] * 7 + [_I] * 16 + [_F, _F] + [_I] * 3
     + [_P],
     "stnls_nls_geometry_bwd": [_P] * 6 + [_I] * 15 + [_P],
+    "stnls_search_flow_fwd": [_P] * 3 + [_I] * 8 + [_P],
+    "stnls_search_flow_bwd": [_P] * 5 + [_I] * 8 + [_P],
     "stnls_nls_topk_compiled": [_I, _I],
     "stnls_nls_vol_compiled": [_I, _I],
 }

@@ -3,15 +3,19 @@
 Per-frame optical flows are composed into multi-frame offsets by
 repeatedly bilinearly sampling the next frame's flow at the current
 accumulated position, with out-of-bounds corners reflect-indexed (not
-zeroed). The walks are Python loops over the window slots (search_flow)
-or the frame steps (accumulate_flow), vectorised over every query;
-autograd gives the gradients to both flows. `non_local_inds` lays the
-search windows out as absolute coordinates.
+zeroed). `search_flow` dispatches by device: CUDA tensors go to the
+hand-written walk (ops/flow_cuda: F1, backward F2), CPU tensors to
+`search_flow_plain`, its plain version. The plain walks are Python loops
+over the window slots (search_flow_plain) or the frame steps
+(accumulate_flow), vectorised over every query; autograd gives the
+gradients to both flows. `non_local_inds` lays the search windows out as
+absolute coordinates.
 """
 
 import numpy as np
 import torch
 
+from stnls_tpu_torch.ops import flow_cuda
 from stnls_tpu_torch.ops.geometry import (
     reflect_bounds, num_queries, time_window_frames, search_offsets,
 )
@@ -50,8 +54,18 @@ def search_flow(fflow, bflow, wt, stride0=1):
 
     fflow/bflow [B,T,2,H,W] -> flows [B,T,W_t-1,2,nH,nW]; slot si-1 holds
     the accumulated offset from frame ti to the si-th frame of the
-    boundary-shifted window.
+    boundary-shifted window. CPU tensors take `search_flow_plain`, CUDA
+    tensors the kernel walk (flow_cuda.search_flow), bitwise equal to it
+    on the card.
     """
+    if fflow.device.type == "cpu" or wt <= 0:
+        return search_flow_plain(fflow, bflow, wt, stride0)
+    return flow_cuda.search_flow(fflow, bflow, wt, stride0)
+
+
+def search_flow_plain(fflow, bflow, wt, stride0=1):
+    """Plain version of `search_flow` (F1's yardstick; autograd through it
+    is F2's): a Python loop over the window slots."""
     B, T, _, H, W = fflow.shape
     W_t = min(2 * wt + 1, T)
     nH, nW = num_queries(H, W, stride0)

@@ -1468,3 +1468,146 @@ def test_rvrt_on_the_card_matches_the_reference(dev):
     tols = dict(out_err=3e-6, loss_err=1e-6, grad_err=1e-5,
                 dists_err=1e-4, inds_err=1e-4, flow_err=1e-5)
     assert all(nums[k] <= tol for k, tol in tols.items()), nums
+
+
+# -- the search-flow walk: F1 and its flow backward F2 --
+# (B, T, H, W, wt, stride0, noise amplitude, drift), as the CPU test's edge
+# cases (test_torch_flow_geometry.SEARCH_FLOW_EDGES): W_t = T, wt 1-3 at
+# T 10, strides that do not divide odd frames, walks that reflect and
+# clamp (fflow's and bflow's drift plus noise), B 2, flows of integers
+# (every sample on the integer lattice); "1080p" is config 7's shape, its
+# own smooth flows (matrix_steps.make_inputs)
+FLOW_CASES = {
+    "window_is_clip": (1, 4, 12, 10, 2, 1, 1.5, None),
+    "window_wider_than_clip": (1, 3, 11, 9, 3, 1, 1.5, None),
+    "wt1_T10": (1, 10, 10, 12, 1, 1, 1., None),
+    "wt2_T10": (1, 10, 11, 9, 2, 1, 1., None),
+    "wt3_T10_B2": (2, 10, 12, 13, 3, 1, 1., None),
+    "stride2_odd": (1, 5, 13, 11, 2, 2, 1.5, None),
+    "stride3_odd": (1, 6, 11, 14, 2, 3, 1.5, None),
+    "reflect_and_clamp": (1, 10, 9, 11, 3, 1, 0.02, (1.64, 1.3)),
+    "far_outside": (1, 7, 9, 8, 3, 1, 6., None),
+    "wide_window": (1, 12, 20, 24, 5, 1, 1.5, None),
+    "integer_flows": (2, 6, 16, 15, 2, 1, 2., "round"),
+    "B2_stride2": (2, 7, 33, 40, 3, 2, 2., None),
+    "1080p": None,
+}
+
+
+def _flow_case(dev, case, seed=11):
+    """fflow, bflow [B,T,2,H,W] on the card, wt and stride0 of a case."""
+    if FLOW_CASES[case] is None:
+        from stnls_tpu_torch import matrix_steps
+        _, ff, bf = matrix_steps.make_inputs("align1080p_fwd", seed,
+                                             device=dev)
+        return ff, bf, 3, 1
+    B, T, Hc, Wc, wt, stride0, amp, drift = FLOW_CASES[case]
+    gen = torch.Generator(dev).manual_seed(seed)
+    ff, bf = (amp * torch.randn((B, T, 2, Hc, Wc), device=dev, generator=gen)
+              for _ in range(2))
+    if drift == "round":
+        ff, bf = ff.round(), bf.round()
+    elif drift is not None:
+        ff, bf = ff + drift[0], bf - drift[1]
+    return ff, bf, wt, stride0
+
+
+@pytest.mark.parametrize("case", FLOW_CASES)
+def test_search_flow_kernel_matches_plain_bitwise(dev, case):
+    """F1's offsets are the plain walk's on the same card, bit for bit, in
+    one launch."""
+    from stnls_tpu_torch.ops import flow_cuda, flow_ops
+    ff, bf, wt, stride0 = _flow_case(dev, case)
+    n0 = flow_cuda.search_flow.launches
+    out = flow_cuda.search_flow(ff, bf, wt, stride0)
+    assert flow_cuda.search_flow.launches == n0 + 1
+    ref = flow_ops.search_flow_plain(ff, bf, wt, stride0)
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    assert torch.equal(out, ref)
+    assert torch.equal(out, flow_ops.search_flow(ff, bf, wt, stride0))
+
+
+@pytest.mark.parametrize("case,need", [
+    ("window_is_clip", (True, True)), ("wt3_T10_B2", (True, True)),
+    ("stride3_odd", (True, True)), ("reflect_and_clamp", (True, True)),
+    ("far_outside", (True, True)), ("wide_window", (True, True)),
+    ("integer_flows", (True, True)), ("B2_stride2", (False, True)),
+    ("wt2_T10", (True, False))])
+def test_search_flow_backward_kernel_matches_autograd(dev, case, need):
+    """F2's flow gradients against autograd through the plain walk, at
+    1e-5 * max|ref| (atomics add in another order), with its subgradients:
+    every walk's first slot samples at its integer query position, and
+    with integer flows every slot does. Only the flows that require a
+    gradient get one."""
+    from stnls_tpu_torch.ops import flow_cuda, flow_ops
+    ff, bf, wt, stride0 = _flow_case(dev, case)
+    out = flow_ops.search_flow_plain(ff, bf, wt, stride0)
+    gen = torch.Generator(dev).manual_seed(5)
+    g = torch.randn(out.shape, device=dev, generator=gen)
+    # the positions slot 1 samples at: the query grid, integers
+    nH, nW = out.shape[-2:]
+    ref_h = (torch.arange(nH, device=dev) * stride0).float()
+    assert torch.equal(ref_h, ref_h.floor())
+    if case == "integer_flows":
+        assert torch.equal(out, out.round())
+
+    def grads(fn):
+        flows = [f.clone().requires_grad_(n) for f, n in zip((ff, bf), need)]
+        return torch.autograd.grad(fn(*flows, wt, stride0), [
+            f for f in flows if f.requires_grad], g)
+
+    n0 = flow_cuda.search_flow_bwd.launches
+    g_k = grads(flow_cuda.search_flow)
+    assert flow_cuda.search_flow_bwd.launches == n0 + 1
+    g_p = grads(flow_ops.search_flow_plain)
+    assert len(g_k) == sum(need)
+    for a, b in zip(g_k, g_p):
+        assert float(b.abs().max()) > 0
+        assert_grad_close(a, b, "g_flow", tol=1e-5)
+    direct = flow_cuda.search_flow_bwd(ff, bf, g, wt, stride0, need=need)
+    assert [x is None for x in direct] == [not n for n in need]
+
+
+def test_search_with_flows_launches_the_walk_kernel_once(dev, monkeypatch):
+    """A four-argument NonLocalSearch call on the card launches F1 once and
+    never runs the plain walk; its backward into the flows launches F2
+    once."""
+    from stnls_tpu_torch.ops import flow_cuda, flow_ops
+    from stnls_tpu_torch.search.non_local_search import NonLocalSearch
+    plain_calls = []
+    plain = flow_ops.search_flow_plain
+    monkeypatch.setattr(flow_ops, "search_flow_plain",
+                        lambda *a, **k: plain_calls.append(1) or plain(*a, **k))
+    rng = np.random.default_rng(12)
+    vid = torch.from_numpy(rng.standard_normal((B, T, HD * F, H, W))
+                           .astype(np.float32)).to(dev)
+    ff, bf = (torch.from_numpy((1.5 * rng.standard_normal((B, T, 2, H, W)))
+                               .astype(np.float32)).to(dev).requires_grad_()
+              for _ in range(2))
+    search = NonLocalSearch(5, 1, ps=3, k=4, nheads=HD, self_action="anchor")
+    n0 = flow_cuda.search_flow.launches
+    nb0 = flow_cuda.search_flow_bwd.launches
+    dists, inds = search(vid, vid, ff, bf)
+    assert flow_cuda.search_flow.launches == n0 + 1
+    (dists.pow(2).sum() + inds.pow(2).sum()).backward()
+    assert flow_cuda.search_flow_bwd.launches == nb0 + 1
+    assert not plain_calls
+    assert float(ff.grad.abs().max()) > 0 and float(bf.grad.abs().max()) > 0
+
+
+def test_search_flow_wrapper_raises_on_what_the_kernels_do_not_take(dev):
+    from stnls_tpu_torch.ops import flow_cuda
+    ff = torch.zeros((1, 4, 2, 8, 8), device=dev)
+    with pytest.raises(TypeError):
+        flow_cuda.search_flow(ff.double(), ff.double(), 1)
+    with pytest.raises(ValueError):
+        flow_cuda.search_flow(ff, ff.cpu(), 1)
+    with pytest.raises(ValueError):
+        flow_cuda.search_flow(ff, ff[:, :3], 1)
+    with pytest.raises(ValueError):
+        flow_cuda.search_flow(ff[:, :, :1], ff[:, :, :1], 1)
+    with pytest.raises(ValueError):
+        flow_cuda.search_flow(ff, ff, 0)
+    with pytest.raises(ValueError):
+        flow_cuda.search_flow_bwd(ff, ff, torch.zeros((1, 4, 1, 2, 8, 8),
+                                                      device=dev), 1, 1)

@@ -8,6 +8,7 @@ from pathlib import Path
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 import torch
 
 from stnls_tpu.ops import geometry as jgeo
@@ -74,6 +75,59 @@ def test_search_flow_forward_and_grads(rng):
         tg = torch.autograd.grad((got * torch.from_numpy(g)).sum(), (tf, tb))
         for a, b, name in zip(tg, jg, ("g_fflow", "g_bflow")):
             assert_grad_close(a, b, name)
+
+
+# The walk's edges, each (B, T, H, W, wt, stride0, noise amplitude, drift):
+# a window as wide as the clip (W_t = T, shifted at both ends), wt 1-3 at
+# T 10, query strides that do not divide odd frame sizes. With a drift
+# (fflow's, bflow's), the flows are that constant motion plus the noise:
+# the walks cross the frame's edges (reflected corners), and some forward
+# walk samples at floor(h) = 2H - 2, whose lower corner row 2H - 1
+# reflects to -1 and is clamped to 0. JAX's walk clips its corner rows
+# where a position leaves that single reflection ([-(H-1), 2H-2]), which
+# the port clamps axis by axis: the walks here stay inside it.
+SEARCH_FLOW_EDGES = {
+    "window_is_clip": (1, 4, 12, 10, 2, 1, 1.5, None),
+    "window_wider_than_clip": (1, 3, 11, 9, 3, 1, 1.5, None),
+    "wt1_T10": (1, 10, 10, 12, 1, 1, 1., None),
+    "wt2_T10": (1, 10, 11, 9, 2, 1, 1., None),
+    "wt3_T10_B2": (2, 10, 12, 13, 3, 1, 1., None),
+    "stride2_odd": (1, 5, 13, 11, 2, 2, 1.5, None),
+    "stride3_odd": (1, 6, 11, 14, 2, 3, 1.5, None),
+    "reflect_and_clamp": (1, 10, 9, 11, 3, 1, 0.02, (1.64, 1.3)),
+    "reflect_and_clamp_stride2": (1, 10, 9, 11, 3, 2, 0.02, (1.64, 1.3)),
+}
+
+
+@pytest.mark.parametrize("case", SEARCH_FLOW_EDGES)
+def test_search_flow_edges_forward_and_grads(rng, case):
+    """The plain walk (F1's and F2's yardstick on the card) against JAX at
+    the walk's edges: the offsets, and the gradients of both flows."""
+    B, T, H, W, wt, stride0, amp, drift = SEARCH_FLOW_EDGES[case]
+    ff = (amp * rng.standard_normal((B, T, 2, H, W))).astype(np.float32)
+    bf = (amp * rng.standard_normal((B, T, 2, H, W))).astype(np.float32)
+    if drift is not None:
+        ff, bf = ff + np.float32(drift[0]), bf - np.float32(drift[1])
+    ref = j_search_flow(jnp.asarray(ff), jnp.asarray(bf), wt, stride0)
+    tf, tb = to_torch(ff, True), to_torch(bf, True)
+    got = t_search_flow(tf, tb, wt, stride0)
+    assert got.shape == ref.shape == (B, T, min(2 * wt + 1, T) - 1, 2) \
+        + tgeo.num_queries(H, W, stride0)
+    assert_close(got, ref, "search_flow")
+    if drift is not None:
+        ref_h = torch.arange(got.shape[-2])[:, None] * stride0
+        pos = got.detach()[:, :, :, 1] + ref_h
+        # the first frame's forward walk samples at each slot but the last
+        assert bool((pos[:, 0, :-1].floor() == 2 * H - 2).any())
+        assert bool((pos < 0).any()) and bool((pos > H - 1).any())
+    g = rng.standard_normal(ref.shape).astype(np.float32)
+    jg = jax.grad(lambda a, b: jnp.sum(
+        j_search_flow(a, b, wt, stride0) * g), argnums=(0, 1))(
+            jnp.asarray(ff), jnp.asarray(bf))
+    tg = torch.autograd.grad((got * torch.from_numpy(g)).sum(), (tf, tb))
+    for a, b, name in zip(tg, jg, ("g_fflow", "g_bflow")):
+        assert float(a.abs().max()) > 0, name
+        assert_grad_close(a, b, name)
 
 
 def test_rescale_flows(rng):
