@@ -178,8 +178,6 @@ Phases, in order; any failure raises and exits non-zero:
      through the plain walk; the CUDA-event and device times of both and
      of their plain versions, the plain versions' device launches, and
      the bounds by bytes.
-B2's, B3's, B5's, B6's and B7-B10's times are printed with those of
-their previous design in parentheses (EARLIER_MS).
 The line before the last is a JSON object of the kernels (G1, G2, F1 and
 F2 at config 7's arguments, with a "config6" entry at config 6's; B1, B2, B5 and
 B6 with a "chunk" entry of their chunk mode, B6 with a "stats" entry of
@@ -247,20 +245,6 @@ FLOPS_PER_TAP = {"B1": 10, "B2": 26, "B3": 9, "B4": 17, "B5": 10, "B6": 26,
 # offset (subtract), on each axis (10); G2 adds the position's and the
 # offset's cotangents into its slot, on each axis (4)
 FLOPS_PER_CELL = {"G1": 10, "G2": 4}
-# B2's, B3's, B5's, B6's and B7-B10's times before their redesign
-# (B7-B10 at the agg example's 128^2, a call), as PERF.md
-# section 6 records them (chip_smoke.py's CUDA events and, "device",
-# profile_step.py's traces; NVIDIA H100 80GB HBM3, 700.00 W), printed in
-# parentheses beside this run's
-EARLIER_MS = {"B2 slice": 5.437, "B2 config 7 device": 90.965,
-              "B2 config 4 device": 9.029, "B3 slice": 1.448,
-              "B3 multichip twin device": 6.123,
-              "B5 slice": 2.119, "B5 1,2": 6.399, "B5 1,16": 1.003,
-              "B5 chunk": 1.776, "B6 slice each": 2.442,
-              "B6 slice dense": 18.249, "B6 1,2": 7.437, "B6 1,16": 0.624,
-              "B6 chunk": 1.966, "B7 agg example": 0.108,
-              "B8 agg example": 0.226, "B9 agg example": 0.348,
-              "B10 agg example": 0.146}
 # The search of the volume path (attn_step.VOLUME_SEARCH) and the
 # configurations of the B5/B6 checks: (label, itype, dist_type, the
 # cotangents B6 is checked on)
@@ -1121,26 +1105,23 @@ def agg_inputs(torch, dev, *, B=1, HD=2, T=3, F=8, H=64, K=8, stride=2):
                  (rng.standard_normal((B, HD, T, F, H, H)), weights, flows))
 
 
-def agg_cases(torch, dev, labels=None):
-    """The cases of the aggregation checks and times (phases 8 and 10 and
-    the variants scripts b8_b9_variants, b7_b10_variants): {label: ((vid,
-    weights, offsets), ScatterAdd keywords, Pool keywords)}, or the ones
-    of `labels`. The agg example's twin at 128^2 (its search's
+def agg_cases(torch, dev):
+    """The cases of the aggregation checks and times (phases 8 and 10):
+    {label: ((vid, weights, offsets), ScatterAdd keywords, Pool
+    keywords)}. The agg example's twin at 128^2 (its search's
     softmax(-10 d) weights and offsets: one live slot of eight, at the
     query's own pixel) and the same example at 512^2; agg_inputs' strided
     64^2 (ps 4, pool 5, pt 2, dilation 2, use_adj, strides 2, fills); and
     the twin's video and offsets with seeded uniform (0, 1] weights (every
-    slot live, the destinations scattered). A label "agg example N^2" or
-    "agg example dense N^2" gives the same at N^2."""
+    slot live, the destinations scattered)."""
     from stnls_tpu_torch import agg_example
     from stnls_tpu_torch.search.utils import shape_vids
     a1 = dict(ps=3, pt=1, dilation=1, reflect_bounds=True, use_adj=False)
     a2 = dict(ps=4, pt=2, dilation=2, reflect_bounds=True, use_adj=True)
     one = (dict(a1, strideIn=1, strideOut=1), dict(a1, stride0=1))
-    labels = labels or ("agg example 128^2", "strided 64^2",
-                        "agg example 512^2", "agg example dense 128^2")
     out, searched = {}, {}
-    for label in labels:
+    for label in ("agg example 128^2", "strided 64^2", "agg example 512^2",
+                  "agg example dense 128^2"):
         if label == "strided 64^2":
             out[label] = (agg_inputs(torch, dev), dict(a2, strideIn=2,
                                                         strideOut=2),
@@ -1761,9 +1742,8 @@ def full_frame_phase(torch, name, inputs, rows=FULL_BAND_ROWS,
         f"{B * HD * T * H * W * K} (query, slot)); B2's bound on these "
         f"frames {b2_bound[0]:.4f} ms by {b2_bound[1]}")
     log(f"[matrix] {name} at the full {H}x{W}: B2 {b2_ms:.3f} ms over the "
-        f"{HD} heads (previous design {EARLIER_MS['B2 config 7 device']} "
-        f"device ms in the step's trace; bound {b2_bound[0]:.4f}); global "
-        f"atomics per backward {b2_at['global_atomics']} for "
+        f"{HD} heads (bound {b2_bound[0]:.4f}); global atomics per backward "
+        f"{b2_at['global_atomics']} for "
         f"{b2_at['active_pairs']} active (q, k), the first version's "
         f"{b2_at['first_version']} ({b2_at['fewer']:.2f}x more)")
     return err2, b2_bound, dict(ms=b2_ms, atomics=b2_at)
@@ -1812,10 +1792,9 @@ def b2_config4_phase(torch, smi_line, matrix, name="gda540p_ws9"):
     at = b2_atomics(torch, args)
     launches = matrix[name][2]["nls_topk_bwd"]
     log(f"[times] {smi_line}: B2 on config 4's {H}x{W} frames (1, "
-        f"{v.shape[3]}) {t:.3f} ms (previous design "
-        f"{EARLIER_MS['B2 config 4 device']} device ms in the step's "
-        f"trace), bound {bound[0]:.4f} by {bound[1]}, {launches} launch(es) "
-        f"a step; max|kernel-plain| {err:.3e}; global atomics per backward "
+        f"{v.shape[3]}) {t:.3f} ms, bound {bound[0]:.4f} by {bound[1]}, "
+        f"{launches} launch(es) a step; max|kernel-plain| {err:.3e}; global "
+        f"atomics per backward "
         f"{at['global_atomics']} for {at['active_pairs']} active (q, k), "
         f"the first version's {at['first_version']} ({at['fewer']:.2f}x "
         "more)")
@@ -1888,16 +1867,11 @@ def ps1_kernel_times(torch, dev, smi_line, matrix):
         out[label]["B1"]["full_size_ms"] = t_full
         out[label]["B1"]["full_size_bound_ms"] = full_bound[0]
         out[label]["B1"]["full_size_bound_by"] = full_bound[1]
-        # W_t = 1 at (1, 16): every centre is its query's pixel, where B5
-        # and B6 run slower than their previous design (PERF.md section 7)
         log(f"[times] {smi_line}: (ps, F) = ({label}) at "
             f"{MATRIX_CROP[0]}x{MATRIX_CROP[1]} of {name}, W_t = "
             f"{min(2 * cfg['wt'] + 1, cfg['T'])}: " + "; ".join(
-                f"{key} {t[key][0]:.3f} ms ("
-                + (f"previous design {EARLIER_MS[f'{key} {label}']}, this "
-                   f"run {t[key][0] / EARLIER_MS[f'{key} {label}']:.2f}x it; "
-                   if f"{key} {label}" in EARLIER_MS else "")
-                + f"plain {t[key][1]:.3f}, bound {bounds[key][0]:.4f} by "
+                f"{key} {t[key][0]:.3f} ms (plain {t[key][1]:.3f}, bound "
+                f"{bounds[key][0]:.4f} by "
                 f"{bounds[key][1]})" for key in t)
             + f"; B1 at {tuple(full[0].shape[-2:])} {t_full:.3f} ms (bound "
             f"{full_bound[0]:.4f} by {full_bound[1]})")
@@ -2210,10 +2184,8 @@ def chunk_times(torch, smi_line, r):
         f"{v0p.shape[-1]}^2, "
         f"{CHUNK_SLICE['T_local']} query frames of {CHUNK_SLICE['T']} with "
         f"halos of {CHUNK_SLICE['halo']}: " + "; ".join(
-            f"{key} {ms:.3f} ms ("
-            + (f"previous design {EARLIER_MS[f'{key} chunk']}; "
-               if f"{key} chunk" in EARLIER_MS else "")
-            + f"plain {pms:.3f}, bound {bounds[key][0]:.4f} by "
+            f"{key} {ms:.3f} ms (plain {pms:.3f}, bound "
+            f"{bounds[key][0]:.4f} by "
             f"{bounds[key][1]})" for key, (ms, pms) in t.items()))
     return {key: dict(ms=t[key][0], plain_ms=t[key][1],
                       bound_ms=bounds[key][0], bound_by=bounds[key][1])
@@ -2371,8 +2343,7 @@ def twin_phase(torch, dev, mesh, smi_line, widths=None):
     b3 = bound_ms(*b3_work(vid_g, w_g, fl_g, cfg_g["ps"], cfg_g["stride0"]))
     log(f"[times] {smi_line}: B3 at the twin's gather, video "
         f"{tuple(vid_g.shape)}, {len(calls)} launch(es) a step: {t_b3:.3f} "
-        f"ms (previous design {EARLIER_MS['B3 multichip twin device']} "
-        f"device ms a step in its trace), bound {b3[0]:.4f} by {b3[1]}")
+        f"ms, bound {b3[0]:.4f} by {b3[1]}")
     del calls, vid_g, w_g, fl_g
     log(f"[twin] dryrun_multichip's step at the widths {widths}, "
         f"B = {vid.shape[0]}, T = {vid.shape[1]}, one-rank mesh: launches "
@@ -3807,6 +3778,28 @@ def device_launches(torch, fn):
                if r.device_type == DeviceType.CUDA)
 
 
+def device_ms(torch, fn, n=10):
+    """Device time of one call of fn: the sum of the device times of the
+    kernels, copies and memsets it launched, torch.profiler over n calls."""
+    from torch.profiler import profile, ProfilerActivity
+    from torch.autograd import DeviceType
+    for _ in range(3):              # a session can come back empty: again
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(getattr(r, "self_device_time_total",
+                            getattr(r, "self_cuda_time_total", 0.))
+                    for r in prof.key_averages()
+                    if r.device_type == DeviceType.CUDA)
+        if total > 0:
+            break
+    return total / 1e3 / n
+
+
 def search_flow_case(torch, smi_line, label, fflow, bflow, wt, stride0):
     """F1 and F2 at (fflow, bflow, wt, stride0): F1 one launch, its offsets
     bitwise equal to flow_ops.search_flow_plain's on the card; F2's flow
@@ -3817,7 +3810,6 @@ def search_flow_case(torch, smi_line, label, fflow, bflow, wt, stride0):
     bytes each reads and writes."""
     from stnls_tpu_torch.attn_step import cuda_ms
     from stnls_tpu_torch.ops import flow_cuda, flow_ops
-    from stnls_tpu_torch.variant_tools import device_ms
     args = (fflow, bflow, wt, stride0)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -4107,22 +4099,19 @@ def main():
     with plain_route():
         t_volp = cuda_ms(vol_fwd, n=3, warm=1)
         t_vol_trainp = cuda_ms(vol_fwd_bwd, n=3, warm=1)
-    log(f"[times] {smi_line}: B5 {t_b5:.3f} ms (previous design "
-        f"{EARLIER_MS['B5 slice']}; plain {t_b5p:.3f}, bound "
+    log(f"[times] {smi_line}: B5 {t_b5:.3f} ms (plain {t_b5p:.3f}, bound "
         f"{vres['bounds']['B5'][0]:.3f}); " + "; ".join(
-            f"B6 {kind} {t_b6[kind]:.3f} ms (previous design "
-            f"{EARLIER_MS[f'B6 slice {kind}']}; plain {t_b6p[kind]:.3f}, "
+            f"B6 {kind} {t_b6[kind]:.3f} ms (plain {t_b6p[kind]:.3f}, "
             f"bound {vres['bounds'][f'B6 {kind}'][0]:.3f})" for kind in t_b6))
     log(f"[times] {smi_line}: volume NonLocalAttention forward {t_vol:.3f} "
         f"ms = {T / (t_vol / 1e3):.1f} frames/s (plain {t_volp:.3f} ms); "
         f"fwd+bwd {t_vol_train:.3f} ms = {T / (t_vol_train / 1e3):.2f} "
         f"frames/s (plain {t_vol_trainp:.3f} ms)")
     log(f"[times] {smi_line}: B1 {t_b1:.3f} ms (plain {t_b1p:.3f}); "
-        f"B2 {t_b2:.3f} ms (previous design {EARLIER_MS['B2 slice']}; plain "
-        f"{t_b2p:.3f}; bound {res['bounds']['B2'][0]:.4f}); B3 {t_b3:.3f} ms "
-        f"(previous design {EARLIER_MS['B3 slice']}; plain {t_b3p:.3f}; "
-        f"bound {res['bounds']['B3'][0]:.4f}); B4 {t_b4:.3f} ms (plain "
-        f"{t_b4p:.3f})")
+        f"B2 {t_b2:.3f} ms (plain {t_b2p:.3f}; bound "
+        f"{res['bounds']['B2'][0]:.4f}); B3 {t_b3:.3f} ms (plain "
+        f"{t_b3p:.3f}; bound {res['bounds']['B3'][0]:.4f}); B4 {t_b4:.3f} "
+        f"ms (plain {t_b4p:.3f})")
     log(f"[times] {smi_line}: forward step {t_step:.3f} ms = "
         f"{T / (t_step / 1e3):.1f} frames/s (plain {t_stepp:.3f} ms); "
         f"fwd+bwd step {t_train:.3f} ms = {T / (t_train / 1e3):.2f} "
@@ -4172,10 +4161,7 @@ def main():
                             "strided 64^2")}
     twin_bounds = ares["agg example 128^2"]["bounds"]
     log(f"[times] {smi_line}: " + "; ".join(
-        f"{key} {t_agg[key][0]:.3f} ms ("
-        + (f"previous design {EARLIER_MS[f'{key} agg example']}; "
-           if f"{key} agg example" in EARLIER_MS else "")
-        + f"plain {t_agg[key][1]:.3f}, bound "
+        f"{key} {t_agg[key][0]:.3f} ms (plain {t_agg[key][1]:.3f}, bound "
         f"{twin_bounds[key][0]:.4f} by {twin_bounds[key][1]})"
         for key in ("B7", "B8", "B9", "B10")))
     for label, t in t_more.items():
@@ -4401,7 +4387,6 @@ def main():
            for tag, label in (("512", "agg example 512^2"),
                               ("dense", "agg example dense 128^2"),
                               ("strided", "strided 64^2"))},
-        "earlier_ms": EARLIER_MS,
         "time_sharded_config7": {
             "step_ms_in_turns": sharded["ms"][0::3],
             "time_sharded_ms_in_turns": sharded["ms"][1:3],

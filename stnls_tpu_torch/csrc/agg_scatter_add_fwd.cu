@@ -35,11 +35,10 @@
 // accumulator, which the wrapper then moves to the planar output. There
 // is no cheap inverse of the non-local map, so the scatter stays a
 // scatter, in no fixed order (compare at 1e-4). Measured and not shipped
-// (stnls_tpu_torch/b7_b10_variants.py, PERF.md): VW scalar atomics into
-// the planar output (csrc/variants/agg_scatter_add_fwd_forms.cu), 2-5x
-// slower where the destinations scatter and within 6% where they are
-// aligned, which the host cannot tell apart; launch bounds, other block
-// sizes, two channels a lane.
+// (PERF.md): VW scalar atomics into the planar output, 2-5x slower where
+// the destinations scatter and within 6% where they are aligned, which
+// the host cannot tell apart; launch bounds, other block sizes, two
+// channels a lane.
 
 #include "agg_patch.cuh"
 

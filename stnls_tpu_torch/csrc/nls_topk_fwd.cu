@@ -40,8 +40,7 @@
 //     bank conflicts), not in local memory, and not in registers: a list
 //     of NS registers (buckets of 4, 8, 16, insertion unrolled with
 //     `i < n` as a predicate) took registers from the warps that hide the
-//     chain and ran slower at every case measured (b1_variants.py in
-//     this package builds and times that variant).
+//     chain and ran slower at every case measured (PERF.md).
 //   - The bodies with ps and F compiled in (STNLS_NLS_COMPILED) hold the
 //     query patch in registers (RegQuery); (1, 2) is the 1080p search's.
 //   - Key regions are read through L1/L2, not staged in shared memory: a

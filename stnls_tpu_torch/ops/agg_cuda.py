@@ -87,8 +87,8 @@ def _check(vid, weights, flows, *, ps, stride0, pt, reflect_bounds, dilation,
 # B3 reads a channels-last copy of the video, one vector load for a
 # corner's channels, when its stack holds at least this many elements, and
 # the planar video itself below: there the copy's launch costs more host
-# time than the vector loads save (stnls_tpu_torch/b2_b3_variants.py times
-# both layouts, PERF.md)
+# time than the vector loads save (both layouts timed on the card,
+# PERF.md)
 CHANNELS_LAST_MIN = 1 << 21
 
 

@@ -91,7 +91,7 @@ _pool_bwd_plain.calls = 0
 # B8 reads a channels-last copy of the cotangent when the video gradient
 # holds at least this many elements, and the planar cotangent below: there
 # the copy's launch costs the host about what the vector loads save the
-# device (stnls_tpu_torch/b8_b9_variants.py times both layouts, PERF.md)
+# device (both layouts timed on the card, PERF.md)
 SCATTER_CHANNELS_LAST_MIN = 1 << 18
 # the shared memory a block of B8 or B9 gives its centre table; slots
 # beyond it are taken in chunks
