@@ -177,7 +177,16 @@ Phases, in order; any failure raises and exits non-zero:
      gradients of a seeded cotangent at 1e-5 * max|ref| against autograd
      through the plain walk; the CUDA-event and device times of both and
      of their plain versions, the plain versions' device launches, and
-     the bounds by bytes.
+     the bounds by bytes;
+ 22. B1's swept bodies (csrc/nls_topk_fwd.cu's STNLS_NLS_SWEPT) at the
+     B1 arguments of each cell's step (the denoiser at the benchmark's
+     widths on 540p, align1080p's search, one RVRT alignment): where the
+     cell's (ps, ws) is listed, the swept body against the run-time body
+     the cell ran before it (`run_time_body`), outputs bitwise equal,
+     times in turns (S, O, O, S); where it is not, the cell's own body
+     alone; the slot counts of `stats` (swept, per-cell, mixed) and the
+     swept share, the bound, and the bodies bitwise equal to the plain
+     version on a 96 x 288 crop.
 The line before the last is a JSON object of the kernels (G1, G2, F1 and
 F2 at config 7's arguments, with a "config6" entry at config 6's; B1, B2, B5 and
 B6 with a "chunk" entry of their chunk mode, B6 with a "stats" entry of
@@ -185,7 +194,8 @@ its global atomics at the slice, B1-B4 with a "config6" entry at config
 6's arguments, B1 and B2 with a "search_bench" entry at the search
 twin's and a "scatter_path" entry at phase 17's, B3, B7 and B9 with an
 "agg_bench" entry at phase 18's, B1-B4 and G1 with an "rvrt256" entry at
-phase 20's); the last line is {"ok": true,
+phase 20's, B1 with a "swept" entry of phase 22's cells); the last line is
+{"ok": true,
 "device": {...}}. The script imports nothing of JAX.
 """
 
@@ -322,16 +332,17 @@ def build_phase(cuda_lib):
             continue
         if not func:
             continue
-        b1 = re.search(r"nls_topk_kernelILi(\d+)ELi(\d+)E", func)
+        b1 = re.search(r"nls_topk_kernelILi(\d+)ELi(\d+)E(?:Li(\d+)E)?", func)
         if b1 and "stack frame" in line:
             frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
                               r"stores, (\d+) bytes spill loads", line)
-            b1_frames[tuple(int(x) for x in b1.groups())] = frame.groups()
+            b1_frames[tuple(int(x) for x in b1.groups() if x)] = frame.groups()
         if (b1 or "agg_" in func or "nls_topk_bwd" in func or
                 "nls_vol" in func) and \
                 ("registers" in line or "spill" in line):
             log(f"[build] ...{func[-44:]}: {line.strip()}")
-    log("[build] B1 bodies ((ps, F); (0, 0) the run-time one): stack frame "
+    log("[build] B1 bodies ((ps, F); (0, 0) the run-time one, (ps, 0, ws) "
+        "the swept ones): stack frame "
         "/ spill stores / spill loads bytes: " + "; ".join(
             f"{body}: {'/'.join(fr)}"
             for body, fr in sorted(b1_frames.items())))
@@ -3907,6 +3918,150 @@ def search_flow_phase(torch, dev, smi_line):
     return rows
 
 
+# The top-left crop on which phase 22 holds B1 to its plain version: its
+# columns cross 64, 128 and 256, where the swept bodies' positions round
+SWEPT_CROP = (96, 288)
+
+
+def cell_b1_args(torch, dev, cell):
+    """B1's (args, kwargs), captured from one call of the cell's step: the
+    denoiser at the benchmark's widths (bench_h100/configs/
+    denoiser540p.json) on config 6's 540p inputs, align1080p's search
+    (matrix_steps "align1080p_fwd"), or one RVRT alignment at RVRT_ALIGN."""
+    from stnls_tpu_torch import matrix_steps as ms
+    calls = {}
+    if cell == "rvrt256":
+        from stnls_tpu_torch.attn_step import smooth_flows
+        from stnls_tpu_torch.models.rvrt import Align
+        c = RVRT_ALIGN
+        B, h, w, C = c["B"], c["h"], c["w"], c["C"]
+        rng = np.random.default_rng(SEED + 22)
+        torch.manual_seed(SEED + 22)
+        align = Align(C, c["heads"], c["ws"], c["k"]).to(dev)
+        feats = [torch.from_numpy(rng.standard_normal((B, 2, h, w, C))
+                                  .astype(np.float32)).to(dev)
+                 for _ in range(3)]
+        flows = torch.from_numpy(smooth_flows(
+            rng, (B, 4, 2, h, w), amp=c["flow_amp"])).to(dev) \
+            .reshape(B, 2, 2, 2, h, w)
+        with captured_kernel_args(calls), torch.no_grad():
+            align(*feats, flows, [])
+    else:
+        if cell == "denoiser540p":
+            cfg = json.loads((Path(__file__).resolve().parent / "bench_h100"
+                              / "configs" / "denoiser540p.json").read_text())
+            step = ms.make_step(DENOISER, seed=SEED + 22, **{
+                k: cfg[k] for k in ("embed_dim", "nheads", "ws", "wt", "ps",
+                                    "K", "nres")})
+            inputs = ms.make_inputs(DENOISER, SEED, device=dev)
+        else:
+            step = ms.make_step("align1080p_fwd")
+            inputs = ms.make_inputs("align1080p_fwd", SEED, device=dev)
+        with captured_kernel_args(calls):
+            step(*inputs)
+        del step, inputs
+    (args, kw, _), = calls["B1"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return args, kw
+
+
+def swept_case(torch, smi_line, cell, args, kw):
+    """B1 at one cell's arguments. Where the cell's (ps, ws) has a swept
+    body: the swept body against the run-time body, which the cell ran
+    before it (neither listed pair has a compiled (ps, F)), outputs bitwise
+    equal and times in turns (S, O, O, S). Where it has none: the cell's
+    own body, timed. The slot counts (`stats`); the bodies bitwise equal to
+    the plain version on the SWEPT_CROP crop of the arguments, whose
+    counts must show swept slots where the pair is listed."""
+    from stnls_tpu_torch.attn_step import cuda_ms
+    from stnls_tpu_torch.ops import cuda_lib, nls_cuda
+    lib = cuda_lib.load()
+    listed = bool(lib.stnls_nls_topk_swept(kw["ps"], kw["ws"]))
+    F = args[0].shape[3]
+    require(not (listed and lib.stnls_nls_topk_compiled(kw["ps"], F)),
+            f"B1 {cell}: ({kw['ps']}, {F}) has a compiled body, so the "
+            "run-time body is not what the cell ran before the swept one")
+    dev = args[0].device
+
+    def run(a=args, stats=None):
+        return nls_cuda.nls_topk(*a, **kw, stats=stats)
+
+    def counted(a=args):
+        stats = torch.zeros(4, dtype=torch.int64, device=dev)
+        out = run(a, stats)
+        return out, stats.tolist()
+
+    with torch.no_grad():
+        n0 = nls_cuda.nls_topk.launches
+        (d, c), counts = counted()
+        launches = nls_cuda.nls_topk.launches - n0
+        slots = sum(counts[:3])
+        require(listed == (counts[0] + counts[2] > 0),
+                f"B1 {cell}: listed {listed}, slot counts {counts}")
+        if listed:
+            with run_time_body():
+                (d_o, c_o), counts_o = counted()
+            require(torch.equal(d, d_o) and torch.equal(c, c_o),
+                    f"B1 {cell}: the swept body's outputs differ from the "
+                    "run-time body's")
+            require(slots == counts_o[1] == sum(counts_o[:3]),
+                    f"B1 {cell}: slot counts {counts} / {counts_o}")
+            t = [cuda_ms(run, n=5)]
+            with run_time_body():
+                t += [cuda_ms(run, n=5), cuda_ms(run, n=5)]
+            t.append(cuda_ms(run, n=5))
+        else:
+            t = [cuda_ms(run, n=5), cuda_ms(run, n=5)]
+        H, W = args[0].shape[-2:]
+        crop = tuple(x[..., :min(H, SWEPT_CROP[0]), :min(W, SWEPT_CROP[1])]
+                     .contiguous() for x in args[:3])
+        (dk, ck), crop_counts = counted(crop)
+        dp, cp = nls_cuda.nls_topk_plain(*crop, **kw)
+        same = torch.equal(dk, dp) and torch.equal(ck, cp)
+        if listed:
+            with run_time_body():
+                d_ok, c_ok = run(crop)
+            same = same and torch.equal(d_ok, dp) and torch.equal(c_ok, cp)
+        require(same, f"B1 {cell}: differs from the plain version on the "
+                "crop")
+        require(listed == (crop_counts[0] + crop_counts[2] > 0),
+                f"B1 {cell} crop: listed {listed}, slots {crop_counts}")
+    bound = bound_ms(*b1_work(*args[:3], d, c, ws=kw["ws"], wt=kw["wt"],
+                              ps=kw["ps"]))
+    body_ms = (t[0] + t[-1]) / 2
+    before_ms = (t[1] + t[2]) / 2 if listed else None
+    share = (counts[0] + counts[2]) / slots
+    turns = ", ".join(f"{x:.3f}" for x in t)
+    against = (f"against the run-time body's {before_ms:.3f} (S, O, O, S: "
+               f"{turns}), outputs bitwise equal" if listed else
+               f"(not listed: the cell's own body, {turns})")
+    log(f"[swept] {smi_line}: {cell} B1 at (ps, ws, F) = ({kw['ps']}, "
+        f"{kw['ws']}, {F}), {kw.get('dist_type', 'l2')}, video "
+        f"{tuple(args[0].shape)}: body {body_ms:.3f} ms {against}, "
+        f"{launches} launch; slots {slots}: swept {counts[0]}, per-cell "
+        f"{counts[1]}, mixed {counts[2]}, swept share {share:.4f}; bound "
+        f"{bound[0]:.4f} ms by {bound[1]} ({100 * bound[0] / body_ms:.2f}% "
+        f"of it); crop {tuple(crop[0].shape[-2:])} bitwise equal to the "
+        f"plain version, slots {crop_counts[:3]}")
+    return dict(listed=listed, ms=body_ms, run_time_ms=before_ms,
+                ms_in_turns=t, launches=launches, stats=counts[:3],
+                swept_share=share, crop_stats=crop_counts[:3],
+                bound_ms=bound[0], bound_by=bound[1], max_abs_err=0.)
+
+
+def swept_body_phase(torch, dev, smi_line):
+    """Phase 22: swept_case at the denoiser cells', the align cells' and
+    rvrt256's B1 arguments."""
+    rows = {}
+    for cell in ("denoiser540p", "align1080p", "rvrt256"):
+        args, kw = cell_b1_args(torch, dev, cell)
+        rows[cell] = swept_case(torch, smi_line, cell, args, kw)
+        del args
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main():
     here = Path(__file__).resolve().parent
     if not (here / "stnls_tpu_torch" / "csrc").is_dir():
@@ -4244,8 +4399,12 @@ def main():
     # config 6's arguments
     flow_rows = search_flow_phase(torch, dev, smi_line)
 
+    # 22. B1's swept bodies against the run-time body the cells ran before
+    # them, at each cell's B1 arguments
+    swept = swept_body_phase(torch, dev, smi_line)
+
     require("jax" not in sys.modules, "JAX was imported")
-    log(f"[chip_smoke] phases 1-21 took {time.perf_counter() - T_START:.1f} "
+    log(f"[chip_smoke] phases 1-22 took {time.perf_counter() - T_START:.1f} "
         "s")
     rows = (("B1", "nls_topk_fwd", "nls_pallas.py:761", t_b1, t_b1p),
             ("B2", "nls_topk_bwd", "nls_pallas_bwd.py:675", t_b2, t_b2p),
@@ -4319,6 +4478,10 @@ def main():
             # phase 20: at rvrt256's alignment (2 clips of 64^2, 12 heads
             # of 32, ws 9, K 9, prod), launches an alignment
             entry["rvrt256"] = rvrt[name]
+        if key == "B1":
+            # phase 22: at each cell's arguments, against the run-time
+            # body where the cell's (ps, ws) has a swept body
+            entry["swept"] = swept
         if key in t_chunk:
             entry["chunk"] = dict(t_chunk[key],
                                   launches=chunk_launches[name],

@@ -195,14 +195,14 @@ struct GlobalQuery {
   }
 };
 
-// The query form of a kernel instantiated for (PS, FC); (0, 0) takes ps
-// and F from the arguments at run time.
+// The query form of a kernel instantiated for (PS, FC); FC = 0 takes F
+// (and ps) from the arguments at run time.
 template <int PS, int FC>
 struct QueryOf {
   using type = RegQuery<PS, FC>;
 };
-template <>
-struct QueryOf<0, 0> {
+template <int PS>
+struct QueryOf<PS, 0> {
   using type = GlobalQuery;
 };
 

@@ -31,7 +31,7 @@ NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures: every pointer and the stream as c_void_p
 SIGNATURES = {
-    "stnls_nls_topk_fwd": [_P] * 5 + [_I] * 19 + [_F, _F] + [_I] * 7 + [_P],
+    "stnls_nls_topk_fwd": [_P] * 6 + [_I] * 19 + [_F, _F] + [_I] * 7 + [_P],
     "stnls_agg_gather_fwd": [_P] * 4 + [_I] * 17 + [_P],
     "stnls_nls_topk_bwd": [_P] * 11 + [_I] * 20 + [_P],
     "stnls_agg_gather_bwd": [_P] * 8 + [_I] * 15 + [_P],
@@ -47,6 +47,7 @@ SIGNATURES = {
     "stnls_search_flow_fwd": [_P] * 3 + [_I] * 8 + [_P],
     "stnls_search_flow_bwd": [_P] * 5 + [_I] * 8 + [_P],
     "stnls_nls_topk_compiled": [_I, _I],
+    "stnls_nls_topk_swept": [_I, _I],
     "stnls_nls_vol_compiled": [_I, _I],
 }
 

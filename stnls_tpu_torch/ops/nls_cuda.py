@@ -54,6 +54,15 @@ def ranked_slots(k, anchor, n_cells):
     return K - 1 if anchor else K
 
 
+def swept_body(ps, ws, stride1, dilation, itype):
+    """True where B1 runs a swept body: a (ps, ws) pair that
+    csrc/nls_topk_fwd.cu lists (STNLS_NLS_SWEPT), float keys, stride1 1
+    and dilation 1, as its entry chooses; never with COMPILED_BODY False."""
+    return (COMPILED_BODY and itype == "float" and float(stride1) == 1.
+            and int(dilation) == 1
+            and bool(cuda_lib.load().stnls_nls_topk_swept(ps, ws)))
+
+
 def nls_topk_plain(vid0, vid1, flows, *, ws, wt, ps, stride0, stride1, k,
                    anchor, dist_type="l2", dilation=1, full_ws=True,
                    use_adj=False, itype="float", query_t0=None,
@@ -115,12 +124,16 @@ def _check(vid0, vid1, flows, *, ws, wt, ps, stride0, stride1, k, anchor,
 
 def nls_topk(vid0, vid1, flows, *, ws, wt, ps, stride0, stride1, k, anchor,
              dist_type="l2", dilation=1, full_ws=True, use_adj=False,
-             itype="float", query_t0=None, T_global=None):
+             itype="float", query_t0=None, T_global=None, stats=None):
     """Search top-K. vid0, vid1 [B,HD,T,F,H,W]; flows [B,HDf,T,W_t(-1),2,
     nH,nW] (channel 0 = w, 1 = h). Returns (dists [B,HD,T,nH,nW,K],
     cells int32 [B,HD,T,nH,nW,K]) with K = min(k, W_t*ws*ws); with
     `anchor` slot 0 holds the self cell. Chunk mode: see the module's
-    docstring."""
+    docstring. `stats`, an int64 CUDA tensor of 4 elements, gets the
+    counts of the (query, time slot) pairs added by the loop that ran them
+    (csrc/nls_topk_fwd.cu): [0] the sweep, [1] the per-cell loop, [2] the
+    mixed sweep; [3] is left alone. A swept body counts on the card; for
+    the per-cell bodies the wrapper adds every pair to [1]."""
     if vid0.device.type == "cpu":
         return nls_topk_plain(
             vid0, vid1, flows, ws=ws, wt=wt, ps=ps, stride0=stride0,
@@ -150,12 +163,16 @@ def nls_topk(vid0, vid1, flows, *, ws, wt, ps, stride0, stride1, k, anchor,
         err = lib.stnls_nls_topk_fwd(
             vid0.data_ptr(), vid1.data_ptr(), flows.data_ptr(),
             dists.data_ptr(), cells.data_ptr(),
+            cuda_lib.stats_ptr(stats, vid0.device, "nls_topk"),
             B, HD, T, F, H, W, flows.shape[1], flows.shape[3], nH, nW,
             T_v, t0, T_g, halo, ws, wt, ps, stride0, int(dilation), stride1,
             stride1 * ((ws - 1) // 2), K, int(bool(anchor)),
             int(dist_type == "l2"), int(bool(full_ws)), int(bool(use_adj)),
             int(itype == "int"), int(COMPILED_BODY), stream)
     cuda_lib.check_launch(err, "nls_topk")
+    if stats is not None and not swept_body(ps, ws, stride1, dilation,
+                                            itype):
+        stats[1] += B * HD * T * nH * nW * W_t
     nls_topk.launches += 1
     return dists, cells
 

@@ -604,26 +604,82 @@ def test_search_module_runs_at_any_patch_size_and_width(dev, ps, F):
     assert_grad_close(g, g_p, "g_vid0")
 
 
-@pytest.mark.parametrize("compiled", [True, False])
+@pytest.mark.parametrize("body", ["compiled", "run-time", "swept"])
 @pytest.mark.parametrize("anchor", [True, False])
 @pytest.mark.parametrize("nslots", [1, 4, 5, 8, 9, 16, 17, 32, 33, 64])
-def test_search_kernel_keeps_64_ranked_slots(dev, nslots, anchor, compiled):
+def test_search_kernel_keeps_64_ranked_slots(dev, nslots, anchor, body):
     """B1 bitwise against its plain version at list sizes on both sides of
     4, 8, 16, 32 and 64 ranked slots (anchored, the list keeps nslots + 1
     and swaps the self cell for cell 0 at the end), on the body with
-    (ps, F) = (3, 8) compiled in and on the run-time body, up to the 64
-    ranked slots it keeps."""
+    (ps, F) = (3, 8) compiled in, on the run-time body and on the swept
+    body of (ps, ws) = (3, 9), up to the 64 ranked slots it keeps."""
     v0, v1, flows = _inputs(dev)
     k = nslots + bool(anchor)
     kw = dict(KW, k=k, anchor=anchor)
-    nls_cuda.COMPILED_BODY = compiled
+    if body == "swept":
+        kw.update(ws=9, stride1=1)
+    stats = torch.zeros(4, dtype=torch.int64, device=dev)
+    nls_cuda.COMPILED_BODY = body != "run-time"
     try:
-        d, cells = nls_cuda.nls_topk(v0, v1, flows, **kw)
+        d, cells = nls_cuda.nls_topk(v0, v1, flows, stats=stats, **kw)
     finally:
         nls_cuda.COMPILED_BODY = True
     d_p, cells_p = nls_cuda.nls_topk_plain(v0, v1, flows, **kw)
     assert d.shape[-1] == k
     assert torch.equal(d, d_p) and torch.equal(cells, cells_p)
+    swept, per_cell, mixed, _ = stats.tolist()
+    assert swept + per_cell + mixed == B * HD * T * H * W * 3
+    assert (swept + mixed > 0) == (body == "swept")
+
+
+# B1's swept body (csrc/nls_topk_fwd.cu's STNLS_NLS_SWEPT) at the
+# denoiser's search (ps 3, ws 9, F 16, anchored) and at RVRT's arguments on
+# it (F 32, prod, W_t 1); RVRT's own pair (ps 1, ws 9) is not listed and
+# runs the run-time body. Frames are wide enough that window positions
+# round across columns 64 and 128.
+SWEPT_CASES = [dict(ps=3, ws=9, F=16, dist_type="l2", anchor=True, wt=1),
+               dict(ps=3, ws=9, F=32, dist_type="prod", anchor=False, wt=0),
+               dict(ps=1, ws=9, F=32, dist_type="prod", anchor=False, wt=0)]
+
+
+def _swept_inputs(dev, F, W_t, H=24, W=176, seed=7):
+    """Videos [1, 2, 3, F, H, W] and a fractional flow for every slot."""
+    rng = np.random.default_rng(seed)
+
+    def t(x):
+        return torch.from_numpy(x.astype(np.float32)).to(dev)
+
+    return (t(rng.standard_normal((1, HD, T, F, H, W))),
+            t(rng.standard_normal((1, HD, T, F, H, W))),
+            t(3 * rng.standard_normal((1, 1, T, W_t, 2, H, W))))
+
+
+@pytest.mark.parametrize("full_ws", [True, False])
+@pytest.mark.parametrize("case", SWEPT_CASES)
+def test_swept_search_kernel_matches_plain(dev, case, full_ws):
+    """B1's dists and cells equal the plain version's bitwise. On a listed
+    pair the counts show slots on the sweep and on the mixed sweep
+    (borders, and positions that round across a power of two), and, with
+    full_ws off, windows that leave the frame on the per-cell loop; on an
+    unlisted pair every slot is on the per-cell loop."""
+    from stnls_tpu_torch.ops import cuda_lib
+    c = dict(case)
+    F = c.pop("F")
+    listed = cuda_lib.load().stnls_nls_topk_swept(c["ps"], c["ws"])
+    assert listed == (c["ps"] == 3)
+    W_t = min(2 * c["wt"] + 1, T)
+    v0, v1, flows = _swept_inputs(dev, F, W_t)
+    kw = dict(c, stride0=1, stride1=1, k=9, full_ws=full_ws)
+    stats = torch.zeros(4, dtype=torch.int64, device=dev)
+    d, cells = nls_cuda.nls_topk(v0, v1, flows, stats=stats, **kw)
+    d_p, cells_p = nls_cuda.nls_topk_plain(v0, v1, flows, **kw)
+    assert torch.equal(d, d_p) and torch.equal(cells, cells_p)
+    swept, per_cell, mixed, _ = stats.tolist()
+    assert swept + per_cell + mixed == d[..., 0].numel() * W_t
+    if listed:
+        assert swept > 0 and mixed > 0 and (per_cell > 0) == (not full_ws)
+    else:
+        assert swept == mixed == 0
 
 
 def test_more_ranked_slots_take_the_volume_route(dev):
