@@ -187,6 +187,16 @@ Phases, in order; any failure raises and exits non-zero:
      alone; the slot counts of `stats` (swept, per-cell, mixed) and the
      swept share, the bound, and the bodies bitwise equal to the plain
      version on a 96 x 288 crop.
+ 23. B5, B6, B9 and B10 at the arguments of one DiNAT-Tiny attention
+     layer (models/dinat.NeighborhoodAttention) at dinat224's widths, on
+     16 images: level 1 (C 64, 2 heads of 32, a 56^2 map) at dilations 1
+     and 8, level 3 (C 256, 8 heads of 32, 14^2) at 2; k 7, ps 1, K 49,
+     prod, the int path. From counts zeroed just before, the layer's
+     forward and backward launch each of the four once and nothing else;
+     each kernel against its plain version (nls_volume_plain,
+     nls_volume_bwd_plain, nl_pool_plain, _pool_bwd_plain) at
+     DINAT_TOL * max|ref|, which the plain version on TF32-rounded inputs
+     (the control) must miss; their times and bounds.
 The line before the last is a JSON object of the kernels (G1, G2, F1 and
 F2 at config 7's arguments, with a "config6" entry at config 6's; B1, B2, B5 and
 B6 with a "chunk" entry of their chunk mode, B6 with a "stats" entry of
@@ -194,7 +204,8 @@ its global atomics at the slice, B1-B4 with a "config6" entry at config
 6's arguments, B1 and B2 with a "search_bench" entry at the search
 twin's and a "scatter_path" entry at phase 17's, B3, B7 and B9 with an
 "agg_bench" entry at phase 18's, B1-B4 and G1 with an "rvrt256" entry at
-phase 20's, B1 with a "swept" entry of phase 22's cells); the last line is
+phase 20's, B1 with a "swept" entry of phase 22's cells, B5, B6, B9 and
+B10 with a "dinat224" entry of phase 23's layers); the last line is
 {"ok": true,
 "device": {...}}. The script imports nothing of JAX.
 """
@@ -250,6 +261,10 @@ HBM_BYTES_S, F32_FLOP_S = 3.35e12, 67e12
 # for those terms, plus the cotangent's division once per element.
 FLOPS_PER_TAP = {"B1": 10, "B2": 26, "B3": 9, "B4": 17, "B5": 10, "B6": 26,
                  "B7": 2, "B8": 2, "B9": 2, "B10": 4}
+# In the int path (integer centres, ps 1) B5 and B6 read the key at one
+# pixel: the product and its add (2) for B5, the two cotangent products and
+# their adds (4) for B6, per (query, cell, channel)
+FLOPS_PER_TAP_INT = {"B5": 2, "B6": 4}
 # G1 and G2 read no video: per selected cell, G1 adds the flow to the
 # query, forms the lattice position (subtract, multiply, add) and the
 # offset (subtract), on each axis (10); G2 adds the position's and the
@@ -4062,6 +4077,159 @@ def swept_body_phase(torch, dev, smi_line):
     return rows
 
 
+# Phase 23: one DiNAT-Tiny attention layer at dinat224's widths
+# (bench_h100/configs/dinat224.json), k 7: (label, C, heads, map side,
+# dilation). DINAT_B images of the cell's 128: every kernel treats each
+# image alone, and the plain backwards fit beside them.
+DINAT_LAYERS = (("level 1, d 1", 64, 2, 56, 1),
+                ("level 1, d 8", 64, 2, 56, 8),
+                ("level 3, d 2", 256, 8, 14, 2))
+DINAT_B = 16
+# a kernel's max|kernel - plain| <= DINAT_TOL * max|plain|; the plain version
+# on inputs rounded to TF32's 10-bit mantissa (what a TF32 product reads)
+# must miss it, so a TF32-sized fault cannot pass
+DINAT_TOL = 1e-5
+
+
+def tf32(torch, x):
+    """x rounded to TF32's 10 mantissa bits (half away from zero)."""
+    i = x.detach().contiguous().view(torch.int32)
+    return ((i + 0x1000) & -0x2000).view(torch.float32)
+
+
+def rel_err(a, ref):
+    """max|a - ref| / max|ref| over the entries where ref is finite."""
+    live = ref.isfinite()
+    return float((a - ref)[live].abs().max() / ref[live].abs().max())
+
+
+@contextlib.contextmanager
+def captured_window_args(calls):
+    """Record into `calls` (name -> list) the arguments of each volume
+    search and pooled sum while inside: "B5" (vid0, vid1, ctr_h, ctr_w,
+    keywords) from non_local_search.search_volume, "B9" (vid, weights,
+    flows, keywords) from agg/pool's nl_pool, and the cotangent that each
+    output gets in the backward, "B6" and "B10". The kernels and their
+    launch counts are not touched."""
+    from stnls_tpu_torch.search import non_local_search
+    from stnls_tpu_torch.agg import pool
+    saved = non_local_search.search_volume, pool.nl_pool
+
+    def recorded(fn, key, bkey):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            calls.setdefault(key, []).append(
+                tuple(a.detach() for a in args) + (kw,))
+            out.register_hook(lambda g: calls.setdefault(bkey, [])
+                              .append(g.detach()))
+            return out
+        return call
+
+    non_local_search.search_volume = recorded(saved[0], "B5", "B6")
+    pool.nl_pool = recorded(saved[1], "B9", "B10")
+    try:
+        yield calls
+    finally:
+        non_local_search.search_volume, pool.nl_pool = saved
+
+
+def dinat_layer_case(torch, dev, smi_line, label, C, heads, L, d):
+    """One NeighborhoodAttention(C, heads, 7, d) on DINAT_B seeded [L, L, C]
+    maps, forward and backward: one launch of each of B5, B6, B9 and B10
+    and of nothing else, from counts zeroed just before; then each kernel
+    at the captured arguments against its plain version, and the control
+    (the plain version on TF32-rounded inputs) against the same plain
+    version, at DINAT_TOL * max|ref|; times and bounds."""
+    from stnls_tpu_torch.attn_step import cuda_ms
+    from stnls_tpu_torch.models.dinat import NeighborhoodAttention
+    from stnls_tpu_torch.ops import nls_vol_cuda as vol, agg_sp_cuda as sp
+    torch.manual_seed(SEED + 23)
+    layer = NeighborhoodAttention(C, heads, 7, d).to(dev)
+    with torch.no_grad():
+        layer.rpb.uniform_(-0.02, 0.02)
+    x = torch.randn(DINAT_B, L, L, C, device=dev, requires_grad=True)
+    g = torch.randn(DINAT_B, L, L, C, device=dev)
+    calls = {}
+    torch.cuda.synchronize()
+    reset_counts()
+    n0 = NeighborhoodAttention.calls
+    with captured_window_args(calls):
+        layer(x).backward(g)
+    torch.cuda.synchronize()
+    launches, plains = read_counts()
+    once = ("nls_vol_fwd", "nls_vol_bwd", "agg_pool_fwd", "agg_pool_bwd")
+    require(launches == {k: int(k in once) for k in launches} and
+            not any(plains.values()) and NeighborhoodAttention.calls == n0 + 1,
+            f"DiNAT {label}: kernel launches {launches}, plain calls "
+            f"{plains}")
+    require({k: len(v) for k, v in calls.items()} ==
+            {"B5": 1, "B6": 1, "B9": 1, "B10": 1},
+            f"DiNAT {label}: calls {calls.keys()}")
+    (v0, v1, ch, cw, cfg5), = calls["B5"]
+    g_d, = calls["B6"]
+    (vid, w, fl, cfg9), = calls["B9"]
+    g_out, = calls["B10"]
+    del layer, x, g
+    needs = (True, True, False)
+    runs = {
+        "B5": (lambda: vol.nls_volume(v0, v1, ch, cw, **cfg5),
+               lambda a, b: vol.nls_volume_plain(a, b, ch, cw, **cfg5),
+               (v0, v1)),
+        "B6": (lambda: vol.nls_volume_bwd(v0, v1, ch, cw, g_d, cfg5)[:2],
+               lambda a, b, gd: vol.nls_volume_bwd_plain(a, b, ch, cw, gd,
+                                                         cfg5)[:2],
+               (v0, v1, g_d)),
+        "B9": (lambda: sp.nl_pool(vid, w, fl, **cfg9),
+               lambda a, b: sp.nl_pool_plain(a, b, fl, **cfg9), (vid, w)),
+        "B10": (lambda: sp.nl_pool_bwd(vid, w, fl, g_out, cfg9, needs)[:2],
+                lambda a, b, go: sp._pool_bwd_plain(a, b, fl, go, cfg9,
+                                                    needs)[:2],
+                (vid, w, g_out))}
+    # the (query, cell) pairs of the volume and the live (query, slot)
+    # terms of the pool (the padding's weights are 0), each over F channels
+    F = v0.shape[3]
+    cells, terms = int(g_d.numel()) * F, int((w >= 1e-8).sum()) * F
+    row = {}
+    for key, (kernel, plain, ins) in runs.items():
+        with torch.no_grad():
+            out, ref = kernel(), plain(*ins)
+            ctl = plain(*(tf32(torch, t) for t in ins))
+        out, ref, ctl = ((t,) if torch.is_tensor(t) else t
+                         for t in (out, ref, ctl))
+        err = max(rel_err(a, r) for a, r in zip(out, ref))
+        ctl_err = min(rel_err(a, r) for a, r in zip(ctl, ref))
+        require(err <= DINAT_TOL < ctl_err,
+                f"{key} DiNAT {label}: max|kernel-plain| / max|plain| "
+                f"{err:.3e}, the TF32 control's {ctl_err:.3e}, tolerance "
+                f"{DINAT_TOL}")
+        with torch.no_grad():
+            ms = cuda_ms(kernel, n=5)
+        nbytes = nb(*ins, *out) + (nb(ch, cw) * (1 + (key == "B6"))
+                                   if key in ("B5", "B6") else nb(fl))
+        ops = {"B5": cells * FLOPS_PER_TAP_INT["B5"],
+               "B6": cells * FLOPS_PER_TAP_INT["B6"],
+               "B9": terms * FLOPS_PER_TAP["B9"] + out[0].numel(),
+               "B10": terms * FLOPS_PER_TAP["B10"] + g_out.numel()}[key]
+        b_ms, b_by = bound_ms(nbytes, ops)
+        row[key] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by, max_rel_err=err,
+                        tf32_control_rel_err=ctl_err)
+        del out, ref, ctl
+    log(f"[dinat] {smi_line}: {label} (C {C}, {heads} heads, {L}^2 map, "
+        f"B {DINAT_B}): one launch each of B5, B6, B9, B10; " + "; ".join(
+            f"{key} {r['ms']:.3f} ms (bound {r['bound_ms']:.4f} by "
+            f"{r['bound_by']}), max|kernel-plain| / max|plain| "
+            f"{r['max_rel_err']:.2e} (TF32 control "
+            f"{r['tf32_control_rel_err']:.2e})" for key, r in row.items()))
+    torch.cuda.empty_cache()
+    return row
+
+
+def dinat_layer_phase(torch, dev, smi_line):
+    """Phase 23: dinat_layer_case at each of DINAT_LAYERS."""
+    return {label: dinat_layer_case(torch, dev, smi_line, label, *shape)
+            for label, *shape in DINAT_LAYERS}
+
+
 def main():
     here = Path(__file__).resolve().parent
     if not (here / "stnls_tpu_torch" / "csrc").is_dir():
@@ -4403,8 +4571,12 @@ def main():
     # them, at each cell's B1 arguments
     swept = swept_body_phase(torch, dev, smi_line)
 
+    # 23. B5, B6, B9 and B10 at the arguments of DiNAT-Tiny's attention
+    # layers: one launch each a layer, against their plain versions
+    dinat = dinat_layer_phase(torch, dev, smi_line)
+
     require("jax" not in sys.modules, "JAX was imported")
-    log(f"[chip_smoke] phases 1-22 took {time.perf_counter() - T_START:.1f} "
+    log(f"[chip_smoke] phases 1-23 took {time.perf_counter() - T_START:.1f} "
         "s")
     rows = (("B1", "nls_topk_fwd", "nls_pallas.py:761", t_b1, t_b1p),
             ("B2", "nls_topk_bwd", "nls_pallas_bwd.py:675", t_b2, t_b2p),
@@ -4482,6 +4654,10 @@ def main():
             # phase 22: at each cell's arguments, against the run-time
             # body where the cell's (ps, ws) has a swept body
             entry["swept"] = swept
+        if key in ("B5", "B6", "B9", "B10"):
+            # phase 23: at DiNAT-Tiny's attention layers (dinat224's
+            # widths, DINAT_B images), one launch each a layer
+            entry["dinat224"] = {label: r[key] for label, r in dinat.items()}
         if key in t_chunk:
             entry["chunk"] = dict(t_chunk[key],
                                   launches=chunk_launches[name],

@@ -12,6 +12,7 @@ accepted and do nothing: the kernel is exact for any offsets.
 import torch
 
 from stnls_tpu_torch.utils.config import extract_pairs
+from stnls_tpu_torch.utils.spans import span
 from stnls_tpu_torch.ops.agg_sp_cuda import nl_pool
 from stnls_tpu_torch.ops.geometry import num_queries
 from stnls_tpu_torch.agg.utils import ensure_ndim6, ensure_flow_heads, \
@@ -24,18 +25,19 @@ def pooled_patch_sum(vid, weights, flows, ps=7, stride0=4, pt=1, dilation=1,
                      wt_hint=None):
     """vid [B,(HD),T,F,H,W]; weights [B,HD,T,nH,nW,K] or [B,HD,Q,K];
     flows [...,K,3] -> out [B,HD,T,F,ps*nH,ps*nW] (ps forced odd)."""
-    flows = ensure_flow_heads(flows)
-    HD = weights.shape[1]
-    vid = expand_heads(ensure_ndim6(vid, HD), HD)
-    flows = expand_heads(flows, HD)
-    B, HD_, T, F, H, W = vid.shape
-    nH, nW = num_queries(H, W, stride0)
-    K = flows.shape[-2]
-    weights6 = weights.reshape(B, HD_, T, nH, nW, K).contiguous()
-    flows7 = flows.reshape(B, HD_, T, nH, nW, K, 3).float().contiguous()
-    return nl_pool(vid.contiguous(), weights6, flows7, ps=ps,
-                   stride0=stride0, pt=pt, dilation=dilation,
-                   reflect_bounds=reflect_bounds, use_adj=use_adj)
+    with span("stnls.agg.pool"):
+        flows = ensure_flow_heads(flows)
+        HD = weights.shape[1]
+        vid = expand_heads(ensure_ndim6(vid, HD), HD)
+        flows = expand_heads(flows, HD)
+        B, HD_, T, F, H, W = vid.shape
+        nH, nW = num_queries(H, W, stride0)
+        K = flows.shape[-2]
+        weights6 = weights.reshape(B, HD_, T, nH, nW, K).contiguous()
+        flows7 = flows.reshape(B, HD_, T, nH, nW, K, 3).float().contiguous()
+        return nl_pool(vid.contiguous(), weights6, flows7, ps=ps,
+                       stride0=stride0, pt=pt, dilation=dilation,
+                       reflect_bounds=reflect_bounds, use_adj=use_adj)
 
 
 class PooledPatchSum(torch.nn.Module):

@@ -48,11 +48,13 @@ def dist_type_select(dist_type):
 
 
 def _expand_flow_heads(flows, HD):
-    """flows [B,HDf,...] -> per-head view via ihead % HDf."""
+    """flows [B,HDf,...] -> per-head flows via ihead % HDf. The index is
+    made on the flows' device: a host list copied to the card would
+    synchronise the host with it at every call."""
     HDf = flows.shape[1]
     if HDf == HD:
         return flows
-    reps = torch.tensor([h % HDf for h in range(HD)], device=flows.device)
+    reps = torch.arange(HD, device=flows.device) % HDf
     return flows[:, reps]
 
 

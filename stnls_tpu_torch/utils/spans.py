@@ -30,6 +30,12 @@ Names are stnls.<layer>.<stage>:
   stnls.agg.gather           the gather stack (B3 and its channels-last copy)
   stnls.agg.gather.bwd       its backward (B4)
   stnls.agg.scatter          NonLocalScatter.forward
+  stnls.agg.pool             PooledPatchSum (agg/pool.pooled_patch_sum: B9
+                             and its input copies)
+  stnls.dinat.na             DiNAT's attention core (models/dinat
+                             NeighborhoodAttention: the heads' split, the
+                             search, the bias, the softmax, the pool, the
+                             merged heads)
 """
 
 import torch

@@ -1526,6 +1526,36 @@ def test_rvrt_on_the_card_matches_the_reference(dev):
     assert all(nums[k] <= tol for k, tol in tols.items()), nums
 
 
+def test_dinat_on_the_card_launches_b5_b6_b9_b10_once_a_layer(dev):
+    """DiNAT at its small test size (torch_port_helpers.DINAT_SMALL: the
+    published structure, dilations 8, 4, 2 and 1) on the card, forward
+    and backward: each attention layer counts one
+    NeighborhoodAttention.calls and launches B5 and B9 once, its backward
+    B6 and B10 once; no B1 or B3 (nor their backwards) run. The logits,
+    the loss and every gradient against the plain reference on the CPU,
+    at the CPU test's tolerances (test_torch_dinat.py): the card's
+    cuBLAS and cuDNN sum in other orders again."""
+    from stnls_tpu_torch.models.dinat import NeighborhoodAttention
+    from torch_port_helpers import DINAT_SMALL, dinat_case, dinat_errors, \
+        dinat_reference_step, dinat_train_step
+    net, params, images, labels = dinat_case(4)
+    once = (nls_vol_cuda.nls_volume, agg_sp_cuda.nl_pool,
+            nls_vol_cuda.nls_volume_bwd, agg_sp_cuda.nl_pool_bwd)
+    never = (nls_cuda.nls_topk, nls_cuda.nls_topk_bwd,
+             agg_cuda.nl_gather_stack, agg_cuda.nl_gather_stack_bwd)
+    before = [k.launches for k in once + never] + \
+        [NeighborhoodAttention.calls]
+    run = dinat_train_step(net, images, labels, dev)
+    torch.cuda.synchronize()
+    layers = sum(DINAT_SMALL["depths"])
+    assert [k.launches for k in once + never] + \
+        [NeighborhoodAttention.calls] == [b + n for b, n in zip(
+            before, [layers] * 4 + [0] * 4 + [layers])]
+    out, loss, grad = dinat_errors(run, dinat_reference_step(
+        params, images, labels))
+    assert out <= 1e-6 and loss <= 1e-6 and grad <= 1e-5, (out, loss, grad)
+
+
 # -- the search-flow walk: F1 and its flow backward F2 --
 # (B, T, H, W, wt, stride0, noise amplitude, drift), as the CPU test's edge
 # cases (test_torch_flow_geometry.SEARCH_FLOW_EDGES): W_t = T, wt 1-3 at

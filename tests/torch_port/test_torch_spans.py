@@ -230,3 +230,29 @@ def test_rvrt_opens_its_spans_with_the_search_and_gather_inside_align():
         set().union(*made.values())
     assert made["SoftmaxBackward0"] == {("stnls.rvrt.swin",),
                                         ("stnls.rvrt.align",)}
+
+
+def test_dinat_opens_its_span_with_the_search_and_pool_inside():
+    """DiNAT forward and backward at its small test size: each attention
+    core opens stnls.dinat.na, the search's volume route and the pool
+    open their spans inside it, and the backward nodes of the volume
+    (B6's, _SearchVolumeBackward), of the pool (on the CPU its plain
+    version's) and of the softmax were made inside their spans; the
+    linear layers around the core lie outside every span."""
+    from torch_port_helpers import dinat_case
+    net, _, images, labels = dinat_case(0, B=1)
+    with torch.profiler.profile() as prof:
+        out = net(images)
+        torch.nn.functional.cross_entropy(out, labels[:1]).backward()
+    spans = _spans(prof)
+    assert spans["stnls.dinat.na"] == []
+    assert spans["stnls.search"] == ["stnls.dinat.na"]
+    assert spans["stnls.search.volume"] == ["stnls.search", "stnls.dinat.na"]
+    assert spans["stnls.agg.pool"] == ["stnls.dinat.na"]
+    made = _backward_spans(prof)
+    assert made["_SearchVolumeBackward"] == {
+        ("stnls.search.volume", "stnls.search", "stnls.dinat.na")}
+    assert ("stnls.agg.pool", "stnls.dinat.na") in set().union(
+        *made.values())
+    assert made["SoftmaxBackward0"] == {("stnls.dinat.na",)}
+    assert made["AddmmBackward0"] == {()}

@@ -261,3 +261,68 @@ def rvrt_train_step(cfg, params, clip, device):
                 grads={n: g.to(cpu) for n, g in zip(names, grads)},
                 align=[{k: v.to(cpu) for k, v in s.items()}
                        for s in selections])
+
+
+# DiNAT at a small size with the published structure: widths 8 to 64 in
+# heads of 8, k 3, 96^2 images (maps 24, 12, 6, 3), each level's
+# dilation map // k alternating with 1 (8, 4, 2, 1)
+DINAT_SMALL = dict(embed_dim=8, depths=(2, 2, 2, 1), num_heads=(1, 2, 4, 8),
+                   kernel_size=3, dilations=((1, 8), (1, 4), (1, 2), (1,)),
+                   mlp_ratio=3., num_classes=1000, in_chans=3)
+
+
+def dinat_case(seed=0, B=2, size=96):
+    """(model, params, images, labels) of DiNAT at DINAT_SMALL on the CPU:
+    weights uniform within 1/sqrt(fan-in), biases within 0.1, the bias
+    tables within 0.5 (so that every index of them shows), LayerNorms at
+    1 and 0, from a torch.Generator; images [B,3,size,size], labels in
+    [0, 1000)."""
+    from stnls_tpu_torch.models import DiNAT
+    net = DiNAT(**DINAT_SMALL)
+    gen = torch.Generator().manual_seed(seed)
+    params = {}
+    for name, p in net.named_parameters():
+        if "norm" in name:
+            params[name] = torch.full(p.shape, float(name.endswith("weight")))
+            continue
+        bound = 0.5 if name.endswith("rpb") else \
+            p[0].numel() ** -0.5 if p.ndim > 1 else 0.1
+        params[name] = (torch.rand(p.shape, generator=gen) * 2 - 1) * bound
+    net.load_state_dict(params)
+    images = torch.randn((B, 3, size, size), generator=gen)
+    labels = torch.randint(0, 1000, (B,), generator=gen)
+    return net, params, images, labels
+
+
+def dinat_train_step(net, images, labels, device):
+    """The port's DiNAT on `device`: the logits, the mean cross-entropy
+    and every parameter's gradient, on the CPU."""
+    net = net.to(device)
+    out = net(images.to(device))
+    loss = torch.nn.functional.cross_entropy(out, labels.to(device))
+    names, leaves = zip(*net.named_parameters())
+    grads = torch.autograd.grad(loss, leaves)
+    cpu = torch.device("cpu")
+    return dict(out=out.detach().to(cpu), loss=loss.detach().to(cpu),
+                grads={n: g.to(cpu) for n, g in zip(names, grads)})
+
+
+def dinat_reference_step(params, images, labels):
+    """dinat_train_step's outputs from the plain reference
+    (stnls_tpu_torch/testing/dinat_reference.py) on the CPU."""
+    from stnls_tpu_torch.testing import dinat_reference
+    p = {n: t.detach().clone().requires_grad_() for n, t in params.items()}
+    out = dinat_reference.forward(p, images, **DINAT_SMALL)
+    loss = torch.nn.functional.cross_entropy(out, labels)
+    grads = torch.autograd.grad(loss, list(p.values()))
+    return dict(out=out.detach(), loss=loss.detach(),
+                grads=dict(zip(p, grads)))
+
+
+def dinat_errors(run, ref):
+    """(largest |logit - reference's|, |loss - reference's| / reference's,
+    the worst parameter's gradient error norm over its reference norm)."""
+    return (float((run["out"] - ref["out"]).abs().max()),
+            float((run["loss"] - ref["loss"]).abs() / ref["loss"]),
+            max(float((run["grads"][n] - g).norm() / g.norm())
+                for n, g in ref["grads"].items()))
