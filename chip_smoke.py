@@ -197,6 +197,15 @@ Phases, in order; any failure raises and exits non-zero:
      nls_volume_bwd_plain, nl_pool_plain, _pool_bwd_plain) at
      DINAT_TOL * max|ref|, which the plain version on TF32-rounded inputs
      (the control) must miss; their times and bounds.
+ 24. RVRT's conv weight gradients (models/rvrt.FrameConv: float32 GEMMs
+     over chunks of unfolded frames) at each distinct conv shape of a
+     rvrt256 step (2 clips of 16 256^2 frames, task 006's widths), on
+     the inputs and output gradients of one seeded forward and backward
+     (180 weight gradients): against cuDNN's float64 weight gradient of
+     the same tensors at RVRT_CONV_TOL, which FrameConv with TF32 GEMMs
+     must miss, with cuDNN's float32 error beside it; FrameConv's and
+     cuDNN's times in turns, and FrameConv's transient memory under
+     rvrt.UNFOLD_BYTES.
 The line before the last is a JSON object of the kernels (G1, G2, F1 and
 F2 at config 7's arguments, with a "config6" entry at config 6's; B1, B2, B5 and
 B6 with a "chunk" entry of their chunk mode, B6 with a "stats" entry of
@@ -205,8 +214,9 @@ its global atomics at the slice, B1-B4 with a "config6" entry at config
 twin's and a "scatter_path" entry at phase 17's, B3, B7 and B9 with an
 "agg_bench" entry at phase 18's, B1-B4 and G1 with an "rvrt256" entry at
 phase 20's, B1 with a "swept" entry of phase 22's cells, B5, B6, B9 and
-B10 with a "dinat224" entry of phase 23's layers); the last line is
-{"ok": true,
+B10 with a "dinat224" entry of phase 23's layers; phase 24's shapes are
+the "rvrt256_conv_weight_grads" entry of the line of steps before it);
+the last line is {"ok": true,
 "device": {...}}. The script imports nothing of JAX.
 """
 
@@ -4230,6 +4240,149 @@ def dinat_layer_phase(torch, dev, smi_line):
             for label, *shape in DINAT_LAYERS}
 
 
+# phase 24: FrameConv's weight gradient against cuDNN's float64 one of the
+# same float32 tensors, max|err| / max|ref|; cuDNN's own float32 weight
+# gradient reads up to 1.7e-5 there (PR 25), the GEMMs' 2.5e-6
+RVRT_CONV_TOL = 1e-5
+# rvrt256's step: B 2 clips of 16 256^2 frames at task 006's widths
+RVRT_STEP = dict(B=2, T=16, H=256, W=256, flow_amp=2.)
+
+
+@contextlib.contextmanager
+def captured_weight_grads(calls):
+    """Record into `calls` {(x shape, x strides, weight shape, stride,
+    padding): [x, g, weight, stride, padding, count]} the arguments of the
+    first weight gradient FrameConv takes at each shape while inside, and
+    count the others; the gradients are taken as before."""
+    from stnls_tpu_torch.models import rvrt
+    real = rvrt.conv_weight_grad
+
+    def recorded(x, g, weight, stride, padding):
+        key = (tuple(x.shape), x.stride(), tuple(weight.shape),
+               tuple(stride), tuple(padding))
+        calls.setdefault(key, [x, g, weight.detach(), stride, padding, 0])
+        calls[key][5] += 1
+        return real(x, g, weight, stride, padding)
+
+    rvrt.conv_weight_grad = recorded
+    try:
+        yield calls
+    finally:
+        rvrt.conv_weight_grad = real
+
+
+def rvrt_conv_phase(torch, dev, smi_line):
+    """Phase 24: RVRT's weight gradients (models/rvrt.FrameConv) at each
+    distinct conv shape of a rvrt256 step, on the step's own inputs and
+    output gradients, captured from one forward and backward of RVRT
+    (task 006's widths) on RVRT_STEP's seeded frames and flows: one
+    weight gradient a conv call (180). At each shape: FrameConv's and
+    cuDNN's float32 weight gradients (TF32 off) against cuDNN's float64
+    one of the same tensors, max|err| / max|ref|, FrameConv's under
+    RVRT_CONV_TOL, which FrameConv with TF32 GEMMs (the control) must
+    miss; both timed in turns (CUDA events, FrameConv, cuDNN, cuDNN,
+    FrameConv, ...); FrameConv's transient memory over the memory
+    allocated before its call, under rvrt.UNFOLD_BYTES."""
+    from stnls_tpu_torch.attn_step import cuda_ms, smooth_flows
+    from stnls_tpu_torch.models import rvrt
+    c = RVRT_STEP
+    B, T, H, W = c["B"], c["T"], c["H"], c["W"]
+    rng = np.random.default_rng(SEED + 24)
+    torch.manual_seed(SEED + 24)
+    net = rvrt.RVRT().to(dev)
+    lq = torch.randn(B, T, 4, H, W, device=dev)
+    fflow, bflow = (torch.from_numpy(smooth_flows(
+        rng, (B, T - 1, 2, H // 4, W // 4), amp=c["flow_amp"])).to(dev)
+        for _ in range(2))
+    calls = {}
+    n0 = rvrt.FrameConv.calls
+    with captured_weight_grads(calls):
+        out = net(lq, fflow, bflow)
+        torch.autograd.grad(out.pow(2).mean(), list(net.parameters()))
+    del out
+    torch.cuda.synchronize()
+    # conv1, conv2, the shallow input conv's groups, each clip's backbone
+    # input convs' groups, the reconstruction's, the 1x1x1 conv, the two
+    # upsample convs, conv_hr and conv_last
+    n_convs = 2 + net.feat_extract.conv.groups + T // 2 * sum(
+        b.conv.groups for b in net.backbone.values()) \
+        + net.reconstruction.conv.groups + 1 + 2 + 1 + 1
+    require(rvrt.FrameConv.calls - n0 == n_convs == sum(
+        v[5] for v in calls.values()) == 180,
+        f"rvrt256 convs: {rvrt.FrameConv.calls - n0} weight gradients, "
+        f"{n_convs} conv calls")
+    del net
+    torch.cuda.empty_cache()
+
+    def conv_bwd(x, gy, w, st, pd):
+        return torch.ops.aten.convolution_backward(
+            gy, x, w, None, st, pd, (1, 1, 1), False, (0, 0, 0), 1,
+            (False, True, False))[1]
+
+    rows = []
+    for key, (x, gy, w, st, pd, n) in sorted(calls.items(),
+                                             key=lambda kv: -kv[1][5]):
+        mine = lambda: rvrt.conv_weight_grad(x, gy, w, st, pd)  # noqa: E731
+        cudnn = lambda: conv_bwd(x, gy, w, st, pd)  # noqa: E731
+        with torch.no_grad():
+            ref = conv_bwd(x.double(), gy.double(), w.double(), st, pd)
+            err, err_cudnn = (rel_err(f().double(), ref)
+                              for f in (mine, cudnn))
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                ctl = rel_err(mine().double(), ref)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+            del ref
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            mine()
+            torch.cuda.synchronize()
+            transient = torch.cuda.max_memory_allocated() - base
+            t = {"FrameConv": [], "cuDNN": []}
+            for r in range(3):
+                for k in (("FrameConv", "cuDNN") if r % 2 == 0 else
+                          ("cuDNN", "FrameConv")):
+                    t[k].append(cuda_ms(mine if k == "FrameConv" else cudnn,
+                                        n=1, warm=1))
+        ms = {k: float(np.median(v)) for k, v in t.items()}
+        require(err <= RVRT_CONV_TOL < ctl,
+                f"rvrt256 conv {key}: FrameConv's weight gradient "
+                f"max|err| / max|ref| {err:.3e} against cuDNN's float64 "
+                f"(cuDNN's float32 {err_cudnn:.3e}, the TF32 control "
+                f"{ctl:.3e}), tolerance {RVRT_CONV_TOL}")
+        require(transient <= rvrt.UNFOLD_BYTES,
+                f"rvrt256 conv {key}: FrameConv's transient "
+                f"{transient / 1e6:.1f} MB over UNFOLD_BYTES")
+        co, ci, _, kh, kw = w.shape
+        frames, pixels = x.shape[0] * x.shape[2], gy.shape[-2] * gy.shape[-1]
+        cols = ci * kh * kw * frames * pixels * 4
+        b_ms, b_by = bound_ms(nb(x, gy) + 2 * cols,
+                              2 * co * ci * kh * kw * frames * pixels)
+        rows.append(dict(x=list(x.shape), weight=list(w.shape),
+                         stride=list(st), calls=n, frameconv_ms=ms[
+                             "FrameConv"], cudnn_ms=ms["cuDNN"],
+                         bound_ms=b_ms, bound_by=b_by, max_rel_err=err,
+                         cudnn_max_rel_err=err_cudnn,
+                         tf32_control_rel_err=ctl,
+                         transient_mb=transient / 1e6))
+        log(f"[rvrt conv] {smi_line}: x {tuple(x.shape)} weight "
+            f"{tuple(w.shape)} stride {tuple(st)}, {n} a step: FrameConv "
+            f"{ms['FrameConv']:.3f} ms, cuDNN {ms['cuDNN']:.3f} ms (bound "
+            f"{b_ms:.3f} by {b_by}); max|err| / max|float64| FrameConv "
+            f"{err:.2e}, cuDNN {err_cudnn:.2e}, TF32 control {ctl:.2e}; "
+            f"transient {transient / 1e6:.1f} MB")
+    del calls
+    torch.cuda.empty_cache()
+    total = {k: sum(r[f"{k}_ms"] * r["calls"] for r in rows)
+             for k in ("frameconv", "cudnn")}
+    log(f"[rvrt conv] {smi_line}: a step's weight gradients (calls x ms): "
+        f"FrameConv {total['frameconv']:.1f} ms, cuDNN "
+        f"{total['cudnn']:.1f} ms")
+    return dict(rows=rows, step_ms=total)
+
+
 def main():
     here = Path(__file__).resolve().parent
     if not (here / "stnls_tpu_torch" / "csrc").is_dir():
@@ -4575,8 +4728,12 @@ def main():
     # layers: one launch each a layer, against their plain versions
     dinat = dinat_layer_phase(torch, dev, smi_line)
 
+    # 24. RVRT's conv weight gradients (FrameConv) at each conv shape of a
+    # rvrt256 step, against cuDNN's in float64 and timed against cuDNN's
+    rvrt_convs = rvrt_conv_phase(torch, dev, smi_line)
+
     require("jax" not in sys.modules, "JAX was imported")
-    log(f"[chip_smoke] phases 1-23 took {time.perf_counter() - T_START:.1f} "
+    log(f"[chip_smoke] phases 1-24 took {time.perf_counter() - T_START:.1f} "
         "s")
     rows = (("B1", "nls_topk_fwd", "nls_pallas.py:761", t_b1, t_b1p),
             ("B2", "nls_topk_bwd", "nls_pallas_bwd.py:675", t_b2, t_b2p),
@@ -4738,6 +4895,7 @@ def main():
                          "phase_seconds": sbp["seconds"]},
         "scatter_path": scat["fields"],
         "agg_bench": abp["fields"],
+        "rvrt256_conv_weight_grads": rvrt_convs,
         "script_seconds": time.perf_counter() - T_START}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -51,7 +51,9 @@ kernel: the same arithmetic as the plain reference
 (bench_h100/reference/rvrt256.py). Spans: stnls.rvrt.swin
 around each Swin layer, stnls.rvrt.align around each Align,
 stnls.rvrt.flow around the flow composition; `Align.calls` counts the
-alignments (4 * (T / 2 - 1) a forward).
+alignments (4 * (T / 2 - 1) a forward). Every conv runs through
+`FrameConv`, whose weight gradient is float32 GEMMs over chunks of
+unfolded frames; `FrameConv.calls` counts those weight gradients.
 """
 
 import math
@@ -225,16 +227,119 @@ class RSTB(torch.nn.Module):
         return x + self.linear(y)
 
 
-def grouped_conv(conv, x):
-    """A grouped Conv3d as one ungrouped conv a group: the same sums. On
-    the H100 a step of rvrt256 takes 1.90 -> 1.75 s (cuDNN's float32
+# The weight gradient unfolds its input a chunk of whole frames at a time,
+# the chunk's transient memory (its unfolded operand, the copies of its
+# input that F_.unfold makes, its GEMMs' output) held under this many
+# bytes, or one frame where a frame alone takes more. The first weight
+# gradients of the backward (conv_last, conv_hr) are taken while the
+# step's activations are at their largest (rvrt256: a 60.9 GB peak): one
+# of conv_hr's 256^2 frames unfolds to 151 MB, the whole conv's input to
+# 4.8 GB.
+UNFOLD_BYTES = 256 * 2 ** 20
+# the copies of its input that F_.unfold holds besides its output (a
+# contiguous copy and one more, PyTorch 2.11 on the H100)
+UNFOLD_INPUT_COPIES = 2
+
+
+def _chunk_weight_grad(xc, gc, kernel, stride, padding):
+    """[co, ci kh kw]: the sum over a chunk's frames of gc [n,co,Ho,Wo]
+    times xc [n,ci,H,W] unfolded to [n, ci kh kw, Ho Wo] (a 1x1 kernel at
+    stride 1 reads the frames as they are), one batched float32 GEMM. A
+    function of its own so that a chunk's operands are freed before the
+    next chunk's are made."""
+    if kernel == (1, 1) and stride == (1, 1):
+        cols = xc.flatten(2)
+    else:
+        cols = F_.unfold(xc, kernel, padding=padding, stride=stride)
+    return torch.bmm(gc.flatten(2), cols.transpose(1, 2)).sum(0)
+
+
+def conv_weight_grad(x, g, weight, stride, padding):
+    """The gradient of a (1, kh, kw) conv3d's weight [co,ci,1,kh,kw] from
+    its input x [B,ci,D,H,W] and output gradient g [B,co,D,Ho,Wo] (depth
+    stride 1, no depth padding): each clip's frames, or all B * D where
+    the clips' frames are evenly spaced in memory, in chunks of views whose
+    transient stays under UNFOLD_BYTES, accumulated in one float32
+    buffer."""
+    co, ci, kd, kh, kw = weight.shape
+    if kd != 1 or stride[0] != 1 or padding[0] != 0:
+        raise ValueError(f"conv_weight_grad: kernel {tuple(weight.shape)}, "
+                         f"stride {stride}, padding {padding}: frames are "
+                         "folded into the batch")
+    kernel, stride, padding = (kh, kw), tuple(stride[1:]), tuple(padding[1:])
+    copies = 0 if kernel == stride == (1, 1) else UNFOLD_INPUT_COPIES
+    frame_bytes = x.element_size() * (
+        ci * kh * kw * g.shape[-2] * g.shape[-1]
+        + copies * ci * x.shape[-2] * x.shape[-1] + co * ci * kh * kw)
+    n = max(1, UNFOLD_BYTES // frame_bytes)
+    xf, gf = x.transpose(1, 2), g.transpose(1, 2)
+    if all(t.stride(0) == t.shape[1] * t.stride(1) for t in (xf, gf)):
+        # the clips' frames evenly spaced (channels-last): one sequence
+        xf, gf = xf.flatten(0, 1)[None], gf.flatten(0, 1)[None]
+    gw = weight.new_zeros(co, ci * kh * kw)
+    for xb, gb in zip(xf, gf):
+        for i in range(0, xb.shape[0], n):
+            gw += _chunk_weight_grad(xb[i:i + n], gb[i:i + n], kernel,
+                                     stride, padding)
+    return gw.view(weight.shape)
+
+
+class FrameConv(torch.autograd.Function):
+    """A (1, kh, kw) conv3d whose weight gradient is taken as float32
+    GEMMs over chunks of frames (conv_weight_grad); the forward, the input
+    gradient and the bias gradient are cuDNN's (on the card) as for
+    F_.conv3d. `FrameConv.calls` counts the weight gradients taken.
+
+    It replaces, in the backward of every RVRT conv, cuDNN's float32
+    weight-gradient kernel (a direct kernel, wgrad2d_grouped_direct, which
+    cuDNN picks at these shapes with TF32 off; no Pallas kernel had this
+    work). What bounds the GEMM form: the weight gradient's operations (as
+    many as the forward's, ~0.9 TFLOP a rvrt256 step) at cuBLAS's float32
+    rate, plus the unfolded operands, written once and read once (~60 GB a
+    step). The design keeps both in large calls: every frame of a chunk
+    in one batched GEMM, the chunk's transient under UNFOLD_BYTES so that
+    the unfolded operand is one of the chunk, not of the conv. It is taken
+    at every shape: cuDNN's weight gradient of the frames folded into a
+    conv2d was faster at some of rvrt256's shapes but 1.7e-5 to 2.1e-4 of
+    max|ref| off a float64 one there (this form 2.5e-6 at most)."""
+
+    calls = 0
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, stride, padding):
+        ctx.save_for_backward(x, weight)
+        ctx.stride, ctx.padding = tuple(stride), tuple(padding)
+        return F_.conv3d(x, weight, bias, stride, padding)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        need_x, need_w, need_b = ctx.needs_input_grad[:3]
+        gx = gw = gb = None
+        if need_x or need_b:
+            gx, _, gb = torch.ops.aten.convolution_backward(
+                g, x, weight, [weight.shape[0]] if need_b else None,
+                ctx.stride, ctx.padding, (1, 1, 1), False, (0, 0, 0), 1,
+                (need_x, False, need_b))
+        if need_w:
+            FrameConv.calls += 1
+            gw = conv_weight_grad(x, g, weight, ctx.stride, ctx.padding)
+        return gx, gw, gb, None, None
+
+
+def conv3d(conv, x):
+    """The Conv3d layer `conv` on x through FrameConv; a grouped one as
+    one ungrouped conv a group: the same sums. On the H100 a step of
+    rvrt256 took 1.90 -> 1.75 s with the groups apart (cuDNN's float32
     kernels for one grouped conv are slower than for its groups apart),
     and on the CPU PyTorch's grouped conv3d backward left early layers'
     gradients 6e-4 off a float64 run, its groups apart 7e-7."""
     g = conv.groups
     if g == 1:
-        return conv(x)
-    return torch.cat([F_.conv3d(xi, wi, bi, conv.stride, conv.padding)
+        return FrameConv.apply(x, conv.weight, conv.bias, conv.stride,
+                               conv.padding)
+    return torch.cat([FrameConv.apply(xi, wi, bi, conv.stride, conv.padding)
                       for xi, wi, bi in zip(x.chunk(g, 1),
                                             conv.weight.chunk(g, 0),
                                             conv.bias.chunk(g, 0))], 1)
@@ -256,7 +361,7 @@ class RSTBWithInputConv(torch.nn.Module):
         self.norm_out = torch.nn.LayerNorm(dim)
 
     def forward(self, x):
-        x = self.norm_in(grouped_conv(self.conv, x).permute(0, 2, 3, 4, 1))
+        x = self.norm_in(conv3d(self.conv, x).permute(0, 2, 3, 4, 1))
         for block in self.blocks:
             x = block(x)
         return self.norm_out(x)
@@ -425,8 +530,8 @@ class RVRT(torch.nn.Module):
         T = lq.shape[1]
         if T % 2:
             raise ValueError(f"T = {T}: RVRT walks clips of 2 frames")
-        x = F_.leaky_relu(self.conv1(lq.transpose(1, 2)), 0.1)
-        x = F_.leaky_relu(self.conv2(x), 0.1)
+        x = F_.leaky_relu(conv3d(self.conv1, lq.transpose(1, 2)), 0.1)
+        x = F_.leaky_relu(conv3d(self.conv2, x), 0.1)
         feats = {"shallow": self.feat_extract(x)}
         updated = {}
         for branch in BRANCHES:
@@ -440,10 +545,11 @@ class RVRT(torch.nn.Module):
             feats[branch] = out.flip(1) if back else out
         hr = self.reconstruction(torch.cat(list(feats.values()), -1)
                                  .permute(0, 4, 1, 2, 3))
-        hr = F_.leaky_relu(self.conv_before_upsample(
-            hr.permute(0, 4, 1, 2, 3)), 0.1)
+        hr = F_.leaky_relu(conv3d(self.conv_before_upsample,
+                                  hr.permute(0, 4, 1, 2, 3)), 0.1)
         for conv in self.upsample:
-            hr = F_.pixel_shuffle(conv(hr).transpose(1, 2), 2).transpose(1, 2)
+            hr = F_.pixel_shuffle(conv3d(conv, hr).transpose(1, 2), 2) \
+                .transpose(1, 2)
             hr = F_.leaky_relu(hr, 0.1)
-        hr = self.conv_last(self.conv_hr(hr))
+        hr = conv3d(self.conv_last, conv3d(self.conv_hr, hr))
         return hr.transpose(1, 2) + lq[:, :, :3]

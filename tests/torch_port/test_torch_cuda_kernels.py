@@ -1526,6 +1526,54 @@ def test_rvrt_on_the_card_matches_the_reference(dev):
     assert all(nums[k] <= tol for k, tol in tols.items()), nums
 
 
+# RVRT's conv kinds on the card: (input [B,C,D,H,W], c_out, kernel,
+# stride, padding, channels-last input as RSTBWithInputConv passes it)
+FRAME_CONV_KINDS = [((2, 16, 3, 64, 64), 24, 3, (1, 2, 2), (0, 1, 1), False),
+                    ((2, 48, 2, 32, 32), 16, 3, (1, 1, 1), (0, 1, 1), True),
+                    ((2, 32, 4, 32, 32), 16, 1, (1, 1, 1), (0, 0, 0), True),
+                    ((1, 16, 3, 96, 96), 3, 3, (1, 1, 1), (0, 1, 1), False)]
+
+
+@pytest.mark.parametrize("kind", FRAME_CONV_KINDS)
+@pytest.mark.parametrize("one_frame_chunks", [False, True])
+def test_frame_conv_on_the_card_matches_cudnn_in_float64(dev, kind,
+                                                         one_frame_chunks,
+                                                         monkeypatch):
+    """RVRT's FrameConv on the card: the output and the input and bias
+    gradients are cuDNN's, the weight gradient (float32 GEMMs over chunks
+    of frames, TF32 off; chunks of one frame with UNFOLD_BYTES cut) within
+    1e-5 of max|ref| of cuDNN's float64 weight gradient of the same
+    tensors, and one weight gradient counted."""
+    from stnls_tpu_torch.models import rvrt
+    shape, c_out, k, stride, padding, channels_last = kind
+    if one_frame_chunks:
+        monkeypatch.setattr(rvrt, "UNFOLD_BYTES", 1)
+    B, C, D, H, W = shape
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn((B, D, H, W, C), generator=gen, device=dev) \
+        .permute(0, 4, 1, 2, 3)
+    if not channels_last:
+        x = x.contiguous()
+    conv = torch.nn.Conv3d(C, c_out, (1, k, k), stride, padding).to(dev)
+    xa = x.clone().requires_grad_()
+    n0 = rvrt.FrameConv.calls
+    out = rvrt.conv3d(conv, xa)
+    g = torch.randn(out.shape, generator=gen, device=dev)
+    gx, gw, gb = torch.autograd.grad(out, (xa, conv.weight, conv.bias), g)
+    assert rvrt.FrameConv.calls == n0 + 1
+    xr = x.clone().requires_grad_()
+    ref_out = torch.nn.functional.conv3d(xr, conv.weight, conv.bias, stride,
+                                         padding)
+    rx, rb = torch.autograd.grad(ref_out, (xr, conv.bias), g)
+    assert torch.equal(out, ref_out)
+    assert torch.equal(gb, rb)
+    assert_grad_close(gx, rx, "input gradient", tol=1e-6)
+    ref_w = torch.ops.aten.convolution_backward(
+        g.double(), x.double(), conv.weight.double(), None, stride, padding,
+        (1, 1, 1), False, (0, 0, 0), 1, (False, True, False))[1]
+    assert_grad_close(gw, ref_w, "weight gradient", tol=1e-5)
+
+
 def test_dinat_on_the_card_launches_b5_b6_b9_b10_once_a_layer(dev):
     """DiNAT at its small test size (torch_port_helpers.DINAT_SMALL: the
     published structure, dilations 8, 4, 2 and 1) on the card, forward
